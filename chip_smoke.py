@@ -349,9 +349,15 @@ def time_host(fn):
 
 
 def bound_bytes(kind, A, B, rows, count, t_size, rows_cap):
-    """Bytes the bin's work must move at least: each input it needs read
-    once (the bin's row ids, A rows, and the distinct B rows they
-    reference) and each output written once."""
+    """Bytes the bin's work must move at least, and the bytes the kernel
+    writes for the schedule's padding rows.
+
+    The work is the bin's ``count`` valid rows: each input they need read
+    once (the count, their row ids and A rows, the distinct B rows those
+    reference) and each of their outputs written once (per-row nnz and
+    accesses, and a t_size table per row where the kernel dumps tables).
+    The bucket's rows past ``count`` are a cost of the schedule, returned
+    apart and left out of the bound."""
     from repro_torch.core import gather_rows
     n = int(count)
     valid = torch.arange(rows_cap, device=rows.device) < n
@@ -362,12 +368,12 @@ def bound_bytes(kind, A, B, rows, count, t_size, rows_cap):
     b_rows = int(mark.sum())
     b_entries = int(B.nnz_per_row()[mark].sum())
     vb = 0 if kind == "symbolic_bin" else 4
-    read = (4 * rows_cap + 4 + 8 * n + a_entries * (4 + vb) + 8 * b_rows
+    read = (4 + 4 * n + 8 * n + a_entries * (4 + vb) + 8 * b_rows
             + b_entries * (4 + vb))
-    write = 4 * rows_cap * (1 if kind == "numeric_bin" else 2)
+    per_row = 4 * (1 if kind == "numeric_bin" else 2)
     if kind != "symbolic_bin":
-        write += rows_cap * t_size * 8
-    return read + write
+        per_row += t_size * 8
+    return read + n * per_row, (rows_cap - n) * per_row
 
 
 def phase_main_shapes(sh, A, plan, result, errs):
@@ -387,7 +393,7 @@ def phase_main_shapes(sh, A, plan, result, errs):
     stats = {}
     for kind, (binning, ladder, buckets) in jobs.items():
         ms = plain_ms = 0.0
-        nbytes = 0
+        nbytes = pad_bytes = 0
         rungs = []
         for b, t_size in enumerate(ladder.table_sizes):
             rows_cap = buckets[b]
@@ -405,21 +411,25 @@ def phase_main_shapes(sh, A, plan, result, errs):
             del p, k
             kms = time_cuda(lambda: run_bin(
                 sh, kind, False, A, A, rows, count, t_size, rows_cap), 3)
-            rb = bound_bytes(kind, A, A, rows, count, t_size,
-                             rows_cap)
+            rb, pb = bound_bytes(kind, A, A, rows, count, t_size, rows_cap)
             ms += kms
             plain_ms += pms
             nbytes += rb
+            pad_bytes += pb
             rungs.append(dict(rung=b, t_size=t_size, rows=int(count),
                               rows_cap=rows_cap, ms=kms, plain_ms=pms,
-                              bytes=rb))
+                              bytes=rb, pad_bytes=pb))
             torch.cuda.empty_cache()
         stats[kind] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes,
                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                           pad_bytes=pad_bytes,
+                           pad_ms=pad_bytes / HBM_BYTES_PER_S * 1e3,
                            rungs=rungs)
         log(f"phase main shapes {kind}: {len(rungs)} rungs, kernel "
             f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{stats[kind]['bound_ms']:.3f} ms: ok")
+            f"{stats[kind]['bound_ms']:.3f} ms ({nbytes} B); padding rows "
+            f"write {pad_bytes} B more ({stats[kind]['pad_ms']:.3f} ms at "
+            f"the memory rate): ok")
     return stats
 
 
@@ -459,20 +469,15 @@ def torch_sparse_ms(A):
         warnings.simplefilter("ignore")     # sparse CSR "beta" notices
         At = torch.sparse_csr_tensor(A.rpt.long(), A.col[:nz].long(),
                                      A.val[:nz], size=A.shape)
-    try:
-        (At @ At)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(3):
-            _, ms = time_host(lambda: At @ At)
-            times.append(ms)
-        return statistics.median(times)
-    except torch.cuda.OutOfMemoryError as exc:
-        log(f"torch.sparse yardstick: out of memory ({exc})")
-        return None
-    finally:
-        del At
-        torch.cuda.empty_cache()
+    (At @ At)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        _, ms = time_host(lambda: At @ At)
+        times.append(ms)
+    del At
+    torch.cuda.empty_cache()
+    return statistics.median(times)
 
 
 def _device_us(evt, inclusive):
@@ -486,10 +491,15 @@ def _device_us(evt, inclusive):
     return 0.0
 
 
+RANGES = ("hash_fallback", "hash_epilogue")   # record_function ranges
+
+
 def profile_steady(run_once):
     """One steady call under torch.profiler: device busy share of the wall
-    time, the kernels with the most device time, and the torch ops whose
-    launches took the most device time."""
+    time, the kernels with the most device time, the torch ops whose
+    launches took the most device time, and the device time of each of the
+    port's profiler ranges (all kernels launched inside them)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -499,14 +509,27 @@ def profile_steady(run_once):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
+    # A range's own row is its span on the device timeline, not a kernel.
     kernels = [e for e in events if _device_us(e, False) > 0
-               and not e.key.startswith("aten::")]
+               and not e.key.startswith("aten::") and e.key not in RANGES]
     busy_us = sum(_device_us(e, False) for e in kernels)
     top_kernels = sorted(kernels, key=lambda e: _device_us(e, False),
                          reverse=True)[:10]
     ops = [e for e in events if e.key.startswith("aten::")]
     top_ops = sorted(ops, key=lambda e: _device_us(e, True),
                      reverse=True)[:10]
+    ranges = {name: 0.0 for name in RANGES}
+    range_sorts = {name: 0.0 for name in RANGES}
+    for e in prof.events():
+        if e.name in ranges and e.device_type == DeviceType.CPU:
+            ranges[e.name] += _device_us(e, True) / 1e3
+            stack = list(e.cpu_children)
+            while stack:
+                c = stack.pop()
+                if c.name == "aten::sort":
+                    range_sorts[e.name] += _device_us(c, True) / 1e3
+                else:
+                    stack.extend(c.cpu_children)
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_idle_share=max(0.0, 1 - busy_us / wall_us),
@@ -515,7 +538,8 @@ def profile_steady(run_once):
                      for e in top_kernels],
         top_ops=[dict(name=e.key, calls=e.count,
                       device_ms=_device_us(e, True) / 1e3)
-                 for e in top_ops])
+                 for e in top_ops],
+        range_device_ms=ranges, range_sort_device_ms=range_sorts)
 
 
 def run():
@@ -607,6 +631,9 @@ def run():
     for e in prof["top_ops"][:6]:
         log(f"  {e['name']}: {e['device_ms']:.1f} ms device, "
             f"{e['calls']} calls")
+    for name in RANGES:
+        log(f"  range {name}: {prof['range_device_ms'][name]:.1f} ms device,"
+            f" of it aten::sort {prof['range_sort_device_ms'][name]:.1f} ms")
 
     ref = scipy_check(A, res.C)
     cold_ref = compare_csr("cold vs steady C", res_cold.C, res.C)
@@ -617,8 +644,7 @@ def run():
     torch.cuda.empty_cache()
 
     sparse_ms = torch_sparse_ms(A)
-    log(f"torch.sparse A@A: "
-        f"{'not measured' if sparse_ms is None else '%.1f ms' % sparse_ms}")
+    log(f"torch.sparse A@A: {sparse_ms:.1f} ms")
 
     phase_top_rungs(sh, A, res.sym_binning, res.num_binning, errs)
     stats = phase_main_shapes(sh, A, entry.plan, res, errs)

@@ -31,7 +31,9 @@ Probe disciplines (paper §5.2, Fig. 9):
 Raw tables have stride ``t_size``: the 128-lane padding of the reference's
 TPU tiles has no meaning here, and :func:`numeric_epilogue` takes whatever
 stride its tables have.  The sort/condense epilogue, the ESC fallback rung
-and the binning stay torch ops, as they were jnp outside any kernel.
+and the binning stay torch ops, as they were jnp outside any kernel.  The
+drivers mark the fallback rung and the epilogue with profiler ranges
+(``hash_fallback``, ``hash_epilogue``) so a trace splits their time.
 
 Rows too large for the top rung go to the ESC accumulator (``core/esc``),
 the analog of the paper's global-memory kernels.  The reference's
@@ -45,6 +47,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import esc
 from repro_torch.core.analysis import exclusive_sum_in_place, nprod_into_rpt
@@ -530,11 +533,13 @@ def symbolic_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder,
 
     if row_buckets[-1]:
         # Global-memory-analog rung: ESC on the gathered sub-matrix.
-        rows, valid = _fallback_rows(binning, ladder, row_buckets[-1], m)
-        sub = gather_rows(A, rows, valid)
-        sub_prod = _fallback_sub_prod(A, B, rows, valid)
-        sub_nnz = esc.symbolic(sub, B, prod_capacity=fallback_prod_capacity)
-        _scatter_nnz(nnz_buf, rows, valid, sub_nnz[:rows.shape[0]], m)
+        with record_function("hash_fallback"):
+            rows, valid = _fallback_rows(binning, ladder, row_buckets[-1], m)
+            sub = gather_rows(A, rows, valid)
+            sub_prod = _fallback_sub_prod(A, B, rows, valid)
+            sub_nnz = esc.symbolic(sub, B,
+                                   prod_capacity=fallback_prod_capacity)
+            _scatter_nnz(nnz_buf, rows, valid, sub_nnz[:rows.shape[0]], m)
 
     for b in range(len(ladder.table_sizes) - 1, -1, -1):
         rows_cap = row_buckets[b]
@@ -650,13 +655,15 @@ def numeric_scheduled(A: CSR, B: CSR, rpt: torch.Tensor, binning: Binning,
     sub_prod = torch.zeros((), dtype=torch.int64, device=dev)
 
     if row_buckets[-1]:
-        rows, valid = _fallback_rows(binning, ladder, row_buckets[-1], m)
-        sub = gather_rows(A, rows, valid)
-        sub_prod = _fallback_sub_prod(A, B, rows, valid)
-        subC = esc.spgemm_fused(sub, B, prod_capacity=fallback_prod_capacity,
-                                nnz_capacity=fallback_prod_capacity)
-        scatter_sub_rows(subC, rows, valid, rpt, c_col, c_val,
-                         nnz_capacity=nnz_capacity)
+        with record_function("hash_fallback"):
+            rows, valid = _fallback_rows(binning, ladder, row_buckets[-1], m)
+            sub = gather_rows(A, rows, valid)
+            sub_prod = _fallback_sub_prod(A, B, rows, valid)
+            subC = esc.spgemm_fused(sub, B,
+                                    prod_capacity=fallback_prod_capacity,
+                                    nnz_capacity=fallback_prod_capacity)
+            scatter_sub_rows(subC, rows, valid, rpt, c_col, c_val,
+                             nnz_capacity=nnz_capacity)
 
     for b in range(len(ladder.table_sizes) - 1, -1, -1):
         rows_cap = row_buckets[b]
@@ -667,8 +674,9 @@ def numeric_scheduled(A: CSR, B: CSR, rpt: torch.Tensor, binning: Binning,
             rows, count.reshape(1), A.rpt, A.col, A.val, B.rpt, B.col, B.val,
             t_size=ladder.table_sizes[b], rows_cap=rows_cap,
             single_access=single_access)
-        numeric_epilogue(col_tabs, val_tabs, rows, count, rpt, c_col, c_val,
-                         nnz_capacity=nnz_capacity)
+        with record_function("hash_epilogue"):
+            numeric_epilogue(col_tabs, val_tabs, rows, count, rpt, c_col,
+                             c_val, nnz_capacity=nnz_capacity)
         if collect_accesses:
             valid = torch.arange(rows_cap, device=dev) < count
             accesses = accesses + acc_bin.masked_fill(~valid, 0).sum()
@@ -725,12 +733,14 @@ def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
     if row_buckets[-1]:
         # Global-memory-analog rung, fused form: one ESC expansion yields
         # both the sub-result values AND (via its rpt) the per-row nnz.
-        rows, valid = _fallback_rows(binning, ladder, row_buckets[-1], m)
-        sub = gather_rows(A, rows, valid)
-        sub_prod = _fallback_sub_prod(A, B, rows, valid)
-        subC = esc.spgemm_fused(sub, B, prod_capacity=fallback_prod_capacity,
-                                nnz_capacity=fallback_prod_capacity)
-        _scatter_nnz(nnz_buf, rows, valid, subC.nnz_per_row(), m)
+        with record_function("hash_fallback"):
+            rows, valid = _fallback_rows(binning, ladder, row_buckets[-1], m)
+            sub = gather_rows(A, rows, valid)
+            sub_prod = _fallback_sub_prod(A, B, rows, valid)
+            subC = esc.spgemm_fused(sub, B,
+                                    prod_capacity=fallback_prod_capacity,
+                                    nnz_capacity=fallback_prod_capacity)
+            _scatter_nnz(nnz_buf, rows, valid, subC.nnz_per_row(), m)
         fallback = (subC, rows, valid)
 
     for b in range(len(ladder.table_sizes) - 1, -1, -1):
@@ -756,11 +766,13 @@ def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
     c_val = torch.zeros(nnz_capacity + 1, dtype=A.val.dtype, device=dev)
     if fallback is not None:
         subC, rows, valid = fallback
-        scatter_sub_rows(subC, rows, valid, rpt, c_col, c_val,
-                         nnz_capacity=nnz_capacity)
-    for rows, count, col_tabs, val_tabs in kept:
-        numeric_epilogue(col_tabs, val_tabs, rows, count, rpt, c_col, c_val,
-                         nnz_capacity=nnz_capacity)
+        with record_function("hash_fallback"):
+            scatter_sub_rows(subC, rows, valid, rpt, c_col, c_val,
+                             nnz_capacity=nnz_capacity)
+    with record_function("hash_epilogue"):
+        for rows, count, col_tabs, val_tabs in kept:
+            numeric_epilogue(col_tabs, val_tabs, rows, count, rpt, c_col,
+                             c_val, nnz_capacity=nnz_capacity)
 
     C = CSR(rpt=rpt, col=c_col[:nnz_capacity], val=c_val[:nnz_capacity],
             shape=(m, n))
