@@ -4,19 +4,41 @@
 Run from the root of a checkout:  python3 chip_smoke.py [--report PATH]
 
 Phases, in order; any failure exits non-zero:
-  1. card and build: the card's name and power limit, then the three
-     hash-table kernels built from src/repro_torch/kernels/csrc with nvcc.
-  2. kernel phases: every kernel against its plain PyTorch version on the
-     card, both probe disciplines, packed and unpacked, on a tiny ladder
-     that populates every rung and the fallback rung, and on rows of the
+  1. card and build: the card's name and power limit, then every kernel
+     source in src/repro_torch/kernels/csrc built with nvcc (one process
+     each, all started together) and its ptxas lines.
+  2. hash kernels against their plain PyTorch versions on the card, both
+     probe disciplines, packed and unpacked, on a tiny ladder that
+     populates every rung and the fallback rung, and on rows of the
      default ladders' top rungs.
-  3. the slice: C = A·A through spgemm(method="hash") for the paper's
-     Table-3 matrix mono_500Hz at its full row count (one cold call, then
-     steady calls), with the launch counters read around it, the steady
-     dispatch checked for host syncs, and C held against scipy.
-  4. each kernel at the shapes the main path gave it: its time, its plain
-     version's time on the same inputs (and agreement), and its bound.
-  5. output: a "kernels" JSON line, the card line, and the result line.
+  3. the first slice: C = A·A through spgemm(method="hash") for the
+     paper's Table-3 matrix mono_500Hz at its full row count (one cold
+     call, then steady calls), with the launch counters read around it,
+     the steady dispatch checked for host syncs, a profile of one steady
+     call, and C held against scipy; torch.sparse as the yardstick.
+  4. each hash kernel at the shapes the main path gave it: its time, its
+     plain version's time on the same inputs (and agreement), its bound.
+  5. binning_histogram through its own entry point on mono_500Hz's n_prod
+     (symbolic ladder) and C's nnz per row (numeric ladder), equal to its
+     plain version and to the slice's Binning objects; then timed at the
+     row count of delaunay_n24 (16,777,216 rows) against
+     torch.bincount(torch.bucketize(...)).
+  6. bsr_spmm: edge cases against the plain version (empty block row,
+     padding blocks, bm != bk, N not a multiple of the tile) in float32
+     and bfloat16, then one block-sparse weight layer (M = K = 8192 in
+     128 x 128 blocks, 10 % stored, N = 4096) in both types, timed against
+     torch.sparse_bsr_tensor(...) @ dense.
+  7. the request path: a fresh SpgemmEngine(telemetry=True) with
+     plan_mode="estimate" takes mono_500Hz A·A twice and the scircuit
+     analog A·A twice through submit and drain(window=2); each C is
+     checked, the estimated cold calls must run the fused kernel and not
+     the symbolic one, a steady dispatch must not sync the host, a
+     prewarmed third signature (patents_main) must serve its first
+     request hot, and a dumped plan cache loaded into a new engine must
+     make that engine's first call hot; the engine's report, the drain's
+     wall time and peak memory are printed.
+  8. output: a "kernels" JSON line (all five kernels), the card line, and
+     the result line.
 
 Needs one card.  Exits 2 without printing a result when no card is visible
 or when the port's sources are not beside this script.  ``--report PATH``
@@ -37,16 +59,43 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
-SOURCE = "src/repro_torch/kernels/csrc/spgemm_hash.cu"
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12            # CUDA cores
+BF16_FLOPS = 989e12           # tensor cores
+CSRC = "src/repro_torch/kernels/csrc/"
+HASH_KERNELS = ("symbolic_bin", "numeric_bin", "fused_bin")
+SOURCES = {
+    "symbolic_bin": CSRC + "spgemm_hash.cu",
+    "numeric_bin": CSRC + "spgemm_hash.cu",
+    "fused_bin": CSRC + "spgemm_hash.cu",
+    "binning_histogram": CSRC + "binning_histogram.cu",
+    "bsr_spmm": CSRC + "bsr_spmm.cu",
+}
 REPLACES = {
     "symbolic_bin": "src/repro/kernels/spgemm_hash.py:191",
     "numeric_bin": "src/repro/kernels/spgemm_hash.py:309",
     "fused_bin": "src/repro/kernels/spgemm_hash.py:462",
+    "binning_histogram": "src/repro/kernels/binning_pallas.py:61",
+    "bsr_spmm": "src/repro/kernels/bsr_spmm.py:32",
 }
-# Paper Table 3, mono_500Hz: rows, nnz/row, max nnz/row, row-size shape.
-MONO = dict(rows=169410, avg=29.7, max=719, dist="powerlaw")
+# Paper Table 3 (benchmarks/matrices.py): rows, nnz/row, max nnz/row,
+# row-size shape.  Each analog is seeded with zlib.crc32 of its name.
+MONO = dict(name="mono_500Hz", rows=169410, avg=29.7, max=719,
+            dist="powerlaw")
+SCIRCUIT = dict(name="scircuit", rows=170998, avg=5.6, max=353,
+                dist="powerlaw")
+PATENTS = dict(name="patents_main", rows=240547, avg=2.3, max=206,
+               dist="powerlaw")
+DELAUNAY_ROWS = 16777216      # delaunay_n24, the largest Table-3 matrix
+DELAUNAY_AVG = 6.0
 VAL_RTOL = VAL_ATOL = 1e-5    # kernel vs plain: few products per entry
+# bsr_spmm at 8192 x 8192 x 4096: each output sums ~820 float32 products
+# of magnitude ~1 in another order than cuBLAS does (partial sums ~30,
+# rounding ~2e-6 per add); bfloat16 outputs may round to either side of
+# one bf16 step (2^-7 relative).
+BSR_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),
+           "bfloat16": dict(rtol=2 ** -7, atol=1e-2)}
 STEADY_CALLS = 5
 
 
@@ -292,12 +341,37 @@ def phase_tiny(sh, errs):
         f"packed and unpacked, values within {VAL_ATOL} + {VAL_RTOL}*|v|: ok")
 
 
-def mono_matrix():
+def table3_matrix(spec):
+    """The analog of a Table-3 matrix at its full row count, on the card."""
     from repro_torch.core import random_csr
-    return random_csr(zlib.crc32(b"mono_500Hz"), MONO["rows"], MONO["rows"],
-                      avg_nnz_per_row=MONO["avg"],
-                      max_nnz_per_row=MONO["max"],
-                      distribution=MONO["dist"], device="cuda")
+    t0 = time.perf_counter()
+    M = random_csr(zlib.crc32(spec["name"].encode()), spec["rows"],
+                   spec["rows"], avg_nnz_per_row=spec["avg"],
+                   max_nnz_per_row=spec["max"], distribution=spec["dist"],
+                   device="cuda")
+    log(f"{spec['name']} analog: {M.nrows} rows, nnz {int(M.nnz())}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    return M
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels import spgemm_hash as sh
+    from repro_torch.kernels.binning_histogram import binning_histogram
+    from repro_torch.kernels.bsr_spmm import bsr_spmm
+    return {"symbolic_bin": sh.symbolic_bin_call,
+            "numeric_bin": sh.numeric_bin_call,
+            "fused_bin": sh.fused_bin_call,
+            "binning_histogram": binning_histogram, "bsr_spmm": bsr_spmm}
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def phase_top_rungs(sh, A, sym_binning, num_binning, errs):
@@ -542,42 +616,31 @@ def profile_steady(run_once):
         range_device_ms=ranges, range_sort_device_ms=range_sorts)
 
 
-def run():
-    import numpy as np
+def host_syncs(fn):
+    """Run fn() with torch's sync debug mode on; returns (its result, the
+    first line of every host-sync warning it raised)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message).splitlines()[0] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def phase_slice(A):
+    """The first slice: cold + steady spgemm(method="hash") on A·A."""
     from repro_torch import SpgemmConfig, spgemm
     from repro_torch.engine import default_engine, plan_key
-    from repro_torch.kernels import build
-    from repro_torch.kernels import spgemm_hash as sh
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(f"card: {card}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
-    secs = build.build_all()
-    log(f"build: {secs:.1f} s")
-    for line in build.BUILD_LOG.get("spgemm_hash", "").splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-
-    errs = {k: 0.0 for k in REPLACES}
-    phase_tiny(sh, errs)
-
-    # ---- the slice: full-size mono_500Hz through spgemm(method="hash") --
-    t0 = time.perf_counter()
-    A = mono_matrix()
-    log(f"mono_500Hz analog: {A.nrows} rows, nnz {int(A.nnz())}, "
-        f"built in {time.perf_counter() - t0:.1f} s")
     cfg = SpgemmConfig(method="hash")
     engine = default_engine()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sh.reset_launches()
+    reset_launches()
     res_cold, cold_ms = time_host(lambda: spgemm(A, A, cfg))
-    cold_launches = {f.__name__.replace("_call", ""): f.launches
-                     for f in sh.KERNELS}
+    cold_launches = read_launches()
     require(cold_launches["symbolic_bin"] > 0
             and cold_launches["numeric_bin"] > 0,
             f"cold call did not launch the two-pass kernels: "
@@ -587,23 +650,15 @@ def run():
     steady_ms = []
     syncs = []
     res = None
-    for i in range(STEADY_CALLS):
+    for _ in range(STEADY_CALLS):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                rec = engine.dispatch(A, A, cfg)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        syncs += [str(w.message).splitlines()[0] for w in caught
-                  if "called a synchronizing" in str(w.message)]
+        rec, caught = host_syncs(lambda: engine.dispatch(A, A, cfg))
+        syncs += caught
         res = engine.finalize(rec)
         torch.cuda.synchronize()
         steady_ms.append((time.perf_counter() - t1) * 1e3)
-    launches = {f.__name__.replace("_call", ""): f.launches
-                for f in sh.KERNELS}
+    launches = read_launches()
     steady_launches = {k: launches[k] - cold_launches[k] for k in launches}
     peak = torch.cuda.max_memory_allocated()
     require(steady_launches["fused_bin"] > 0,
@@ -622,7 +677,7 @@ def run():
         f" peak {peak / 2**30:.2f} GiB, launches cold {cold_launches} "
         f"steady {steady_launches}, host syncs in steady dispatch: 0")
     log(f"schedule: {entry.plan.hash_schedule}, nnz bucket "
-        f"{entry.plan.nnz_bucket}")
+        f"{entry.plan.nnz_bucket}, policy {entry.plan.policy}")
 
     prof = profile_steady(lambda: spgemm(A, A, cfg))
     log(f"profile of one steady call: wall {prof['wall_ms']:.1f} ms, "
@@ -642,34 +697,374 @@ def run():
         f"{cold_ref:.3e}: ok")
     del res_cold
     torch.cuda.empty_cache()
-
     sparse_ms = torch_sparse_ms(A)
     log(f"torch.sparse A@A: {sparse_ms:.1f} ms")
+    return res, entry.plan, launches, dict(
+        matrix=MONO["name"], rows=A.nrows, nnz=int(A.nnz()),
+        total_nprod=res.total_nprod, total_nnz=res.total_nnz,
+        cold_ms=cold_ms, steady_ms=steady_ms,
+        steady_median_ms=statistics.median(steady_ms), peak_bytes=peak,
+        torch_sparse_ms=sparse_ms, cold_launches=cold_launches,
+        steady_launches=steady_launches,
+        schedule=str(entry.plan.hash_schedule),
+        nnz_bucket=entry.plan.nnz_bucket, scipy=ref, profile=prof)
 
+
+def phase_binning(A, res, errs):
+    """binning_histogram through its own entry point on the slice's sizes,
+    then at delaunay_n24's row count."""
+    import numpy as np
+    from repro_torch.core import nprod_into_rpt, numeric_ladder, \
+        symbolic_ladder
+    from repro_torch.kernels.binning_histogram import binning_histogram
+    from repro_torch.kernels.ref import binning_histogram_ref
+    sym, num = symbolic_ladder(), numeric_ladder()
+    nprod = nprod_into_rpt(A, A)[:A.nrows]
+    nnz = res.C.nnz_per_row()
+    jobs = (("n_prod / symbolic ladder", nprod, sym, res.sym_binning),
+            ("nnz / numeric ladder", nnz, num, res.num_binning))
+    reset_launches()
+    outs = [binning_histogram(x, upper=lad.upper, num_bins=lad.num_bins)
+            for _, x, lad, _ in jobs]
+    torch.cuda.synchronize()
+    launches = read_launches()["binning_histogram"]
+    require(launches == len(jobs),
+            f"binning_histogram launched {launches} times for {len(jobs)} "
+            "calls")
+    for (what, x, lad, binning), (hist, mx) in zip(jobs, outs):
+        want_h, want_m = binning_histogram_ref(x, upper=lad.upper,
+                                               num_bins=lad.num_bins)
+        require(torch.equal(hist, want_h) and torch.equal(mx, want_m),
+                f"binning_histogram ({what}) differs from its plain version")
+        require(torch.equal(hist, binning.bin_size)
+                and int(mx) == int(binning.max_size),
+                f"binning_histogram ({what}) differs from the slice's "
+                f"Binning: {hist.tolist()} / {int(mx)} vs "
+                f"{binning.bin_size.tolist()} / {int(binning.max_size)}")
+        log(f"phase binning_histogram on mono_500Hz {what}: bins "
+            f"{hist.tolist()}, max {int(mx)}, equal to the plain version "
+            f"and to the slice's Binning: ok")
+
+    # Timing at delaunay_n24's row count: n_prod of a row of A·A with 6.0
+    # nnz per row is about 36, drawn here as Poisson(36).
+    rng = np.random.default_rng(zlib.crc32(b"delaunay_n24"))
+    sizes = torch.from_numpy(rng.poisson(DELAUNAY_AVG ** 2, DELAUNAY_ROWS)
+                             .astype(np.int32)).cuda()
+    kw = dict(upper=sym.upper, num_bins=sym.num_bins)
+    hist, mx = binning_histogram(sizes, **kw)
+    want_h, want_m = binning_histogram_ref(sizes, **kw)
+    require(torch.equal(hist, want_h) and torch.equal(mx, want_m),
+            "binning_histogram at 16,777,216 rows differs from its plain "
+            "version")
+    bounds = torch.tensor(sym.upper, dtype=torch.int32, device="cuda")
+    lib = torch.bincount(torch.bucketize(sizes, bounds),
+                         minlength=sym.num_bins)
+    require(torch.equal(lib.to(torch.int32), hist),
+            "binning_histogram differs from bincount(bucketize(...))")
+    ms = time_cuda(lambda: binning_histogram(sizes, **kw), 20)
+    plain_ms = time_cuda(lambda: binning_histogram_ref(sizes, **kw), 5)
+    library_ms = time_cuda(lambda: torch.bincount(
+        torch.bucketize(sizes, bounds), minlength=sym.num_bins), 5)
+    nbytes = 4 * DELAUNAY_ROWS + 4 * (sym.num_bins + 1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"phase binning_histogram at {DELAUNAY_ROWS} rows: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bincount(bucketize) "
+        f"{library_ms:.4f} ms (two calls), bound {bound_ms:.4f} ms "
+        f"({nbytes} B): ok")
+    errs["binning_histogram"] = 0.0
+    del sizes
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_calls=2, bound_ms=bound_ms,
+                bound_by="bytes", bytes=nbytes, rows=DELAUNAY_ROWS)
+
+
+def _bsr_case(rng, nbr, nbc, bm, bk, density, *, every_row=True,
+              empty_row=None, padding=0):
+    """Random block layout (blk_rows, blk_cols) on the host: ``every_row``
+    stores a block in each block row but ``empty_row``; ``padding`` zero
+    blocks repeat the last row."""
+    import numpy as np
+    mask = rng.random((nbr, nbc)) < density
+    if every_row:
+        mask[np.arange(nbr), np.arange(nbr) % nbc] = True
+    if empty_row is not None:
+        mask[empty_row] = False
+    rows, cols = np.nonzero(mask)
+    rows = np.concatenate([rows, np.full(padding, rows[-1])])
+    cols = np.concatenate([cols, np.zeros(padding, np.int64)])
+    return rows.astype(np.int32), cols.astype(np.int32), len(rows) - padding
+
+
+def _bsr_tensors(rows, cols, n_real, bm, bk, k, n, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    blocks = torch.randn((len(rows), bm, bk), generator=g, device="cuda")
+    blocks[n_real:] = 0          # padding entries carry zero blocks
+    dense = torch.randn((k, n), generator=g, device="cuda")
+    return (torch.from_numpy(rows).cuda(), torch.from_numpy(cols).cuda(),
+            blocks.to(dtype), dense.to(dtype))
+
+
+def _bsr_err(got, want, dtype_name, what):
+    tol = BSR_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    require(torch.allclose(g, w, **tol),
+            f"bsr_spmm {what} ({dtype_name}) differs from its plain version "
+            f"by up to {err:.3e}")
+    return err
+
+
+def phase_bsr(errs):
+    """bsr_spmm: edge cases, then one block-sparse weight layer."""
+    import numpy as np
+    from repro_torch.kernels.bsr_spmm import block_row_pointers, bsr_spmm
+    from repro_torch.kernels.ref import bsr_spmm_ref
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain in full fp32
+    rng = np.random.default_rng(zlib.crc32(b"bsr_spmm"))
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = {  # nbr, nbc, bm, bk, n, empty_row, padding
+        "empty block row + padding": (6, 5, 16, 16, 48, 2, 2),
+        "bm != bk": (4, 3, 32, 8, 40, None, 0),
+        "N not a multiple of the tile": (3, 3, 128, 128, 100, None, 1),
+        "128 x 128, N = 4096": (4, 4, 128, 128, 4096, 0, 0),
+    }
+    err = {name: 0.0 for name in dtypes}
+    for what, (nbr, nbc, bm, bk, n, empty, pad) in cases.items():
+        rows, cols, n_real = _bsr_case(rng, nbr, nbc, bm, bk, 0.5,
+                                       empty_row=empty, padding=pad)
+        for name, dt in dtypes.items():
+            t = _bsr_tensors(rows, cols, n_real, bm, bk, nbc * bk, n, dt,
+                             len(rows))
+            got = bsr_spmm(*t, n_block_rows=nbr)
+            want = bsr_spmm_ref(*t, nrows_blocks=nbr, block_shape=(bm, bk))
+            torch.cuda.synchronize()
+            err[name] = max(err[name], _bsr_err(got, want, name, what))
+            if empty is not None:
+                require(not bool(got[empty * bm:(empty + 1) * bm].any()),
+                        f"bsr_spmm {what} ({name}): the empty block row is "
+                        "not zero")
+        log(f"phase bsr_spmm edge case {what}: float32 and bfloat16: ok")
+
+    # One block-sparse weight layer: 8192 x 8192 in 128 x 128 blocks (the
+    # tile the TPU kernel was written around), 10 % of blocks stored,
+    # times a dense 8192 x 4096 operand.
+    nbr = nbc = 64
+    bm = bk = 128
+    n = 4096
+    rows, cols, n_real = _bsr_case(rng, nbr, nbc, bm, bk, 0.1,
+                                   every_row=False)
+    nnzb = len(rows)
+    inputs = {name: _bsr_tensors(rows, cols, n_real, bm, bk, nbc * bk, n,
+                                 dt, 12)
+              for name, dt in dtypes.items()}
+    reset_launches()
+    outs = {name: bsr_spmm(*t, n_block_rows=nbr)
+            for name, t in inputs.items()}
+    torch.cuda.synchronize()
+    launches = read_launches()["bsr_spmm"]
+    require(launches == len(dtypes),
+            f"bsr_spmm launched {launches} times for {len(dtypes)} calls")
+    stats = {}
+    stripes = len(set(cols.tolist()))
+    for name, t in inputs.items():
+        want = bsr_spmm_ref(*t, nrows_blocks=nbr, block_shape=(bm, bk))
+        e = _bsr_err(outs[name], want, name, "8192 x 8192 layer")
+        err[name] = max(err[name], e)
+        del want
+        size = t[2].element_size()
+        ptr64 = block_row_pointers(t[0], nbr).long()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # beta and tuning notices
+            S = torch.sparse_bsr_tensor(ptr64, t[1].long(), t[2],
+                                        size=(nbr * bm, nbc * bk))
+            lib = S @ t[3]
+            torch.cuda.synchronize()
+            # The yardstick's own arithmetic is not held to a tolerance.
+            lib_err = float((lib.float() - outs[name].float()).abs().max())
+            library_ms = time_cuda(lambda: S @ t[3], 10)
+        del lib, S
+        ms = time_cuda(lambda: bsr_spmm(*t, n_block_rows=nbr), 10)
+        plain_ms = time_cuda(lambda: bsr_spmm_ref(
+            *t, nrows_blocks=nbr, block_shape=(bm, bk)), 3)
+        flops = 2 * nnzb * bm * bk * n
+        nbytes = (nnzb * (bm * bk * size + 8) + 4 * (nbr + 1)
+                  + stripes * bk * n * size + nbr * bm * n * size)
+        peak = FP32_FLOPS if name == "float32" else BF16_FLOPS
+        ops_ms = flops / peak * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        stats[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            ops_ms=ops_ms, bytes_ms=bytes_ms, flops=flops, bytes=nbytes,
+            max_abs_err=e, library_max_abs_err=lib_err,
+            tflops=flops / ms / 1e9)
+        log(f"phase bsr_spmm layer ({name}, {nnzb} blocks, {flops / 1e9:.1f}"
+            f" GFLOP): kernel {ms:.3f} ms ({stats[name]['tflops']:.1f} "
+            f"TFLOP/s), plain {plain_ms:.3f} ms, torch.sparse "
+            f"{library_ms:.3f} ms, bound {stats[name]['bound_ms']:.3f} ms "
+            f"by {stats[name]['bound_by']} (ops {ops_ms:.3f}, bytes "
+            f"{bytes_ms:.3f}), max |err| {e:.3e}: ok")
+    del inputs, outs
+    torch.cuda.empty_cache()
+    errs["bsr_spmm"] = err["float32"]
+    return dict(launches=launches, nnzb=nnzb, m=nbr * bm, k=nbc * bk, n=n,
+                block=(bm, bk), edge_max_abs_err=err, **stats)
+
+
+def phase_request_path(A, C_mono):
+    """submit/drain with plan_mode="estimate", prewarm and dump/load."""
+    import tempfile
+    from repro_torch import SpgemmConfig
+    from repro_torch.engine import SpgemmEngine, plan_key
+    cfg = SpgemmConfig(method="hash", plan_mode="estimate")
+    S = table3_matrix(SCIRCUIT)
+    engine = SpgemmEngine(cfg, telemetry=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    uids = {"mono": [engine.submit(A, A) for _ in range(2)],
+            "scircuit": [engine.submit(S, S) for _ in range(2)]}
+    results = engine.drain(window=2)
+    torch.cuda.synchronize()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    st = engine.stats
+    drain_stats = {name: getattr(st, name) for name in (
+        "estimates", "estimate_hits", "estimate_misses", "capacity_grows",
+        "overlapped", "reordered", "peak_inflight")}
+    require(st.estimates == 2, f"expected 2 estimated plans: {st}")
+    redone = st.estimate_misses + st.capacity_grows
+    require(launches["fused_bin"] > 0,
+            f"the drain did not launch the fused kernel: {launches}")
+    if redone:
+        log(f"request path: {st.estimate_misses} estimate misses, "
+            f"{st.capacity_grows} capacity grows (redone on the steps path)")
+    else:
+        require(launches["symbolic_bin"] == 0
+                and launches["numeric_bin"] == 0,
+                f"estimated cold calls ran the sizing kernels without a "
+                f"reported redo: {launches}")
+    for uid in uids["mono"]:
+        compare_csr(f"request {uid} (mono_500Hz) vs the slice's C",
+                    results[uid].C, C_mono)
+    s_ref = [scipy_check(S, results[uid].C) for uid in uids["scircuit"]]
+    log(f"request path drain: 2 x mono_500Hz + 2 x scircuit at window 2: "
+        f"wall {drain_ms:.1f} ms, peak {peak / 2**30:.2f} GiB "
+        f"({base / 2**30:.2f} GiB held before), launches {launches}, "
+        f"estimates {st.estimates} (hits {st.estimate_hits}, misses "
+        f"{st.estimate_misses}), overlapped {st.overlapped}, reordered "
+        f"{st.reordered}, peak in flight {st.peak_inflight}; C matches: ok")
+    del results
+
+    entry = engine.cache.peek(plan_key(A, A, cfg))
+    rec, syncs = host_syncs(lambda: engine.dispatch(A, A))
+    res = engine.finalize(rec)
+    require(not syncs, f"steady dispatch of an estimated plan synced the "
+            f"host {len(syncs)} times: {sorted(set(syncs))}")
+    require(torch.equal(res.C.rpt, C_mono.rpt), "steady request C.rpt "
+            "differs from the slice's")
+    require(entry.stats.hot_calls == 3
+            and entry.stats.steps_calls == entry.stats.capacity_grows,
+            f"estimated mono plan: {entry.stats}")
+    del res, rec
+    log("request path steady dispatch: 0 host syncs: ok")
+
+    P = table3_matrix(PATENTS)
+    plan = engine.prewarm(P, P)
+    require(plan.is_specialized and plan.policy.estimated,
+            f"prewarm did not specialize: {plan}")
+    res = engine.execute(P, P)
+    pentry = engine.cache.peek(plan_key(P, P, cfg))
+    require(pentry.stats.steps_calls == 0 and pentry.stats.hot_calls == 1,
+            f"prewarmed plan's first request was not hot: {pentry.stats}")
+    p_ref = scipy_check(P, res.C)
+    log(f"request path prewarm (patents_main): first request hot, nnz "
+        f"{p_ref['nnz']}: ok")
+    del res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "plans.json")
+        n_dumped = engine.cache.dump(path)
+        fresh = SpgemmEngine(cfg, telemetry=True)
+        n_loaded = fresh.cache.load(path)
+    res = fresh.execute(S, S)
+    sentry = fresh.cache.peek(plan_key(S, S, cfg))
+    require(n_loaded == n_dumped == 3, f"dumped {n_dumped}, loaded "
+            f"{n_loaded} plans")
+    require(sentry.stats.steps_calls == 0 and sentry.stats.hot_calls == 1
+            and fresh.stats.estimates == 0,
+            f"loaded plan's first request was not hot: {sentry.stats}, "
+            f"{fresh.stats.estimates} estimates")
+    scipy_check(S, res.C)
+    log(f"request path dump/load: {n_dumped} plans, first call of the new "
+        f"engine hot: ok")
+    report = engine.report()
+    log("engine report:\n" + "\n".join("  " + line
+                                        for line in report.splitlines()))
+    return dict(drain_ms=drain_ms, peak_bytes=peak, held_bytes=base,
+                window=2, launches=launches, drain_stats=drain_stats,
+                scircuit=s_ref, patents=p_ref, report=report)
+
+
+def run():
+    import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.kernels import spgemm_hash as sh
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    secs = build.build_all()
+    log(f"build: {secs:.1f} s")
+    for name in build.SIGNATURES:
+        for line in build.BUILD_LOG.get(name, "").splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"  ptxas {name}.cu: {line.strip()}")
+
+    errs = {k: 0.0 for k in REPLACES}
+    phase_tiny(sh, errs)
+    A = table3_matrix(MONO)
+    res, plan, launches, slice_stats = phase_slice(A)
     phase_top_rungs(sh, A, res.sym_binning, res.num_binning, errs)
-    stats = phase_main_shapes(sh, A, entry.plan, res, errs)
+    stats = phase_main_shapes(sh, A, plan, res, errs)
+    for name in HASH_KERNELS:
+        stats[name].update(launches=launches[name], library_ms=None,
+                           bound_by="bytes")
+    stats["binning_histogram"] = phase_binning(A, res, errs)
+    stats["bsr_spmm"] = phase_bsr(errs)
+    request = phase_request_path(A, res.C)
 
     kernels = []
     for name in REPLACES:
         s = stats[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCE,
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=errs[name], ms=s["ms"], plain_ms=s["plain_ms"],
-            bound_ms=s["bound_ms"], bound_by="bytes", library_ms=None))
+        entry = dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=s["launches"],
+            max_abs_err=errs[name])
+        top = s["float32"] if name == "bsr_spmm" else s
+        entry.update({k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")})
+        if name == "binning_histogram":
+            entry["library_calls"] = s["library_calls"]
+        if name == "bsr_spmm":
+            entry["dtype"] = "float32"
+            entry["bfloat16"] = {k: s["bfloat16"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}
+        kernels.append(entry)
     return dict(
-        card=card, kernels=kernels, build_s=secs,
-        slice=dict(matrix="mono_500Hz", rows=A.nrows, nnz=int(A.nnz()),
-                   total_nprod=res.total_nprod, total_nnz=res.total_nnz,
-                   cold_ms=cold_ms, steady_ms=steady_ms,
-                   steady_median_ms=statistics.median(steady_ms),
-                   peak_bytes=peak, torch_sparse_ms=sparse_ms,
-                   cold_launches=cold_launches,
-                   steady_launches=steady_launches,
-                   schedule=str(entry.plan.hash_schedule),
-                   nnz_bucket=entry.plan.nnz_bucket, scipy=ref,
-                   profile=prof),
-        main_shapes=stats,
+        card=card, kernels=kernels, build_s=secs, slice=slice_stats,
+        main_shapes=stats, request_path=request,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)
 

@@ -34,8 +34,10 @@ class SpgemmConfig:
 
     ``interpret`` has no effect here: a kernel wrapper runs its plain
     version on CPU tensors and its CUDA kernel on CUDA tensors.
-    ``shards`` other than 1 and ``plan_mode="estimate"`` wait for later
-    slices of the port and are refused by the planner.
+    ``plan_mode="estimate"`` sizes cold plans from the sampling estimator
+    (``core/analysis.estimate_result``) instead of the full symbolic pass,
+    as in the reference.  ``shards`` other than 1 waits for the port's
+    sharding and is refused by the planner.
     """
 
     method: str = "esc"              # "esc" | "hash"

@@ -1,20 +1,40 @@
-"""SpGEMM execution-plan engine: cached plans and the steady-state executor.
+"""SpGEMM execution-plan engine: cached plans, the executor, telemetry.
 
   plan.py      — immutable :class:`SpgemmPlan` over operand signatures
                  (everything derivable before data arrives), and the learned
                  :class:`HashSchedule`.
-  cache.py     — LRU :class:`PlanCache` of plans + steady-state pipelines.
+  autotune.py  — :class:`AdaptivePolicy` / :class:`PolicyState`: the learned
+                 hash-schedule headroom, and the :class:`EstimatorState`
+                 behind ``plan_mode="estimate"``.
+  cache.py     — LRU :class:`PlanCache` of plans + steady-state pipelines,
+                 with JSON ``dump``/``load`` in the reference's format.
   executor.py  — :class:`SpgemmEngine`: cold six-step path, steady-state
-                 dispatch, one-read finalize, overflow grow-and-redo;
-                 ``execute`` backs ``spgemm()``.
+                 dispatch, one-read finalize, overflow grow-and-redo,
+                 streaming submit/drain with completion-order finalize, and
+                 prewarm; ``execute`` backs ``spgemm()``.
+  stats.py     — pipeline-build accounting and registry-backed engine and
+                 plan counters; ``render`` is ``SpgemmEngine.report``.
+  telemetry.py — spans, metrics registry, ring-buffer event log, and the
+                 JSONL / Chrome trace_event exporters.
 """
-from .cache import CacheEntry, PlanCache, PlanStats
-from .executor import SpgemmEngine, default_engine, reset_default_engine
+from .autotune import (AdaptivePolicy, EstimatorState, PolicyState,
+                       trim_schedule)
+from .cache import CacheEntry, PlanCache
+from .executor import (SpgemmEngine, SpgemmRequest, StepTimer,
+                       default_engine, reset_default_engine)
 from .plan import (HashSchedule, MatrixSig, PlanKey, SpgemmPlan, plan,
                    plan_key)
+from .stats import (EngineStats, PlanStats, plan_label, render,
+                    total_traces, traces_for)
+from .telemetry import (LATENCY_BUCKETS_S, EventLog, MetricsRegistry, Span,
+                        Telemetry, resolve_telemetry)
 
 __all__ = [
-    "CacheEntry", "PlanCache", "PlanStats", "SpgemmEngine",
+    "AdaptivePolicy", "EstimatorState", "PolicyState", "trim_schedule",
+    "CacheEntry", "PlanCache", "SpgemmEngine", "SpgemmRequest", "StepTimer",
     "default_engine", "reset_default_engine", "HashSchedule", "MatrixSig",
-    "PlanKey", "SpgemmPlan", "plan", "plan_key",
+    "PlanKey", "SpgemmPlan", "plan", "plan_key", "EngineStats", "PlanStats",
+    "plan_label", "render", "total_traces", "traces_for",
+    "LATENCY_BUCKETS_S", "EventLog", "MetricsRegistry", "Span", "Telemetry",
+    "resolve_telemetry",
 ]

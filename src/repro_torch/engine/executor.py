@@ -18,35 +18,47 @@ Two execution paths for the OpSparse two-phase flow (paper Fig. 2):
     read that verifies the buckets (growing them and redoing the call via
     the steps path on overflow).
 
-The adaptive headroom, arena leases, telemetry, faults, sharding and the
-submit/drain stream of the reference wait for later slices: schedules are
-learned with the fixed headroom ``_HEADROOM`` (it only pads them and never
-changes a result).
+The :class:`SpgemmEngine` also carries the reference's request path:
+``submit``/``drain`` stream requests grouped by plan signature through a
+bounded window of dispatches in flight, finalizing them in completion
+order (a CUDA event recorded at the end of each dispatch says when its
+device work is done); ``prewarm`` specializes a plan ahead of traffic;
+``plan_mode="estimate"`` specializes cold plans from the sampling
+estimator (``core/analysis.estimate_result``) instead of the full
+symbolic pass; the hash headroom is learned per plan
+(``engine/autotune``); ``EngineStats``, spans and ``report()`` come from
+``engine/stats`` and ``engine/telemetry``.  The reference's workspace
+arena (leases, memory governor, pressure retries), fault injection and
+sharded dispatch wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import time
-from typing import Callable, Dict, Optional, Union
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
 from repro_torch.core import esc
-from repro_torch.core.analysis import exclusive_sum_in_place, nprod_into_rpt
+from repro_torch.core.analysis import (estimate_result,
+                                       exclusive_sum_in_place,
+                                       nprod_into_rpt)
 from repro_torch.core.binning import bin_rows, bin_rows_for_ladder
 from repro_torch.core.csr import CSR
 from repro_torch.core.spgemm import SpgemmConfig, SpgemmResult
 from repro_torch.core.workspace import next_bucket
 from repro_torch.kernels import spgemm_hash
 
+from . import autotune, stats as stats_mod
+from .autotune import AdaptivePolicy, PolicyState
 from .cache import CacheEntry, PlanCache
-from .plan import HashSchedule, SpgemmPlan, plan as make_plan, plan_key
+from .plan import HashSchedule, MatrixSig, SpgemmPlan, plan as make_plan
+from .stats import EngineStats
+from .telemetry import Span, Telemetry, resolve_telemetry
 
-# Bin-count headroom of learned hash schedules (the reference's
-# AdaptivePolicy.headroom_init): steady-state bin-size jitter stays inside
-# the buckets; padding rows are masked blocks.
-_HEADROOM = 2.0
 # Capacity buckets (product expansion / C storage) get a smaller margin: it
 # only moves the pow-2 bucket when the observed total sits in the top fifth
 # of one, where same-signature jitter would otherwise flip buckets.
@@ -59,19 +71,32 @@ def _sync(value: torch.Tensor) -> None:
 
 
 class StepTimer:
-    """Per-step wall clock of the steps path (waits only when enabled)."""
+    """Per-step wall clock of the steps path (waits only when enabled).
 
-    def __init__(self, enabled: bool):
-        self.enabled = enabled
+    With an enabled ``tracer`` each measured step also records a span,
+    nested under the tracer's current ``with``-span (``cold_steps``): the
+    steps path waits for the device at each step anyway.
+    """
+
+    def __init__(self, enabled: bool, tracer: Optional[Telemetry] = None,
+                 uid: Optional[int] = None):
+        self.tracer = tracer if (tracer is not None
+                                 and tracer.enabled) else None
+        self.enabled = enabled or self.tracer is not None
+        self.uid = uid
         self.timings: Dict[str, float] = {}
 
     def measure(self, name: str, value: torch.Tensor) -> torch.Tensor:
         """Wait for ``value`` and charge the wait to ``name``."""
         if self.enabled:
+            span = (self.tracer.start_span(name, uid=self.uid)
+                    if self.tracer is not None else None)
             t0 = time.perf_counter()
             _sync(value)
             self.timings[name] = self.timings.get(name, 0.0) + (
                 time.perf_counter() - t0)
+            if span is not None:
+                self.tracer.end_span(span)
         return value
 
 
@@ -89,7 +114,7 @@ def _floor_schedule(row_buckets, fall_cap, plan_buckets, plan_fall):
 
 
 def _execute_steps(A: CSR, B: CSR, plan: SpgemmPlan, timer: StepTimer, *,
-                   headroom: float = _HEADROOM):
+                   headroom: float):
     """Cold / timing / redo path -> (result, prod_cap, nnz_cap, hash_sched).
 
     The capacity buckets are floored at the plan's learned ones.  For the
@@ -97,7 +122,9 @@ def _execute_steps(A: CSR, B: CSR, plan: SpgemmPlan, timer: StepTimer, *,
     (``host_schedule`` with ``headroom``, floored at the plan's), runs the
     schedule-driven kernels with it, and the combined
     :class:`HashSchedule` is returned for the caller to specialize the
-    plan with (``None`` for ESC).
+    plan with (``None`` for ESC).  ``headroom`` over-provisions the
+    learned bin-count buckets so steady-state bin-size jitter stays inside
+    them; the engine passes the plan's adaptive-policy value.
     """
     config = plan.config
     m = A.nrows
@@ -287,29 +314,66 @@ def _build_fused_hash_executable(plan: SpgemmPlan) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# Request records and the engine.
+# Request records.
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SpgemmRequest:
+    """One queued (A, B) product awaiting ``drain()``."""
+
+    uid: int
+    A: CSR
+    B: CSR
+    config: SpgemmConfig
+
 
 @dataclasses.dataclass
 class _Finished:
     """A call that completed on the steps path."""
 
+    uid: int
     result: SpgemmResult
+    span: Optional[Span] = None    # open request span (ends at finalize)
+    t0: Optional[float] = None     # dispatch wall clock
 
 
 @dataclasses.dataclass
 class _Pending:
     """A dispatched steady-state call awaiting its one host read."""
 
+    uid: int
     entry: CacheEntry
     plan: SpgemmPlan    # the plan it was dispatched with (the entry may be
                         # re-specialized before finalize)
     A: CSR
     B: CSR
     handles: tuple
+    t0: float
+    span: Optional[Span] = None
+    # Host phase times of an estimated cold call (estimate, build,
+    # compile_dispatch), merged into the result's timings.
+    timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+    done: Optional[torch.cuda.Event] = None   # recorded after the dispatch
 
 
 Record = Union[_Finished, _Pending]
+
+
+def _record_done(device: torch.device) -> Optional[torch.cuda.Event]:
+    """An event after the work queued so far on ``device`` (None on CPU,
+    where the work is done when the dispatch returns)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _record_ready(rec: Record) -> bool:
+    """Whether a record's device work has completed (never blocks)."""
+    if isinstance(rec, _Finished) or rec.done is None:
+        return True
+    return rec.done.query()
 
 
 def _host_ints(*parts: torch.Tensor):
@@ -319,20 +383,52 @@ def _host_ints(*parts: torch.Tensor):
     return flat.tolist()
 
 
-class SpgemmEngine:
-    """SpGEMM front end: plan cache + steps / steady-state dispatch.
+# ---------------------------------------------------------------------------
+# The engine.
+# ---------------------------------------------------------------------------
 
-    ``execute(A, B)`` is what :func:`repro_torch.core.spgemm.spgemm`
-    wraps.  It is ``finalize(dispatch(A, B))``: ``dispatch`` queues the
-    device work of a steady-state call without reading the device, and
-    ``finalize`` makes the call's one host read.
+class SpgemmEngine:
+    """SpGEMM front end: plan cache, steps / steady-state dispatch and the
+    streaming request path.
+
+    Usage::
+
+        engine = SpgemmEngine(SpgemmConfig(method="hash"))
+        r = engine.execute(A, B)                 # synchronous, plan-cached
+
+        engine.submit(A1, B1); engine.submit(A2, B2)
+        results = engine.drain(window=2)   # {uid: result}, completion order
+
+    ``execute`` is what :func:`repro_torch.core.spgemm.spgemm` wraps; it is
+    ``finalize(dispatch(A, B))``.  ``dispatch`` queues the device work of a
+    steady-state call without reading the device, ``finalize`` makes its
+    one host read.  ``policy`` tunes the :class:`AdaptivePolicy` knobs (hash
+    headroom, trims, estimator); ``telemetry=True`` records spans and
+    events.
     """
 
     def __init__(self, config: Optional[SpgemmConfig] = None, *,
-                 cache_capacity: int = 64):
+                 cache_capacity: int = 64,
+                 policy: Optional[AdaptivePolicy] = None,
+                 telemetry: Union[Telemetry, bool, None] = None):
         self.config = config or SpgemmConfig()
-        self.cache = PlanCache(cache_capacity)
+        self.policy = policy or AdaptivePolicy()
+        # Disabled by default: spans and events are no-ops, but the
+        # registry still backs EngineStats and the plan counters.
+        self.telemetry = resolve_telemetry(telemetry)
+        self.cache = PlanCache(cache_capacity, telemetry=self.telemetry)
+        self.stats = EngineStats(registry=self.telemetry.registry)
+        # The estimator's headroom is learned across plans: its misses are
+        # a property of the traffic, not of one signature.
+        self.est_state = autotune.EstimatorState(self.policy)
+        reg = self.telemetry.registry
+        self._hist_request = reg.histogram("opsparse_request_latency_seconds")
+        self._hist_cold = reg.histogram("opsparse_cold_steps_seconds")
+        self._hist_finalize = reg.histogram("opsparse_finalize_seconds")
+        self._queue: List[SpgemmRequest] = []
+        self._uids = itertools.count()
 
+    # -- public API ---------------------------------------------------------
     def execute(self, A: CSR, B: CSR,
                 config: Optional[SpgemmConfig] = None) -> SpgemmResult:
         """Plan-then-execute one product (the ``spgemm()`` backend)."""
@@ -343,95 +439,425 @@ class SpgemmEngine:
         """Plan the call and queue its device work.  A cold (or ``timing``)
         call runs the steps path to completion here; a steady-state call
         returns with its work in flight and no host read."""
+        return self._dispatch(next(self._uids), A, B, config or self.config)
+
+    def finalize(self, rec: Record) -> SpgemmResult:
+        """The call's one host read: verify the buckets it ran with, or
+        grow them and redo the call on the steps path."""
+        return self._finalize(rec)
+
+    def prewarm(self, A: CSR, B: CSR,
+                config: Optional[SpgemmConfig] = None, *,
+                prod_bucket: Optional[int] = None,
+                nnz_bucket: Optional[int] = None) -> SpgemmPlan:
+        """Specialize the plan of (A, B)'s signatures ahead of traffic,
+        without executing.
+
+        With both buckets given, the plan takes them (never shrinking what
+        it learned); the first request then skips the cold discovery call,
+        except for hash plans, which still need a launch schedule.  With
+        neither, the sampling estimator sizes the plan, hash schedule
+        included, so the first request of any method goes straight to the
+        steady state.
+        """
         config = config or self.config
+        a_sig, b_sig = MatrixSig.of(A), MatrixSig.of(B)
+        entry = self.cache.get((a_sig, b_sig, config))
+        if entry is None:
+            entry = self.cache.insert(make_plan(a_sig, b_sig, config))
+        if prod_bucket is None and nnz_bucket is None:
+            if not entry.plan.is_specialized:
+                uid = next(self._uids)
+                with self.telemetry.span("estimate", uid=uid, prewarm=True):
+                    self._estimate_specialize(
+                        entry, A.with_capacity(a_sig.cap_bucket),
+                        B.with_capacity(b_sig.cap_bucket), uid)
+            return entry.plan
+        if prod_bucket is None or nnz_bucket is None:
+            raise ValueError(
+                "pass both prod_bucket and nnz_bucket, or neither "
+                "(estimator-sized prewarm)")
+        self.cache.specialize(entry, entry.plan.with_capacities(
+            max(entry.plan.prod_bucket or 0,
+                next_bucket(max(prod_bucket, 1))),
+            max(entry.plan.nnz_bucket or 0,
+                next_bucket(max(nnz_bucket, 1)))))
+        return entry.plan
+
+    def submit(self, A: CSR, B: CSR,
+               config: Optional[SpgemmConfig] = None) -> int:
+        """Queue a request; returns its uid (resolved by ``drain``)."""
         if A.ncols != B.nrows:
             raise ValueError(f"inner dimensions differ: {A.shape} @ "
                              f"{B.shape}")
-        key = plan_key(A, B, config)
-        a_sig, b_sig, _ = key
-        entry = self.cache.get(key)
-        if entry is None:
-            entry = self.cache.insert(make_plan(a_sig, b_sig, config))
+        uid = next(self._uids)
+        self._queue.append(SpgemmRequest(uid, A, B, config or self.config))
+        return uid
+
+    def drain(self, *, drain_ordered: bool = False,
+              window: int = 4) -> Dict[int, SpgemmResult]:
+        """Run every queued request; returns {uid: result}.
+
+        Requests are grouped by plan signature (a group shares one
+        pipeline) and pipelined: at most ``window`` dispatches are in
+        flight, and pending records are finalized in COMPLETION order, so
+        a slow request does not hold up the small ones dispatched after
+        it.  ``drain_ordered=True`` finalizes in dispatch order with one
+        record in flight.
+        """
+        queue, self._queue = self._queue, []
+        self.stats.drains += 1
+        groups: "OrderedDict[tuple, List[SpgemmRequest]]" = OrderedDict()
+        for req in queue:
+            key = (MatrixSig.of(req.A), MatrixSig.of(req.B), req.config)
+            groups.setdefault(key, []).append(req)
+        ordered = itertools.chain.from_iterable(groups.values())
+
+        # The drain span parents every request span opened inside it.
+        results: Dict[int, SpgemmResult] = {}
+        with self.telemetry.span("drain", n_requests=len(queue),
+                                 ordered=drain_ordered):
+            if drain_ordered:
+                inflight: Optional[Record] = None
+                for req in ordered:
+                    rec = self._dispatch(req.uid, req.A, req.B, req.config)
+                    if inflight is not None:
+                        if not isinstance(inflight, _Finished):
+                            self.stats.overlapped += 1
+                        results[inflight.uid] = self._finalize(inflight)
+                    inflight = rec
+                if inflight is not None:
+                    results[inflight.uid] = self._finalize(inflight)
+                return results
+
+            pending: List[Record] = []
+            window = max(1, int(window))
+            for req in ordered:
+                # Reap down BEFORE dispatching, so the window (a device-
+                # memory bound) holds at the moment of dispatch.
+                while len(pending) >= window:
+                    self._reap_one(pending, results)
+                rec = self._dispatch(req.uid, req.A, req.B, req.config)
+                if any(not isinstance(r, _Finished) for r in pending):
+                    self.stats.overlapped += 1   # planned k+1 while k ran
+                pending.append(rec)
+                self.stats.peak_inflight = max(self.stats.peak_inflight,
+                                               len(pending))
+            while pending:
+                self._reap_one(pending, results)
+        return results
+
+    def report(self) -> str:
+        return stats_mod.render(self)
+
+    # -- internals ----------------------------------------------------------
+    def _reap_one(self, pending: List[Record],
+                  results: Dict[int, SpgemmResult]) -> None:
+        """Finalize ONE pending record, preferring one whose device work
+        is done; with none done yet, the oldest."""
+        for i, rec in enumerate(pending):
+            if _record_ready(rec):
+                if i:
+                    self.stats.reordered += 1
+                pending.pop(i)
+                results[rec.uid] = self._finalize(rec)
+                return
+        rec = pending.pop(0)
+        results[rec.uid] = self._finalize(rec)
+
+    def _estimate_specialize(self, entry: CacheEntry, A: CSR, B: CSR,
+                             uid: int) -> Dict[str, float]:
+        """Specialize a cold plan from the sampling estimator.
+
+        One host read of the operands' index arrays gives the exact n_prod
+        per row (hence the exact symbolic-side schedule) and a measured
+        row sample whose compression band predicts the nnz bucket and the
+        numeric-side rung counts.  The plan is specialized in one step,
+        with its policy marked ``estimated``; the first admitted finalize
+        confirms it, and an under-estimate costs one grow-and-redo while
+        the engine's :class:`~repro_torch.engine.autotune.EstimatorState`
+        grows the headroom for the next cold plan.  Returns
+        ``{"estimate": seconds}``.
+        """
+        plan = entry.plan
+        config = plan.config
+        t0 = time.perf_counter()
+        est = estimate_result(
+            A, B,
+            sym_upper=plan.sym_ladder.upper,
+            num_upper=plan.num_ladder.upper,
+            n_sample=self.policy.est_sample_rows,
+            quantile=self.policy.est_quantile,
+            headroom=self.est_state.headroom)
+        self.stats.estimates += 1
+        self.telemetry.event(
+            "estimate", uid=uid, sampled_rows=est.sampled_rows,
+            r_lo=est.r_lo, r_hi=est.r_hi, total_nprod=est.total_nprod,
+            total_nnz_high=est.total_nnz_high,
+            est_headroom=self.est_state.headroom)
+        prod_cap = max(plan.prod_bucket or 0,
+                       next_bucket(max(int(est.total_nprod
+                                           * _CAPACITY_HEADROOM), 1)))
+        nnz_cap = max(plan.nnz_bucket or 0,
+                      next_bucket(max(int(est.total_nnz_high
+                                          * _CAPACITY_HEADROOM), 1)))
+        state = plan.policy or PolicyState(
+            headroom=self.policy.headroom_init)
+        specialized = plan.with_capacities(prod_cap, nnz_cap)
+        if config.method == "hash":
+            # The bucket math of host_schedule, fed estimated counts: exact
+            # rows per sym rung, band-high rows per num rung, and the
+            # band-high fallback products shared by both phases.
+            m_cap = next_bucket(plan.a_sig.nrows,
+                                minimum=spgemm_hash._ROW_BUCKET_MIN)
+            packs = (plan.sym_ladder.rows_per_block
+                     if config.row_packing else None)
+            sym_buckets = tuple(
+                spgemm_hash.schedule_bucket(
+                    c, m_cap=m_cap, headroom=state.headroom,
+                    pack=(packs[b] if packs is not None and b < len(packs)
+                          else 1))
+                for b, c in enumerate(est.sym_counts))
+            num_buckets = tuple(
+                spgemm_hash.schedule_bucket(c, m_cap=m_cap,
+                                            headroom=state.headroom)
+                for c in est.num_counts)
+            fall = max(est.sym_fall_prod, est.num_fall_prod)
+            fall_bucket = (spgemm_hash.fallback_capacity_bucket(
+                fall, headroom=state.headroom) if fall else 0)
+            sched = HashSchedule(sym_buckets, num_buckets, fall_bucket)
+            if plan.hash_schedule is not None:
+                sched = sched.union(plan.hash_schedule)
+            specialized = specialized.with_hash_schedule(sched)
+        self.cache.specialize(
+            entry, specialized.with_policy(state.with_estimated(True)))
+        return {"estimate": time.perf_counter() - t0}
+
+    def _dispatch(self, uid: int, A: CSR, B: CSR,
+                  config: SpgemmConfig) -> Record:
+        if A.ncols != B.nrows:
+            raise ValueError(f"inner dimensions differ: {A.shape} @ "
+                             f"{B.shape}")
+        self.stats.requests += 1
+        t0 = time.perf_counter()
+        tel = self.telemetry
+        # The request span stays OPEN across dispatch and finalize: it
+        # rides the record and _finalize closes it.
+        span = tel.start_span("request", uid=uid, method=config.method)
+        a_sig, b_sig = MatrixSig.of(A), MatrixSig.of(B)
+        with tel.span("plan_lookup", parent=span, uid=uid) as lookup:
+            entry = self.cache.get((a_sig, b_sig, config))
+            lookup.set(hit=entry is not None)
+            if entry is None:
+                entry = self.cache.insert(make_plan(a_sig, b_sig, config))
         entry.stats.calls += 1
         # Operand storage padded to the signature buckets, so every request
         # in the bucket presents the same shapes.
         A = A.with_capacity(a_sig.cap_bucket)
         B = B.with_capacity(b_sig.cap_bucket)
+
         plan = entry.plan
+        est_timings: Optional[Dict[str, float]] = None
+        if (config.plan_mode == "estimate" and not plan.is_specialized
+                and not config.timing):
+            # Estimated cold path: specialize from the sampled estimate and
+            # fall through to the steady state; the full symbolic sizing
+            # pass never runs.  Finalize's verify (and grow-and-redo) is
+            # the correctness net.
+            with tel.span("estimate", parent=span, uid=uid):
+                est_timings = self._estimate_specialize(entry, A, B, uid)
+            plan = entry.plan
 
         if not plan.is_specialized or config.timing:
-            result, prod_cap, nnz_cap, hash_sched = _execute_steps(
-                A, B, plan, StepTimer(config.timing
-                                      or not plan.is_specialized))
+            state = plan.policy or PolicyState(
+                headroom=self.policy.headroom_init)
+            with tel.span("cold_steps", parent=span, uid=uid,
+                          specialized=plan.is_specialized) as cold:
+                result, prod_cap, nnz_cap, hash_sched = _execute_steps(
+                    A, B, plan,
+                    StepTimer(config.timing or not plan.is_specialized,
+                              tracer=tel, uid=uid),
+                    headroom=state.headroom)
+            if tel.enabled:
+                self._hist_cold.observe(cold.dur)
             if not plan.is_specialized:
                 # Progressive allocation: learn the buckets (and the launch
                 # schedule the run just used) for the steady state.
                 specialized = plan.with_capacities(prod_cap, nnz_cap)
                 if hash_sched is not None:
-                    specialized = specialized.with_hash_schedule(hash_sched)
+                    specialized = specialized.with_hash_schedule(
+                        hash_sched).with_policy(state)
                 self.cache.specialize(entry, specialized)
             entry.stats.steps_calls += 1
-            return _Finished(result)
+            entry.stats.time_s += time.perf_counter() - t0
+            return _Finished(uid, result, span=span, t0=t0)
 
         if entry.executable is None:
-            if config.method != "hash":
-                make_pipeline = _build_hot_executable
-            elif config.fuse_numeric:
-                make_pipeline = _build_fused_hash_executable
-            else:
-                make_pipeline = _build_hash_executable
-            entry.executable = make_pipeline(plan)
-        handles = entry.executable(A, B)        # no host read
+            with tel.span("build_executable", parent=span, uid=uid):
+                t_build = time.perf_counter()
+                if config.method != "hash":
+                    make_pipeline = _build_hot_executable
+                elif config.fuse_numeric:
+                    make_pipeline = _build_fused_hash_executable
+                else:
+                    make_pipeline = _build_hash_executable
+                entry.executable = make_pipeline(plan)
+                stats_mod.record_trace(plan.signature)
+                if est_timings is not None:
+                    est_timings["build"] = time.perf_counter() - t_build
+        with tel.span("dispatch", parent=span, uid=uid):
+            t_disp = time.perf_counter()
+            handles = entry.executable(A, B)        # no host read
+            done = _record_done(A.device)
+            if est_timings is not None:
+                est_timings["compile_dispatch"] = (time.perf_counter()
+                                                   - t_disp)
         entry.stats.hot_calls += 1
-        return _Pending(entry, plan, A, B, handles)
+        return _Pending(uid, entry, plan, A, B, handles, t0, span=span,
+                        timings=est_timings or {}, done=done)
 
-    def finalize(self, rec: Record) -> SpgemmResult:
-        """The call's one host read: verify the buckets it ran with, or
-        grow them and redo the call on the steps path."""
+    def _finalize(self, rec: Record) -> SpgemmResult:
+        tel = self.telemetry
+        with tel.span("finalize", parent=rec.span, uid=rec.uid) as fin:
+            result = self._finalize_record(rec)
+        if tel.enabled:
+            self._hist_finalize.observe(fin.dur)
+            span = rec.span
+            if isinstance(span, Span):
+                tel.end_span(span)
+                if rec.t0 is not None:
+                    self._hist_request.observe(span.t1 - rec.t0)
+        return result
+
+    def _finalize_record(self, rec: Record) -> SpgemmResult:
         if isinstance(rec, _Finished):
             return rec.result
         # Verify against the DISPATCH-TIME plan: passing a later, larger
         # plan's check would return a silently truncated C.
         plan = rec.plan
         method = plan.config.method
+        tel = self.telemetry
         if method == "hash" and plan.config.fuse_numeric:
             C, tnp, tnz, sym_binning, num_binning, sym_fall = rec.handles
             nb = sym_binning.bin_size.shape[0]
-            fetched = _host_ints(tnp, tnz, sym_binning.bin_size, sym_fall)
+            with tel.span("verify_sync", uid=rec.uid):
+                fetched = _host_ints(tnp, tnz, sym_binning.bin_size,
+                                     sym_fall)
             total_nprod, total_nnz = fetched[0], fetched[1]
-            schedule_ok = plan.hash_schedule.admits_fused(
-                fetched[2:2 + nb], fetched[2 + nb])
+            sym_sizes, sym_fall_prod = fetched[2:2 + nb], fetched[2 + nb]
+            schedule_ok = plan.hash_schedule.admits_fused(sym_sizes,
+                                                          sym_fall_prod)
+            admit = dict(sym_sizes=sym_sizes, sym_fall=sym_fall_prod)
         elif method == "hash":
             (C, tnp, tnz, sym_binning, num_binning,
              sym_fall, num_fall) = rec.handles
             ns = sym_binning.bin_size.shape[0]
             nn = num_binning.bin_size.shape[0]
-            fetched = _host_ints(tnp, tnz, sym_binning.bin_size,
-                                 num_binning.bin_size, sym_fall, num_fall)
+            with tel.span("verify_sync", uid=rec.uid):
+                fetched = _host_ints(tnp, tnz, sym_binning.bin_size,
+                                     num_binning.bin_size, sym_fall,
+                                     num_fall)
             total_nprod, total_nnz = fetched[0], fetched[1]
+            admit = dict(sym_sizes=fetched[2:2 + ns],
+                         num_sizes=fetched[2 + ns:2 + ns + nn],
+                         sym_fall=fetched[2 + ns + nn],
+                         num_fall=fetched[3 + ns + nn])
             schedule_ok = plan.hash_schedule.admits(
-                fetched[2:2 + ns], fetched[2 + ns:2 + ns + nn],
-                fetched[2 + ns + nn], fetched[3 + ns + nn])
+                admit["sym_sizes"], admit["num_sizes"], admit["sym_fall"],
+                admit["num_fall"])
         else:
             C, tnp, tnz, sym_binning, num_binning = rec.handles
-            total_nprod, total_nnz = _host_ints(tnp, tnz)
+            with tel.span("verify_sync", uid=rec.uid):
+                total_nprod, total_nnz = _host_ints(tnp, tnz)
             schedule_ok = True
+            admit = None
             if total_nprod > plan.prod_bucket:
                 return self._grow_and_redo(rec, total_nprod, total_nnz)
         if not schedule_ok:
+            self.stats.bin_overflows += 1
             rec.entry.stats.bin_overflows += 1
         if not schedule_ok or total_nnz > plan.nnz_bucket:
-            return self._grow_and_redo(rec, total_nprod, total_nnz)
+            return self._grow_and_redo(rec, total_nprod, total_nnz,
+                                       schedule_overflow=not schedule_ok)
+        if admit is not None:
+            self._note_hash_admit(rec, **admit)
+        else:
+            # ESC plans have no hash schedule: the estimate is confirmed
+            # here rather than in _note_hash_admit.
+            state = rec.entry.plan.policy
+            if state is not None and state.estimated:
+                self._note_estimate_confirmed(rec.uid)
+                self.cache.update_policy(rec.entry,
+                                         state.with_estimated(False))
+        rec.entry.stats.time_s += time.perf_counter() - rec.t0
         return SpgemmResult(
             C=C, total_nprod=total_nprod, total_nnz=total_nnz,
-            sym_binning=sym_binning, num_binning=num_binning, timings={})
+            sym_binning=sym_binning, num_binning=num_binning,
+            timings=dict(rec.timings))
+
+    def _note_estimate_confirmed(self, uid: int) -> None:
+        """An admitted finalize just verified an estimated plan: count the
+        hit and let the estimator's headroom decay toward its floor."""
+        self.stats.estimate_hits += 1
+        self.est_state.note_hit()
+        self.telemetry.event("estimate_confirmed", uid=uid,
+                             est_headroom=self.est_state.headroom)
+
+    def _note_hash_admit(self, rec: _Pending, sym_sizes, sym_fall,
+                         num_sizes=None, num_fall=0) -> None:
+        """Adaptive headroom for one ADMITTED hash finalize.
+
+        Folds the bin sizes the verify read already fetched into the
+        plan's policy state.  Once the streak of admitted calls reaches
+        the policy's threshold, the schedule is re-derived from the
+        observed maxima at a shrunken headroom and swapped in when that
+        removes padding rows or whole rungs (one pipeline rebuild).  At
+        most one trim fires per overflow epoch.
+        """
+        entry = rec.entry
+        plan = entry.plan      # CURRENT plan: maxima fold monotonically
+        if plan.hash_schedule is None:
+            return
+        state = plan.policy or PolicyState(headroom=self.policy.headroom_init)
+        if state.estimated:
+            # First admitted finalize under an estimated schedule: the
+            # prediction held.
+            self._note_estimate_confirmed(rec.uid)
+            state = state.with_estimated(False)
+        state = state.note_admit(sym_sizes, sym_fall, num_sizes, num_fall)
+        if state.wants_trim(self.policy):
+            trimmed = autotune.trim_schedule(
+                state, plan.hash_schedule, m=plan.a_sig.nrows,
+                sym_ladder=plan.sym_ladder, packed=plan.config.row_packing,
+                fused=plan.config.fuse_numeric, policy=self.policy)
+            state = state.after_trim(self.policy)
+            if trimmed is not None:
+                self.stats.schedule_trims += 1
+                entry.stats.schedule_trims += 1
+                self.telemetry.event("schedule_trim", uid=rec.uid,
+                                     headroom=state.headroom)
+                self.cache.specialize(entry, plan.with_hash_schedule(
+                    HashSchedule(*trimmed)).with_policy(state))
+                return
+        self.cache.update_policy(entry, state)
 
     def _grow_and_redo(self, rec: _Pending, total_nprod: int,
-                       total_nnz: int) -> SpgemmResult:
+                       total_nnz: int, *,
+                       schedule_overflow: bool = False) -> SpgemmResult:
         """Overflow recovery (a same-signature request outgrew the learned
         plan): grow the buckets, redo the call on the steps path, and
-        re-specialize the entry so the NEXT request is hot again."""
+        re-specialize the entry so the NEXT request is hot again.
+
+        Only a hash BIN-SCHEDULE overflow (``schedule_overflow``) grows the
+        bin headroom; a capacity overflow with an admitting schedule grows
+        the pow-2 buckets alone."""
         plan = rec.plan
+        self.stats.capacity_grows += 1
+        rec.entry.stats.capacity_grows += 1
+        tel = self.telemetry
+        tel.event("capacity_grow", uid=rec.uid,
+                  schedule_overflow=schedule_overflow,
+                  total_nprod=total_nprod, total_nnz=total_nnz)
         # An overflowed run truncated its expansion or dropped rows past a
         # bin bucket, so its totals are lower bounds; the steps redo
         # reports the true capacities.  Floor at the entry's CURRENT
@@ -442,8 +868,24 @@ class SpgemmEngine:
                 next_bucket(max(total_nprod, 1))),
             max(plan.nnz_bucket, current.nnz_bucket or 0,
                 next_bucket(max(total_nnz, 1))))
-        result, prod_cap, nnz_cap, hash_sched = _execute_steps(
-            rec.A, rec.B, grown, StepTimer(False))
+        state = current.policy or PolicyState(
+            headroom=self.policy.headroom_init)
+        if state.estimated:
+            # An estimated plan under-provisioned: the redo re-derives
+            # exact buckets, and the estimator's headroom grows.
+            self.stats.estimate_misses += 1
+            self.est_state.note_miss()
+            tel.event("estimate_miss", uid=rec.uid,
+                      schedule_overflow=schedule_overflow)
+            state = state.with_estimated(False)
+        if schedule_overflow:
+            state = state.note_overflow(self.policy)
+        grown = grown.with_policy(state)
+        with tel.span("grow_redo", uid=rec.uid):
+            result, prod_cap, nnz_cap, hash_sched = _execute_steps(
+                rec.A, rec.B, grown,
+                StepTimer(False, tracer=tel, uid=rec.uid),
+                headroom=state.headroom)
         rec.entry.stats.steps_calls += 1
         respecialized = grown.with_capacities(prod_cap, nnz_cap)
         if hash_sched is not None:
@@ -451,6 +893,7 @@ class SpgemmEngine:
                 hash_sched = hash_sched.union(current.hash_schedule)
             respecialized = respecialized.with_hash_schedule(hash_sched)
         self.cache.specialize(rec.entry, respecialized)
+        rec.entry.stats.time_s += time.perf_counter() - rec.t0
         return result
 
 

@@ -9,9 +9,9 @@ one plan and its steady-state pipeline.
 Plans are progressive (Liu & Vinter-style ahead-of-time allocation): a
 fresh plan has no product/nnz buckets (they depend on data); the first
 execution *learns* them and :meth:`SpgemmPlan.with_capacities` produces
-the specialized plan that steady-state traffic runs against.  The shard,
-adaptive-policy and workspace-lease fields of the reference wait for later
-slices of the port.
+the specialized plan that steady-state traffic runs against.  The
+adaptive-policy state rides on the plan as ``policy``.  The reference's
+shard and workspace-lease fields wait for the port's sharding and arena.
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ from repro_torch.core.csr import CSR
 from repro_torch.core.spgemm import SpgemmConfig
 from repro_torch.core.workspace import next_bucket
 
+from .autotune import PolicyState
+
 
 @dataclasses.dataclass(frozen=True)
 class MatrixSig:
@@ -33,13 +35,13 @@ class MatrixSig:
     nrows: int
     ncols: int
     cap_bucket: int     # pow-2 bucket of the col/val storage capacity
-    dtype: str          # value dtype name
+    dtype: str          # value dtype name, as numpy spells it ("float32")
 
     @classmethod
     def of(cls, M: CSR) -> "MatrixSig":
         return cls(nrows=M.nrows, ncols=M.ncols,
                    cap_bucket=next_bucket(M.capacity),
-                   dtype=str(M.val.dtype))
+                   dtype=str(M.val.dtype).removeprefix("torch."))
 
 
 PlanKey = Tuple[MatrixSig, MatrixSig, SpgemmConfig]
@@ -103,7 +105,9 @@ class SpgemmPlan:
     Derivable before data: the signatures, the config and both ladders.
     Learned on the first execution: ``prod_bucket`` / ``nnz_bucket``
     (pow-2 capacities of the product expansion and of C) and, for the
-    hash method, ``hash_schedule``.
+    hash method, ``hash_schedule``.  ``policy`` is the adaptive-policy
+    state (``engine/autotune``): updated without dropping the pipeline
+    and persisted by ``PlanCache.dump/load``.
     """
 
     a_sig: MatrixSig
@@ -114,6 +118,7 @@ class SpgemmPlan:
     prod_bucket: Optional[int] = None
     nnz_bucket: Optional[int] = None
     hash_schedule: Optional[HashSchedule] = None
+    policy: Optional[PolicyState] = None
 
     @property
     def signature(self) -> PlanKey:
@@ -136,6 +141,11 @@ class SpgemmPlan:
     def with_hash_schedule(self, schedule: HashSchedule) -> "SpgemmPlan":
         return dataclasses.replace(self, hash_schedule=schedule)
 
+    def with_policy(self, state: PolicyState) -> "SpgemmPlan":
+        """Plan carrying updated adaptive-policy state (same signature and
+        shapes: the cached pipeline stays valid)."""
+        return dataclasses.replace(self, policy=state)
+
 
 def plan(a_sig: MatrixSig, b_sig: MatrixSig,
          config: SpgemmConfig = SpgemmConfig()) -> SpgemmPlan:
@@ -144,10 +154,10 @@ def plan(a_sig: MatrixSig, b_sig: MatrixSig,
         raise ValueError(f"inner dimensions differ: {a_sig} @ {b_sig}")
     if config.method not in ("esc", "hash"):
         raise ValueError(f"unknown method {config.method!r}")
-    if config.plan_mode != "exact":
-        raise NotImplementedError(
-            f"plan_mode={config.plan_mode!r} waits for a later slice of the "
-            "port (the estimator is not ported yet)")
+    if config.plan_mode not in ("exact", "estimate"):
+        raise ValueError(
+            f"unknown plan_mode {config.plan_mode!r} "
+            "(expected 'exact' or 'estimate')")
     if config.shards != 1:
         raise NotImplementedError(
             "sharding waits for a later slice of the port (shards must be 1)")

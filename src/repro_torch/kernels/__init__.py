@@ -1,7 +1,9 @@
 """Kernel layer of the port: hand-written CUDA kernels for Hopper.
 
 ``spgemm_hash`` holds the three per-bin hash-table kernels and their plain
-PyTorch versions; ``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first
-use; ``ref`` holds dense oracles.  A wrapper launches its kernel for CUDA
-tensors and runs its plain version for CPU tensors.
+PyTorch versions, ``binning_histogram`` the binning pass-1 kernel and
+``bsr_spmm`` the block-CSR x dense kernel; ``ref`` holds the plain
+versions of the last two and dense oracles; ``build`` compiles
+``csrc/*.cu`` with ``nvcc`` at first use.  A wrapper launches its kernel
+for CUDA tensors and runs its plain version for CPU tensors.
 """

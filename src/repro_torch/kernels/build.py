@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of every entry point, by source: pointers and the stream are
 # c_void_p (ctypes would cut a pointer passed as a plain int), sizes c_int.
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
@@ -38,6 +39,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                         _P, _P, _P),
         "fused_bin": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                       _P, _P, _P, _P),
+    },
+    "binning_histogram": {
+        "binning_histogram": (_P, _L, _I, _P, _I, _I, _P, _P, _P),
+    },
+    "bsr_spmm": {
+        "bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "bsr_spmm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

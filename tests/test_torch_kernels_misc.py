@@ -1,0 +1,209 @@
+"""Port parity for the binning-histogram and block-CSR SpMM kernels.
+
+The port's wrappers run their plain PyTorch versions on CPU tensors; they
+are held against the reference's Pallas kernels (interpret mode on the
+CPU) on the same numpy inputs.  The ``gpu`` tests hold the CUDA kernels
+against the plain versions on the card and skip without one.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bin_rows as jbin_rows
+from repro.core import numeric_ladder as jnumeric_ladder
+from repro.core import symbolic_ladder as jsymbolic_ladder
+from repro.kernels import ref as jref
+from repro.kernels.binning_pallas import binning_histogram as jhistogram
+from repro.kernels.bsr_spmm import bsr_spmm as jbsr_spmm
+from repro_torch.kernels import ref
+from repro_torch.kernels.binning_histogram import binning_histogram
+from repro_torch.kernels.bsr_spmm import bsr_spmm
+
+BSR_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_kernels_misc.py:55
+
+LADDERS = {"symbolic": jsymbolic_ladder(1.2), "numeric": jnumeric_ladder(2.0)}
+
+
+def _sizes(m, seed=0, high=30000):
+    return np.random.default_rng(seed + m).integers(0, high, m,
+                                                    dtype=np.int32)
+
+
+@pytest.mark.parametrize("ladder", list(LADDERS))
+@pytest.mark.parametrize("m", [0, 7, 256, 1000, 4096])
+@pytest.mark.parametrize("block", [128, 1024])
+def test_binning_histogram_matches_reference(ladder, m, block):
+    lad = LADDERS[ladder]
+    sizes = _sizes(m)
+    hist, mx = binning_histogram(torch.from_numpy(sizes), upper=lad.upper,
+                                 num_bins=lad.num_bins, block=block)
+    assert hist.dtype == torch.int32 and hist.shape == (lad.num_bins,)
+    assert mx.dtype == torch.int32 and mx.shape == ()
+    if m:
+        jh, jm = jhistogram(jnp.asarray(sizes), upper=lad.upper,
+                            num_bins=lad.num_bins, block=block)
+    else:
+        # The Pallas kernel cannot take an empty input (its first block
+        # slice is larger than the array); the reference's jnp binning
+        # gives the answer: no rows, max 0.
+        jb = jbin_rows(jnp.asarray(sizes), upper=lad.upper,
+                       num_bins=lad.num_bins)
+        jh, jm = jb.bin_size, jb.max_size
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jh))
+    assert int(mx) == int(jm)
+
+
+def test_binning_histogram_int64_sizes_and_overflow_rung():
+    lad = LADDERS["symbolic"]
+    sizes = np.array([0, lad.upper[0], lad.upper[0] + 1, lad.upper[-1],
+                      lad.upper[-1] + 1, 10 ** 6], dtype=np.int64)
+    hist, mx = binning_histogram(torch.from_numpy(sizes), upper=lad.upper,
+                                 num_bins=lad.num_bins)
+    jh, jm = jhistogram(jnp.asarray(sizes.astype(np.int32)), upper=lad.upper,
+                        num_bins=lad.num_bins)
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jh))
+    assert int(mx) == int(jm) == 10 ** 6
+    assert int(hist[len(lad.upper)]) == 2     # above the last bound
+
+
+def _random_bcsr(seed, nbr, nbc, bm, bk, density=0.3, every_row=True):
+    """Blocks of a random block mask; ``every_row`` stores at least one
+    block in each block row (the Pallas kernel leaves empty rows
+    unwritten)."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((nbr, nbc)) < density
+    if every_row:
+        mask[np.arange(nbr), np.arange(nbr) % nbc] = True
+    rows, cols = np.nonzero(mask)
+    blocks = rng.standard_normal((len(rows), bm, bk)).astype(np.float32)
+    return rows.astype(np.int32), cols.astype(np.int32), blocks
+
+
+def _port_bsr(rows, cols, blocks, dense, nbr, device="cpu"):
+    t = (torch.from_numpy(x).to(device) for x in (rows, cols, blocks, dense))
+    return bsr_spmm(*t, n_block_rows=nbr)
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 8, 16, 32), (5, 2, 16, 8, 8),
+                                   (2, 2, 32, 32, 64)])
+def test_bsr_spmm_matches_reference(shape):
+    nbr, nbc, bm, bk, n = shape
+    rows, cols, blocks = _random_bcsr(sum(shape), nbr, nbc, bm, bk)
+    dense = np.random.default_rng(1).standard_normal(
+        (nbc * bk, n)).astype(np.float32)
+    got = _port_bsr(rows, cols, blocks, dense, nbr)
+    want = jbsr_spmm(jnp.asarray(rows), jnp.asarray(cols),
+                     jnp.asarray(blocks), jnp.asarray(dense),
+                     n_block_rows=nbr)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BSR_TOL)
+
+
+def test_bsr_spmm_with_padding_blocks():
+    """Padding entries (repeat last row, zero block) contribute nothing."""
+    rows = np.array([0, 0, 1, 1, 1], np.int32)
+    cols = np.array([0, 1, 1, 0, 0], np.int32)
+    blocks = np.stack([np.eye(8, dtype=np.float32)] * 4
+                      + [np.zeros((8, 8), np.float32)])
+    dense = np.random.default_rng(2).standard_normal(
+        (16, 24)).astype(np.float32)
+    got = _port_bsr(rows, cols, blocks, dense, 2)
+    want = jbsr_spmm(jnp.asarray(rows), jnp.asarray(cols),
+                     jnp.asarray(blocks), jnp.asarray(dense), n_block_rows=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BSR_TOL)
+
+
+def test_bsr_spmm_empty_block_row_is_zero():
+    """A block row with no block comes out zero, as in the reference's
+    ``bsr_spmm_ref`` (the Pallas kernel never writes it)."""
+    rows = np.array([0, 0, 2], np.int32)          # block row 1 is empty
+    cols = np.array([0, 1, 1], np.int32)
+    blocks = np.random.default_rng(3).standard_normal(
+        (3, 8, 16)).astype(np.float32)
+    dense = np.random.default_rng(4).standard_normal(
+        (32, 40)).astype(np.float32)
+    got = _port_bsr(rows, cols, blocks, dense, 3)
+    want = jref.bsr_spmm_ref(jnp.asarray(rows), jnp.asarray(cols),
+                             jnp.asarray(blocks), jnp.asarray(dense),
+                             nrows_blocks=3, block_shape=(8, 16))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BSR_TOL)
+    assert not got[8:16].any()
+
+
+def test_bsr_spmm_ref_skips_negative_rows():
+    rows = np.array([-1, 0, 1], np.int32)
+    cols = np.array([0, 0, 1], np.int32)
+    blocks = np.ones((3, 4, 4), np.float32)
+    dense = np.ones((8, 4), np.float32)
+    got = _port_bsr(rows, cols, blocks, dense, 2)
+    want = jref.bsr_spmm_ref(jnp.asarray(rows), jnp.asarray(cols),
+                             jnp.asarray(blocks), jnp.asarray(dense),
+                             nrows_blocks=2, block_shape=(4, 4))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels against their plain versions (card only).
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [0, 7, 1000, 70000])
+@pytest.mark.parametrize("block", [128, 1024])
+def test_binning_histogram_kernel_matches_plain(cuda_device, m, block):
+    for lad in LADDERS.values():
+        sizes = torch.from_numpy(_sizes(m))
+        before = binning_histogram.launches
+        hist, mx = binning_histogram(sizes.to(cuda_device), upper=lad.upper,
+                                     num_bins=lad.num_bins, block=block)
+        assert binning_histogram.launches == before + (1 if m else 0)
+        want_h, want_m = ref.binning_histogram_ref(
+            sizes, upper=lad.upper, num_bins=lad.num_bins)
+        assert torch.equal(hist.cpu(), want_h)
+        assert int(mx) == int(want_m)
+
+
+BSR_CASES = {
+    "every-row": (6, 5, 16, 16, 48, False),
+    "empty-row": (6, 5, 16, 16, 48, True),
+    "bm-ne-bk": (4, 3, 32, 8, 40, False),
+    "n-ragged": (3, 3, 128, 128, 100, True),
+    "tiny": (2, 2, 8, 8, 8, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BSR_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_spmm_kernel_matches_plain(cuda_device, case, dtype):
+    nbr, nbc, bm, bk, n, empty_row = BSR_CASES[case]
+    rows, cols, blocks = _random_bcsr(7, nbr, nbc, bm, bk,
+                                      every_row=not empty_row)
+    if empty_row:
+        keep = rows != 1
+        rows, cols, blocks = rows[keep], cols[keep], blocks[keep]
+    # a padding entry: the last row again, with a zero block
+    rows = np.append(rows, rows[-1]).astype(np.int32)
+    cols = np.append(cols, 0).astype(np.int32)
+    blocks = np.concatenate([blocks, np.zeros((1, bm, bk), np.float32)])
+    dense = np.random.default_rng(8).standard_normal(
+        (nbc * bk, n)).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (rows, cols, blocks, dense)]
+    t[2], t[3] = t[2].to(dtype), t[3].to(dtype)
+    want = ref.bsr_spmm_ref(*t, nrows_blocks=nbr, block_shape=(bm, bk))
+    got = bsr_spmm(*(x.to(cuda_device) for x in t), n_block_rows=nbr)
+    assert got.dtype == dtype and got.shape == want.shape
+    # float32: sums reordered; bfloat16: one rounding of the float32 sum,
+    # which may fall on either side of a bf16 step (2^-8 relative).
+    tol = BSR_TOL if dtype == torch.float32 else dict(rtol=2 ** -7,
+                                                      atol=1e-2)
+    torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+    if empty_row:
+        assert not got[bm:2 * bm].any()

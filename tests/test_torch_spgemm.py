@@ -190,8 +190,7 @@ def test_config_matches_reference_fields_and_defaults():
 
 
 @pytest.mark.parametrize("kw,exc", [(dict(shards=2), NotImplementedError),
-                                    (dict(plan_mode="estimate"),
-                                     NotImplementedError),
+                                    (dict(plan_mode="guess"), ValueError),
                                     (dict(method="dense"), ValueError)])
 def test_unported_options_raise(kw, exc):
     A, B = _pair(seed=2, m=8, k=8, n=8)
