@@ -6,27 +6,36 @@ Run from the root of a checkout:  python3 chip_smoke.py [--report PATH]
 Phases, in order; any failure exits non-zero:
   1. card and build: the card's name and power limit, then every kernel
      source in src/repro_torch/kernels/csrc built with nvcc (one process
-     each, all started together) and its ptxas lines.
+     each, all started together) and each kernel's ptxas line
+     (registers, shared memory, spills).
   2. hash kernels against their plain PyTorch versions on the card, both
      probe disciplines, packed and unpacked, on a tiny ladder that
      populates every rung and the fallback rung, and on rows of the
-     default ladders' top rungs.
+     default ladders' top rungs.  nnz and accesses are compared on every
+     row (0 on padding rows), tables on the rows below the bin's count
+     only: the kernels leave padding rows' tables unwritten.
   3. the first slice: C = A·A through spgemm(method="hash") for the
      paper's Table-3 matrix mono_500Hz at its full row count (one cold
      call, then steady calls), with the launch counters read around it,
      the steady dispatch checked for host syncs, a profile of one steady
      call, and C held against scipy; torch.sparse as the yardstick.
   4. each hash kernel at the shapes the main path gave it: its time, its
-     plain version's time on the same inputs (and agreement), its bound.
+     plain version's time on the same inputs (and agreement), its bound;
+     then the steady call's fused rungs as the main path launches them
+     (one side stream each) against the sum of their times alone and
+     against one stream, each rung's CTAs per SM, and rung 2's geometry
+     with count = 0 against every row valid.
   5. binning_histogram through its own entry point on mono_500Hz's n_prod
      (symbolic ladder) and C's nnz per row (numeric ladder), equal to its
      plain version and to the slice's Binning objects; then timed at the
      row count of delaunay_n24 (16,777,216 rows) against
      torch.bincount(torch.bucketize(...)).
-  6. bsr_spmm: edge cases against the plain version (empty block row,
-     padding blocks, bm != bk, N not a multiple of the tile) in float32
-     and bfloat16, then one block-sparse weight layer (M = K = 8192 in
-     128 x 128 blocks, 10 % stored, N = 4096) in both types, timed against
+  6. bsr_spmm: the bfloat16 kernel's SASS must hold tensor-core MMA
+     instructions (cuobjdump -sass); edge cases against the plain version
+     (empty block row, padding blocks, bm != bk, N not a multiple of the
+     tile, several blocks per block row) in float32 and bfloat16, then one
+     block-sparse weight layer (M = K = 8192 in 128 x 128 blocks, 10 %
+     stored, N = 4096) in both types, timed against
      torch.sparse_bsr_tensor(...) @ dense.
   7. the request path: a fresh SpgemmEngine(telemetry=True) with
      plan_mode="estimate" takes mono_500Hz A·A twice and the scircuit
@@ -173,21 +182,24 @@ def run_bin(sh, kind, plain, A, B, rows, count, t_size, rows_cap, *,
         return dict(nnz=out[0], cols=None, vals=None, acc=out[1])
     if kind == "numeric_bin":
         cols, vals, acc = out
-        return dict(nnz=(cols >= 0).sum(1).to(torch.int32), cols=cols,
-                    vals=vals, acc=acc)
+        valid = torch.arange(rows_cap, device=cols.device) < count
+        nnz = (cols >= 0).sum(1).masked_fill(~valid, 0)
+        return dict(nnz=nnz.to(torch.int32), cols=cols, vals=vals, acc=acc)
     return dict(nnz=out[0], cols=out[1], vals=out[2], acc=out[3])
 
 
 def compare(what, k, p, nprod_rows, valid):
-    """Kernel result k against plain result p; returns max |val err|."""
+    """Kernel result k against plain result p; returns max |val err|.
+    nnz and accesses on every row, tables on the valid rows only (the
+    kernels leave the padding rows' tables unwritten)."""
     require(torch.equal(k["nnz"], p["nnz"]), f"{what}: nnz differs")
     err = 0.0
     if k["cols"] is not None:
-        kc, ko = torch.sort(k["cols"], dim=1)
-        pc, po = torch.sort(p["cols"], dim=1)
+        kc, ko = torch.sort(k["cols"][valid], dim=1)
+        pc, po = torch.sort(p["cols"][valid], dim=1)
         require(torch.equal(kc, pc), f"{what}: sorted columns differ")
-        kv = k["vals"].gather(1, ko)
-        pv = p["vals"].gather(1, po)
+        kv = k["vals"][valid].gather(1, ko)
+        pv = p["vals"][valid].gather(1, po)
         used = pc >= 0
         diff = (kv - pv).abs().masked_fill(~used, 0)
         err = float(diff.max()) if diff.numel() else 0.0
@@ -507,6 +519,72 @@ def phase_main_shapes(sh, A, plan, result, errs):
     return stats
 
 
+def phase_fused_streams(sh, A, plan, result):
+    """The steady call's fused section: its table rungs as the main path
+    launches them (one side stream each, largest tables first) against the
+    same launches one after another on one stream and against the sum of
+    each rung's time alone; each rung's CTAs per SM; and rung 2's geometry
+    (t_size 1024) with count = 0 against every row valid."""
+    cfg = plan.config
+    sa = cfg.hash_single_access
+    rungs = sh.fused_rungs(result.sym_binning, plan.sym_ladder,
+                           plan.hash_schedule.sym_row_buckets,
+                           row_packing=cfg.row_packing)
+
+    def one(r, rows=None, count=None):
+        return sh.fused_bin_call(
+            r.rows if rows is None else rows,
+            r.count if count is None else count, A.rpt, A.col, A.val,
+            A.rpt, A.col, A.val, t_size=r.t_size, rows_cap=r.rows_cap,
+            pack=r.pack, single_access=sa)
+
+    per_rung = []
+    for r in rungs:
+        per_rung.append(dict(
+            rung=r.b, t_size=r.t_size, rows=int(r.count), rows_cap=r.rows_cap,
+            ms=time_cuda(lambda: one(r), 3),
+            ctas_per_sm=sh.ctas_per_sm(r.t_size, r.pack, with_values=True,
+                                       single_access=sa)))
+        torch.cuda.empty_cache()
+    sum_ms = sum(x["ms"] for x in per_rung)
+    serial_ms = time_cuda(lambda: [one(r) for r in rungs], 3)
+    torch.cuda.empty_cache()
+    concurrent_ms = time_cuda(
+        lambda: sh.launch_fused_rungs(A, A, rungs, single_access=sa), 3)
+    torch.cuda.empty_cache()
+    for x in per_rung:
+        log(f"  fused rung {x['rung']} (t={x['t_size']}, rows "
+            f"{x['rows']}/{x['rows_cap']}, {x['ctas_per_sm']} CTAs/SM): "
+            f"{x['ms']:.3f} ms alone")
+    log(f"phase fused streams: {len(rungs)} rungs, sum of times alone "
+        f"{sum_ms:.3f} ms, one stream {serial_ms:.3f} ms, side streams "
+        f"(the main path) {concurrent_ms:.3f} ms wall")
+
+    r2 = [r for r in rungs if r.b == 2]
+    require(len(r2) == 1, f"the schedule has no fused rung 2: {rungs}")
+    r2 = r2[0]
+    n = int(r2.count)
+    reps = -(-r2.rows_cap // n)
+    full_rows = r2.rows[:n].repeat(reps)[:r2.rows_cap].contiguous()
+    full = torch.tensor([r2.rows_cap], dtype=torch.int32, device=A.device)
+    zero = torch.zeros(1, dtype=torch.int32, device=A.device)
+    nnz, _, _, acc = one(r2, full_rows, zero)
+    torch.cuda.synchronize()
+    require(not bool(nnz.any()) and not bool(acc.any()),
+            "fused_bin with count = 0 wrote a non-zero nnz or access count")
+    del nnz, acc
+    full_ms = time_cuda(lambda: one(r2, full_rows, full), 3)
+    zero_ms = time_cuda(lambda: one(r2, full_rows, zero), 10)
+    torch.cuda.empty_cache()
+    log(f"phase fused count = 0: rung 2 geometry (t={r2.t_size}, "
+        f"{r2.rows_cap} rows): every row valid {full_ms:.3f} ms, count = 0 "
+        f"{zero_ms:.4f} ms ({zero_ms / full_ms:.1%})")
+    return dict(rungs=per_rung, sum_alone_ms=sum_ms, one_stream_ms=serial_ms,
+                side_streams_ms=concurrent_ms,
+                rung2=dict(t_size=r2.t_size, rows_cap=r2.rows_cap,
+                           all_valid_ms=full_ms, count_zero_ms=zero_ms))
+
+
 def scipy_check(A, C):
     """C = A·A against scipy: pattern of |A|·|A| exactly, values within
     1e-4·(|A|·|A|)_ij + 1e-6 of the float64 product."""
@@ -815,22 +893,36 @@ def _bsr_err(got, want, dtype_name, what):
     return err
 
 
+def sass_mma(name):
+    """Tensor-core MMA instructions (HGMMA: wgmma, HMMA: mma.sync) of each
+    kernel in the SASS of the built library of csrc/<name>.cu."""
+    from repro_torch.kernels import build
+    return {kernel: {mma: sum(n for op, n in ops.items()
+                              if op.split(".")[0] == mma)
+                     for mma in ("HGMMA", "HMMA")}
+            for kernel, ops in build.sass_opcodes(name).items()}
+
+
 def phase_bsr(errs):
-    """bsr_spmm: edge cases, then one block-sparse weight layer."""
+    """bsr_spmm: SASS check, edge cases, then one block-sparse weight
+    layer."""
     import numpy as np
-    from repro_torch.kernels.bsr_spmm import block_row_pointers, bsr_spmm
+    from repro_torch.kernels.bsr_spmm import (bf16_occupancy,
+                                              block_row_pointers, bsr_spmm)
     from repro_torch.kernels.ref import bsr_spmm_ref
     torch.backends.cuda.matmul.allow_tf32 = False    # plain in full fp32
+    mma = sass_mma("bsr_spmm")
+    tc = mma.get("bsr_spmm_bf16_kernel", {})
+    require(tc.get("HGMMA", 0) + tc.get("HMMA", 0) > 0,
+            f"the bfloat16 kernel's SASS holds no tensor-core MMA: {mma}")
+    smem, ctas = bf16_occupancy()
+    log(f"phase bsr_spmm SASS (cuobjdump): {mma}; the bfloat16 kernel "
+        f"takes {smem} B of dynamic shared memory, {ctas} CTAs per SM: ok")
     rng = np.random.default_rng(zlib.crc32(b"bsr_spmm"))
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    cases = {  # nbr, nbc, bm, bk, n, empty_row, padding
-        "empty block row + padding": (6, 5, 16, 16, 48, 2, 2),
-        "bm != bk": (4, 3, 32, 8, 40, None, 0),
-        "N not a multiple of the tile": (3, 3, 128, 128, 100, None, 1),
-        "128 x 128, N = 4096": (4, 4, 128, 128, 4096, 0, 0),
-    }
     err = {name: 0.0 for name in dtypes}
-    for what, (nbr, nbc, bm, bk, n, empty, pad) in cases.items():
+
+    def edge_case(what, nbr, nbc, bm, bk, n, empty, pad):
         rows, cols, n_real = _bsr_case(rng, nbr, nbc, bm, bk, 0.5,
                                        empty_row=empty, padding=pad)
         for name, dt in dtypes.items():
@@ -845,6 +937,15 @@ def phase_bsr(errs):
                         f"bsr_spmm {what} ({name}): the empty block row is "
                         "not zero")
         log(f"phase bsr_spmm edge case {what}: float32 and bfloat16: ok")
+
+    cases = {  # nbr, nbc, bm, bk, n, empty_row, padding
+        "empty block row + padding": (6, 5, 16, 16, 48, 2, 2),
+        "bm != bk": (4, 3, 32, 8, 40, None, 0),
+        "N not a multiple of the tile": (3, 3, 128, 128, 100, None, 1),
+        "128 x 128, N = 4096": (4, 4, 128, 128, 4096, 0, 0),
+    }
+    for what, case in cases.items():
+        edge_case(what, *case)
 
     # One block-sparse weight layer: 8192 x 8192 in 128 x 128 blocks (the
     # tile the TPU kernel was written around), 10 % of blocks stored,
@@ -908,9 +1009,14 @@ def phase_bsr(errs):
             f"{bytes_ms:.3f}), max |err| {e:.3e}: ok")
     del inputs, outs
     torch.cuda.empty_cache()
+    # Drawn after the layer, so the layer's blocks stay those of earlier
+    # runs: the bf16 kernel's K loop crosses blocks and wraps its ring.
+    edge_case("64 x 64, several blocks per block row", 4, 8, 64, 64, 192,
+              None, 1)
     errs["bsr_spmm"] = err["float32"]
     return dict(launches=launches, nnzb=nnzb, m=nbr * bm, k=nbc * bk, n=n,
-                block=(bm, bk), edge_max_abs_err=err, **stats)
+                block=(bm, bk), edge_max_abs_err=err, sass_mma=mma,
+                bf16_smem_bytes=smem, bf16_ctas_per_sm=ctas, **stats)
 
 
 def phase_request_path(A, C_mono):
@@ -1026,10 +1132,10 @@ def run():
         f"device {torch.cuda.get_device_name(0)}")
     secs = build.build_all()
     log(f"build: {secs:.1f} s")
-    for name in build.SIGNATURES:
-        for line in build.BUILD_LOG.get(name, "").splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {name}.cu: {line.strip()}")
+    ptxas = {name: build.ptxas_report(name) for name in build.SIGNATURES}
+    for name, lines in ptxas.items():
+        for line in lines:
+            log(f"  ptxas {name}.cu {line}")
 
     errs = {k: 0.0 for k in REPLACES}
     phase_tiny(sh, errs)
@@ -1037,6 +1143,7 @@ def run():
     res, plan, launches, slice_stats = phase_slice(A)
     phase_top_rungs(sh, A, res.sym_binning, res.num_binning, errs)
     stats = phase_main_shapes(sh, A, plan, res, errs)
+    stats["fused_bin"]["streams"] = phase_fused_streams(sh, A, plan, res)
     for name in HASH_KERNELS:
         stats[name].update(launches=launches[name], library_ms=None,
                            bound_by="bytes")
@@ -1063,7 +1170,8 @@ def run():
                 "max_abs_err")}
         kernels.append(entry)
     return dict(
-        card=card, kernels=kernels, build_s=secs, slice=slice_stats,
+        card=card, kernels=kernels, build_s=secs, ptxas=ptxas,
+        slice=slice_stats,
         main_shapes=stats, request_path=request,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)

@@ -7,14 +7,18 @@ order, ``blk_rows``/``blk_cols`` (nnzb,) int32 and ``blocks`` (nnzb, bm,
 bk), and each block's product with its ``bk``-row stripe of ``dense`` is
 summed in float32 into its block row's ``bm``-row stripe of the output.
 
-The kernel (``csrc/bsr_spmm.cu``) takes one CTA per (block row, row slice,
-column tile) and walks the block row's blocks between row pointers that
-this wrapper builds on the device from the sorted ``blk_rows``
-(``torch.searchsorted``: no host read).  Block rows with no block come
-out zero, where the TPU kernel leaves them unwritten.  The plain version
-is :func:`repro_torch.kernels.ref.bsr_spmm_ref`.
+The kernels (``csrc/bsr_spmm.cu``) take one CTA per (block row, row
+slice, column tile) and walk the block row's blocks between row pointers
+that this wrapper builds on the device from the sorted ``blk_rows``
+(``torch.searchsorted``: no host read).  bfloat16 runs on the tensor cores
+(``wgmma`` over a ring of cp.async stages, 128 x 128 tiles); float32 on
+the CUDA cores (64 x 64 tiles).  Block rows with no block come out zero,
+where the TPU kernel leaves them unwritten.  The plain version is
+:func:`repro_torch.kernels.ref.bsr_spmm_ref`.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -32,6 +36,17 @@ def block_row_pointers(blk_rows: torch.Tensor,
     bounds = torch.arange(n_block_rows + 1, dtype=torch.int32,
                           device=blk_rows.device)
     return torch.searchsorted(blk_rows, bounds, out_int32=True)
+
+
+def bf16_occupancy(device=None) -> Tuple[int, int]:
+    """(dynamic shared memory bytes per CTA, CTAs per SM) of the bfloat16
+    tensor-core kernel on the card."""
+    smem = torch.zeros(1, dtype=torch.int32)
+    ctas = torch.zeros(1, dtype=torch.int32)
+    with torch.cuda.device(device):
+        build.check(build.library("bsr_spmm").bsr_spmm_bf16_occupancy(
+            smem.data_ptr(), ctas.data_ptr()), "bsr_spmm_bf16_occupancy")
+    return int(smem[0]), int(ctas[0])
 
 
 def bsr_spmm(blk_rows: torch.Tensor, blk_cols: torch.Tensor,

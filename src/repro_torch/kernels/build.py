@@ -13,12 +13,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -33,6 +34,7 @@ _L = ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "spgemm_hash": {
         "hash_max_smem_bytes": (_P,),
+        "hash_ctas_per_sm": (_I, _I, _I, _I, _I, _P),
         "symbolic_bin": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                          _P),
         "numeric_bin": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
@@ -46,12 +48,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "bsr_spmm": {
         "bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "bsr_spmm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "bsr_spmm_bf16_occupancy": (_P, _P),
     },
 }
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}      # compiler output (ptxas -v) by source
+BUILD_LOG: Dict[str, str] = {}      # compiler output (ptxas -v) by source,
+                                    # kept as <library>.log beside it
 
 
 def _nvcc() -> str:
@@ -82,6 +86,8 @@ def build_all() -> float:
                 continue
             so = _target(name)
             if so.exists():
+                log = so.with_suffix(".log")
+                BUILD_LOG[name] = log.read_text() if log.exists() else ""
                 continue
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -96,6 +102,7 @@ def build_all() -> float:
             if proc.returncode != 0:
                 failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
             else:
+                so.with_suffix(".log").write_text(out)
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -109,6 +116,42 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def kernel_name(mangled: str) -> str:
+    """Readable name of a kernel in a (possibly anonymous) namespace, from
+    its mangled symbol (``hash_rows_kernel<1,0>``), else the symbol."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    pos = m.end() + int(m.group(1))             # past the namespace
+    m = re.match(r"(\d+)", mangled[pos:])
+    if not m:
+        return mangled
+    start = pos + m.end()
+    end = start + int(m.group(1))
+    name = mangled[start:end]
+    args = re.match(r"I((?:Lb[01]E)+)E", mangled[end:])
+    if args:
+        name += "<" + ",".join(re.findall(r"Lb([01])E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(name: str) -> List[str]:
+    """``ptxas -v`` of one source's last build, one line per kernel:
+    its registers, barriers, static shared memory, stack and spills."""
+    out, kernel, info = [], None, {}
+    for line in BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+        elif kernel and "spill" in line:
+            info[kernel] = line.strip()
+        elif kernel and "Used" in line:
+            used = line.split(":", 1)[-1].strip()
+            out.append(f"{kernel}: {used}; {info.get(kernel, '')}")
+            kernel = None
+    return out
+
+
 def library(name: str) -> ctypes.CDLL:
     """The bound library of ``csrc/<name>.cu``, built at first use."""
     lib = _LIBS.get(name)
@@ -116,6 +159,29 @@ def library(name: str) -> ctypes.CDLL:
         build_all()
         lib = _LIBS[name]
     return lib
+
+
+def sass_opcodes(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of the built ``csrc/<name>.cu``, how many SASS
+    instructions it holds of each opcode (``cuobjdump -sass``)."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        raise RuntimeError("cuobjdump not found")
+    sass = subprocess.run([exe, "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    ops: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+            ops[kernel] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)",
+                      line)
+        if kernel and m:
+            ops[kernel][m.group(1)] = ops[kernel].get(m.group(1), 0) + 1
+    return ops
 
 
 def check(err: int, what: str) -> None:

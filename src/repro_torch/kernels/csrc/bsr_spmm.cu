@@ -5,28 +5,42 @@
 // column c, out[r*bm:(r+1)*bm] += block @ dense[c*bk:(c+1)*bk], summed in
 // float32 and written once in the dense operand's type.
 //
-// What differs from the TPU kernel:
+// What both entry points do differently from the TPU kernel:
 //   * The TPU grid is one sequential step per stored block, carrying the
 //     block row's sum in VMEM from step to step.  Here nothing carries over
 //     between CTAs, so the work is split by OUTPUT tile instead: one CTA per
-//     (block row, 64-row slice of it, 64-column tile of N).  It walks its
-//     block row's stored blocks in order, between row pointers the wrapper
-//     builds on the device from the sorted block-row ids, so the stripe is
-//     written exactly once: no atomics, a fixed summation order.
+//     (block row, row slice of it, column tile of N).  It walks its block
+//     row's stored blocks in order, between row pointers the wrapper builds
+//     on the device from the sorted block-row ids, so the stripe is written
+//     exactly once: no atomics, a fixed summation order.
 //   * Block rows with no stored block are written as zeros (the TPU kernel
 //     never visits them and leaves them unwritten).  Entries with a block
 //     row outside [0, n_block_rows) fall outside every row pointer range
 //     and add nothing; padding entries with zero blocks add zeros.
-//   * Each CTA stages a 64 x 16 slice of the block (transposed) and the
-//     matching 16 x 64 slice of the dense stripe in shared memory as float32
-//     and keeps a 4 x 4 tile of float32 sums per thread in registers: plain
-//     CUDA-core FMAs.  Ragged edges (bm, bk or N not multiples of the tile)
-//     are masked on load and on store.
 //
-// What bounds it on the card: at the realistic shape (128 x 128 blocks,
-// N = 4096) the float32 FMAs, 2*nnzb*bm*bk*N operations, against the
-// CUDA-core float32 peak; in bf16 the reads and writes come closer.  A
-// tensor-core (wgmma) version is later work.
+// bfloat16 (bsr_spmm_bf16): tensor cores.  What bounds it on the card is
+// the operations, 2*nnzb*bm*bk*N at 989 TFLOP/s; the bytes (blocks, dense
+// stripes and output once each) come second.  One CTA computes a 128 x 128
+// output tile with two consumer warpgroups, each issuing
+// wgmma.mma_async m64n128k16 (bf16 in, float32 sums in registers) on its
+// 64 rows.  The CTA walks its block row's blocks as one long K loop in
+// 64-deep stages.  A ring of three stages in shared memory holds the block
+// slice (A, 128 x 64, K-major) and the dense stripe slice (B, 64 x 128,
+// N-major), both in the 128-byte swizzled layout that wgmma's descriptors
+// take; every thread fills it with 16-byte cp.async copies, so the loads of
+// stage k+2 run while the tensor cores work on stage k.  Ragged edges (bm,
+// bk or N not a multiple of the tile, rows not 16-byte aligned) are one
+// code path: a 16-byte chunk that is not whole or not aligned is read
+// element by element and zero-filled in shared memory, and the store is
+// masked.  About 97 KB of shared memory and at most 128 registers a thread
+// let two CTAs share an SM, so one CTA's epilogue overlaps the other's
+// K loop.
+//
+// float32 (bsr_spmm_f32): CUDA cores.  What bounds it is the float32 FMAs
+// against the 67 TFLOP/s CUDA-core peak.  Each CTA stages a 64 x 16 slice
+// of the block (transposed) and the matching 16 x 64 slice of the dense
+// stripe in shared memory and keeps a 4 x 4 tile of sums per thread in
+// registers.  Ragged edges are masked on load and on store.
 //
 // Every entry point returns cudaGetLastError() right after its launch; the
 // Python wrapper raises on anything but 0.
@@ -37,30 +51,22 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// float32: CUDA-core FMAs.
+// ---------------------------------------------------------------------------
+
 constexpr int kTM = 64;       // output rows per CTA
 constexpr int kTN = 64;       // output columns per CTA
 constexpr int kKC = 16;       // depth of one shared-memory stage
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kMicro = 4;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bsr_spmm_kernel(const int* __restrict__ ptr, const int* __restrict__ blk_cols,
-                const T* __restrict__ blocks, const T* __restrict__ dense,
-                T* __restrict__ out, int bm, int bk, int n, int m_tiles) {
+bsr_spmm_f32_kernel(const int* __restrict__ ptr,
+                    const int* __restrict__ blk_cols,
+                    const float* __restrict__ blocks,
+                    const float* __restrict__ dense, float* __restrict__ out,
+                    int bm, int bk, int n, int m_tiles) {
   __shared__ float s_a[kKC][kTM];   // block slice, transposed
   __shared__ float s_b[kKC][kTN];   // dense stripe slice
 
@@ -80,8 +86,8 @@ bsr_spmm_kernel(const int* __restrict__ ptr, const int* __restrict__ blk_cols,
   const int lo = ptr[r];
   const int hi = ptr[r + 1];
   for (int e = lo; e < hi; ++e) {
-    const T* blk = blocks + static_cast<size_t>(e) * bm * bk;
-    const T* stripe = dense + static_cast<size_t>(blk_cols[e]) * bk * n;
+    const float* blk = blocks + static_cast<size_t>(e) * bm * bk;
+    const float* stripe = dense + static_cast<size_t>(blk_cols[e]) * bk * n;
     for (int kc = 0; kc < bk; kc += kKC) {
 #pragma unroll
       for (int q = 0; q < kTM * kKC / kThreads; ++q) {
@@ -89,8 +95,7 @@ bsr_spmm_kernel(const int* __restrict__ ptr, const int* __restrict__ blk_cols,
         const int row = idx / kKC;
         const int kk = idx % kKC;
         const bool ok = m0 + row < bm && kc + kk < bk;
-        s_a[kk][row] = ok ? to_float(blk[static_cast<size_t>(m0 + row) * bk +
-                                         kc + kk])
+        s_a[kk][row] = ok ? blk[static_cast<size_t>(m0 + row) * bk + kc + kk]
                           : 0.0f;
       }
 #pragma unroll
@@ -99,8 +104,8 @@ bsr_spmm_kernel(const int* __restrict__ ptr, const int* __restrict__ blk_cols,
         const int kk = idx / kTN;
         const int col = idx % kTN;
         const bool ok = kc + kk < bk && n0 + col < n;
-        s_b[kk][col] = ok ? to_float(stripe[static_cast<size_t>(kc + kk) * n +
-                                            n0 + col])
+        s_b[kk][col] = ok ? stripe[static_cast<size_t>(kc + kk) * n + n0 +
+                                   col]
                           : 0.0f;
       }
       __syncthreads();
@@ -124,31 +129,262 @@ bsr_spmm_kernel(const int* __restrict__ ptr, const int* __restrict__ blk_cols,
   for (int i = 0; i < kMicro; ++i) {
     const int row = m0 + ty + 16 * i;
     if (row >= bm) continue;
-    T* dst = out + (static_cast<size_t>(r) * bm + row) * n;
+    float* dst = out + (static_cast<size_t>(r) * bm + row) * n;
 #pragma unroll
     for (int j = 0; j < kMicro; ++j) {
       const int col = n0 + tx + 16 * j;
-      if (col < n) dst[col] = from_float<T>(acc[i][j]);
+      if (col < n) dst[col] = acc[i][j];
     }
   }
 }
 
-template <typename T>
-int launch(const int* ptr, const int* blk_cols, const T* blocks,
-           const T* dense, T* out, int n_block_rows, int bm, int bk, int n,
-           void* stream) {
-  if (n_block_rows < 0 || bm < 1 || bk < 1 || n < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_block_rows == 0 || n == 0) return 0;
-  const int m_tiles = (bm + kTM - 1) / kTM;
-  const long long gx = static_cast<long long>(n_block_rows) * m_tiles;
-  const int gy = (n + kTN - 1) / kTN;
-  if (gx > 0x7fffffffLL || gy > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  bsr_spmm_kernel<T><<<dim3(static_cast<unsigned>(gx), gy), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      ptr, blk_cols, blocks, dense, out, bm, bk, n, m_tiles);
-  return static_cast<int>(cudaGetLastError());
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma on the tensor cores over a cp.async ring.
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128;          // output rows per CTA (2 warpgroups x 64)
+constexpr int kBN = 128;          // output columns per CTA
+constexpr int kBK = 64;           // depth of a stage: one 128-byte row of bf16
+constexpr int kStages = 3;
+constexpr int kTcThreads = 256;   // two consumer warpgroups
+constexpr int kATileBytes = kBM * kBK * 2;            // 16 KB
+constexpr int kBTileBytes = kBK * kBN * 2;            // 16 KB
+constexpr int kStageBytes = kATileBytes + kBTileBytes;
+constexpr int kTcSmemBytes = kStages * kStageBytes + 1024;  // + 1 KB to align
+// Shared-memory strides of the swizzled tiles, in bytes.  A (K-major): row
+// m at m*128, 8-row groups 1024 apart.  B (N-major): for each 64-column
+// half h, row k at h*kBHalf + k*128, so 8-row (k) groups are 1024 apart.
+constexpr uint32_t kRowBytes = 128;
+constexpr uint32_t kGroupBytes = 1024;
+constexpr uint32_t kBHalf = kBK * kRowBytes;          // 8192
+// wgmma descriptor offsets (bytes).  A: LBO is unused for a swizzled
+// K-major tile, SBO = stride between 8-row groups.  B (N-major): LBO =
+// stride between 64-column halves, SBO = stride between 8-row (k) groups.
+constexpr uint32_t kALbo = 16;
+constexpr uint32_t kASbo = kGroupBytes;
+constexpr uint32_t kBLbo = kBHalf;
+constexpr uint32_t kBSbo = kGroupBytes;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Matrix descriptor of a shared-memory operand in the 128-byte swizzle.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;
+  d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
+  d |= static_cast<uint64_t>(1) << 62;    // 128-byte swizzle
+  return d;
+}
+
+// D(64 x 128, f32) += A(64 x 16, K-major) * B(16 x 128, N-major).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, 1, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's shared-memory writes (cp.async and plain stores)
+// visible to wgmma, which reads through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One 16-byte chunk (8 bf16) from global to shared: a cp.async when all 8
+// elements exist and the source is 16-byte aligned, otherwise the `valid`
+// leading elements one by one and zeros after them.
+__device__ __forceinline__ void copy_chunk(uint32_t dst,
+                                           const unsigned short* src,
+                                           int valid) {
+  if (valid >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+    return;
+  }
+  unsigned short v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = j < valid ? __ldg(src + j) : 0;
+  const uint32_t w0 = v[0] | (static_cast<uint32_t>(v[1]) << 16);
+  const uint32_t w1 = v[2] | (static_cast<uint32_t>(v[3]) << 16);
+  const uint32_t w2 = v[4] | (static_cast<uint32_t>(v[5]) << 16);
+  const uint32_t w3 = v[6] | (static_cast<uint32_t>(v[7]) << 16);
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(w0), "r"(w1), "r"(w2), "r"(w3)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+bsr_spmm_bf16_kernel(const int* __restrict__ ptr,
+                     const int* __restrict__ blk_cols,
+                     const unsigned short* __restrict__ blocks,
+                     const unsigned short* __restrict__ dense,
+                     __nv_bfloat16* __restrict__ out, int bm, int bk, int n,
+                     int m_tiles, int k_steps) {
+  extern __shared__ uint8_t smem_raw[];
+  // The swizzle is a function of the address bits, so each tile starts on
+  // a 1024-byte boundary.
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+
+  const int r = blockIdx.x / m_tiles;           // block row
+  const int m0 = (blockIdx.x % m_tiles) * kBM;  // first row inside it
+  const int n0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lo = ptr[r];
+  const int total = (ptr[r + 1] - lo) * k_steps;  // stages of the K loop
+
+  // Stage t holds rows m0.. of block lo + t / k_steps, columns kc..kc+63
+  // (A), and rows kc..kc+63, columns n0..n0+127 of its dense stripe (B).
+  auto load_stage = [&](int t) {
+    const int e = lo + t / k_steps;
+    const int kc = (t % k_steps) * kBK;
+    const uint32_t sa = base + (t % kStages) * kStageBytes;
+    const uint32_t sb = sa + kATileBytes;
+    const unsigned short* blk = blocks + static_cast<size_t>(e) * bm * bk;
+    const unsigned short* stripe =
+        dense + static_cast<size_t>(blk_cols[e]) * bk * n;
+#pragma unroll
+    for (int i = 0; i < kATileBytes / 16 / kTcThreads; ++i) {
+      const int q = tid + i * kTcThreads;
+      const int row = q >> 3, c = q & 7;        // 8 chunks per 128-B row
+      const int gr = m0 + row, gk = kc + c * 8;
+      copy_chunk(sa + row * kRowBytes + ((c ^ (row & 7)) << 4),
+                 blk + static_cast<size_t>(gr) * bk + gk,
+                 gr < bm ? bk - gk : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kBTileBytes / 16 / kTcThreads; ++i) {
+      const int q = tid + i * kTcThreads;
+      const int k = q >> 4, cn = q & 15;        // 16 chunks per B row
+      const int h = cn >> 3, c = cn & 7;
+      const int gk = kc + k, gn = n0 + cn * 8;
+      copy_chunk(sb + h * kBHalf + k * kRowBytes + ((c ^ (k & 7)) << 4),
+                 stripe + static_cast<size_t>(gk) * n + gn,
+                 gk < bk ? n - gn : 0);
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load_stage(s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < total; ++t) {
+    cp_async_wait<kStages - 2>();   // stage t has landed (this thread's part)
+    fence_proxy_async();
+    __syncthreads();                // ... every thread's, and stage t-1 is
+                                    // free: both warpgroups waited on it
+    if (t + kStages - 1 < total) load_stage(t + kStages - 1);
+    cp_async_commit();
+    const uint32_t sa = base + (t % kStages) * kStageBytes +
+                        wg * 64 * kRowBytes;
+    const uint32_t sb = base + (t % kStages) * kStageBytes + kATileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j)
+      wgmma_m64n128k16(acc, wgmma_desc(sa + 32 * j, kALbo, kASbo),
+                       wgmma_desc(sb + 16 * kRowBytes * j, kBLbo, kBSbo));
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+  cp_async_wait<0>();
+
+  // Accumulator layout of m64nNk16: thread (warp w, lane l) of a warpgroup
+  // holds rows 16w + l/4 (+8) and columns 8j + 2(l%4) (+1), j = 0..15.
+  const int lane = tid & 31;
+  const int row0 = m0 + wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const int col0 = n0 + (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= bm) continue;
+    __nv_bfloat16* dst = out + (static_cast<size_t>(r) * bm + row) * n;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j;
+      const float v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
+      if (col + 1 < n && (reinterpret_cast<uintptr_t>(dst + col) & 3) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (col < n) dst[col] = __float2bfloat16(v0);
+        if (col + 1 < n) dst[col + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+// The bf16 kernel's opt-in above 48 KB of dynamic shared memory, and the
+// largest shared-memory carveout so that two CTAs share an SM.
+cudaError_t set_bf16_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(
+      bsr_spmm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTcSmemBytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(bsr_spmm_bf16_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+bool grid_of(int n_block_rows, int bm, int n, int tm, int tn, int* m_tiles,
+             dim3* grid) {
+  *m_tiles = (bm + tm - 1) / tm;
+  const long long gx = static_cast<long long>(n_block_rows) * *m_tiles;
+  const int gy = (n + tn - 1) / tn;
+  if (gx > 0x7fffffffLL || gy > 65535) return false;
+  *grid = dim3(static_cast<unsigned>(gx), gy);
+  return true;
 }
 
 }  // namespace
@@ -161,17 +397,48 @@ extern "C" {
 int bsr_spmm_f32(const int* ptr, const int* blk_cols, const float* blocks,
                  const float* dense, float* out, int n_block_rows, int bm,
                  int bk, int n, void* stream) {
-  return launch<float>(ptr, blk_cols, blocks, dense, out, n_block_rows, bm,
-                       bk, n, stream);
+  if (n_block_rows < 0 || bm < 1 || bk < 1 || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_block_rows == 0 || n == 0) return 0;
+  int m_tiles;
+  dim3 grid;
+  if (!grid_of(n_block_rows, bm, n, kTM, kTN, &m_tiles, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  bsr_spmm_f32_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      ptr, blk_cols, blocks, dense, out, bm, bk, n, m_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bsr_spmm_bf16(const int* ptr, const int* blk_cols, const void* blocks,
                   const void* dense, void* out, int n_block_rows, int bm,
                   int bk, int n, void* stream) {
-  return launch<__nv_bfloat16>(
-      ptr, blk_cols, static_cast<const __nv_bfloat16*>(blocks),
-      static_cast<const __nv_bfloat16*>(dense),
-      static_cast<__nv_bfloat16*>(out), n_block_rows, bm, bk, n, stream);
+  if (n_block_rows < 0 || bm < 1 || bk < 1 || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_block_rows == 0 || n == 0) return 0;
+  int m_tiles;
+  dim3 grid;
+  if (!grid_of(n_block_rows, bm, n, kBM, kBN, &m_tiles, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = set_bf16_attributes();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int k_steps = (bk + kBK - 1) / kBK;
+  bsr_spmm_bf16_kernel<<<grid, kTcThreads, kTcSmemBytes,
+                         static_cast<cudaStream_t>(stream)>>>(
+      ptr, blk_cols, static_cast<const unsigned short*>(blocks),
+      static_cast<const unsigned short*>(dense),
+      static_cast<__nv_bfloat16*>(out), bm, bk, n, m_tiles, k_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 kernel's dynamic shared memory per CTA, and how many of its
+// CTAs fit on one SM at once (the runtime's occupancy calculator).
+int bsr_spmm_bf16_occupancy(int* smem_bytes, int* ctas_per_sm) {
+  *smem_bytes = kTcSmemBytes;
+  const cudaError_t err = set_bf16_attributes();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, bsr_spmm_bf16_kernel, kTcThreads, kTcSmemBytes));
 }
 
 }  // extern "C"

@@ -27,14 +27,31 @@
 //     is the probe), and with check-then-CAS one for the read plus one for
 //     the CAS whenever an empty slot is claimed.
 //   * The bin size is read from device memory (`count`), never from the
-//     host; rows at or past it emit nnz 0, accesses 0 and empty tables.
+//     host.  Rows at or past it emit nnz 0 and accesses 0, and their tables
+//     are NOT written: the wrappers allocate the tables with torch.empty,
+//     so a padding row's table holds whatever the memory held.  The one
+//     consumer, numeric_epilogue, masks rows >= count.  (A CTA that holds a
+//     valid row and, packed, some padding rows writes empty tables for
+//     those.)
 //   * Raw tables go out with stride t_size (no TPU lane padding).
 //
-// What bounds it on the card: device-memory bytes.  Each product costs a
-// few bytes of B reads and a few shared-memory atomics; the raw table dump
-// (rows_cap x t_size x 8 B for the value-carrying kernels) is the largest
-// single stream, so the kernels are written to read A and B once per
-// product and to write the tables with coalesced stores.
+// What bounds it on the card: device-memory bytes for the valid rows (B
+// reads, the raw table dump), and, inside a row, the latency of the chain
+// A entry -> B row pointers -> B entries -> shared atomics.  The schedule
+// pads each bin to a pow-2 bucket with headroom, so most of a bucket's rows
+// can be padding; what the design does about each:
+//   * A CTA whose first row is at or past `count` writes nnz/accesses 0 and
+//     returns before it touches shared memory: no table fill, no probe, no
+//     dump.  Padding costs one launch slot and two stores per row.
+//   * A warp fetches the next 32 of its A entries (column, value, B row
+//     bounds) at once, one per lane, and walks them from registers through
+//     shuffles, so the dependent global loads are paid once per 32 entries.
+//   * Tables are dumped with 16-byte stores (4 words a thread), starting at
+//     the first 16-byte boundary of the row range; numeric-ladder sizes
+//     (2^k - 1) are not multiples of 4, so the ends go word by word.
+//   * fused_scheduled (spgemm_hash.py) launches its rungs on side
+//     streams, so a rung's tail, where few CTAs of the top rung hold most
+//     SMs' shared memory, overlaps the other rungs.
 //
 // Every entry point returns cudaGetLastError() right after its launch (or
 // the error of the shared-memory opt-in); the Python wrapper raises on
@@ -100,6 +117,31 @@ __device__ __forceinline__ int insert(int* keys, float* vals, int key,
   return probes;
 }
 
+// Copies n words from a shared-memory table to device memory: word by word
+// up to dst's first 16-byte boundary, then 16-byte stores, then the tail.
+__device__ __forceinline__ void dump_words(int* __restrict__ dst,
+                                           const int* src, int n) {
+  const int head = min(
+      n, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) &
+                          15) / 4);
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  const int quads = (n - head) / 4;
+  const bool src_aligned =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(src + head)) & 15) == 0;
+  for (int i = threadIdx.x; i < quads; i += blockDim.x) {
+    const int j = head + 4 * i;
+    int4 v;
+    if (src_aligned) {
+      v = *reinterpret_cast<const int4*>(src + j);
+    } else {
+      v = make_int4(src[j], src[j + 1], src[j + 2], src[j + 3]);
+    }
+    *reinterpret_cast<int4*>(dst + j) = v;
+  }
+  for (int i = head + 4 * quads + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = src[i];
+}
+
 template <bool SINGLE_ACCESS, bool WITH_VALUES>
 __global__ void hash_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
@@ -109,6 +151,17 @@ __global__ void hash_rows_kernel(
     int t_size, int rows_per_cta, int threads_per_row,
     int* __restrict__ nnz_out, int* __restrict__ col_out,
     float* __restrict__ val_out, int* __restrict__ acc_out) {
+  const int n_valid = *count;
+  const long long first = static_cast<long long>(blockIdx.x) * rows_per_cta;
+  if (first >= n_valid) {
+    // Padding CTA: counts only; its tables stay unwritten.
+    if (threadIdx.x < rows_per_cta) {
+      if (nnz_out) nnz_out[first + threadIdx.x] = 0;
+      acc_out[first + threadIdx.x] = 0;
+    }
+    return;
+  }
+
   extern __shared__ int smem[];
   const int cta_entries = rows_per_cta * t_size;
   int* keys = smem;
@@ -126,32 +179,44 @@ __global__ void hash_rows_kernel(
   }
   __syncthreads();
 
-  const int n_valid = *count;
   const int local = threadIdx.x / threads_per_row;
   const int tid = threadIdx.x % threads_per_row;
   const int warps = threads_per_row / 32;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const long long idx = static_cast<long long>(blockIdx.x) * rows_per_cta
-                        + local;
+  const long long idx = first + local;
   const bool pow2 = (t_size & (t_size - 1)) == 0;
   const int guard = kGuardFactor * t_size;
 
-  if (idx < n_valid) {
+  if (idx < n_valid) {   // uniform across a warp: a row is whole warps
     const int r = rows[idx];
     const int a_lo = a_rpt[r], a_hi = a_rpt[r + 1];
     int* row_keys = keys + local * t_size;
     float* row_vals = WITH_VALUES ? vals + local * t_size : nullptr;
     int inserted = 0, accesses = 0;
-    for (int e = a_lo + warp; e < a_hi; e += warps) {
-      const int k = a_col[e];
-      const float av = WITH_VALUES ? a_val[e] : 0.0f;
-      const int b_lo = b_rpt[k], b_hi = b_rpt[k + 1];
-      for (int j = b_lo + lane; j < b_hi; j += 32) {
-        const float prod = WITH_VALUES ? av * b_val[j] : 0.0f;
-        accesses += insert<SINGLE_ACCESS, WITH_VALUES>(
-            row_keys, row_vals, b_col[j], prod, t_size, pow2, guard,
-            &inserted);
+    // The warp's entries are a_lo + warp + warps*s, s = 0, 1, ...; lane l
+    // fetches entry s0 + l of each batch of 32.
+    for (int base = a_lo + warp; base < a_hi; base += 32 * warps) {
+      const int e = base + lane * warps;
+      int b_lo = 0, b_hi = 0;
+      float av = 0.0f;
+      if (e < a_hi) {
+        const int k = a_col[e];
+        if (WITH_VALUES) av = a_val[e];
+        b_lo = b_rpt[k];
+        b_hi = b_rpt[k + 1];
+      }
+      const int batch = min(32, (a_hi - base + warps - 1) / warps);
+      for (int s = 0; s < batch; ++s) {
+        const int lo = __shfl_sync(0xffffffffu, b_lo, s);
+        const int hi = __shfl_sync(0xffffffffu, b_hi, s);
+        const float a = WITH_VALUES ? __shfl_sync(0xffffffffu, av, s) : 0.0f;
+        for (int j = lo + lane; j < hi; j += 32) {
+          const float prod = WITH_VALUES ? a * b_val[j] : 0.0f;
+          accesses += insert<SINGLE_ACCESS, WITH_VALUES>(
+              row_keys, row_vals, b_col[j], prod, t_size, pow2, guard,
+              &inserted);
+        }
       }
     }
     if (inserted) atomicAdd(&row_nnz[local], inserted);
@@ -159,7 +224,6 @@ __global__ void hash_rows_kernel(
   }
   __syncthreads();
 
-  const long long first = static_cast<long long>(blockIdx.x) * rows_per_cta;
   if (threadIdx.x < rows_per_cta) {
     const bool valid = first + threadIdx.x < n_valid;
     if (nnz_out) nnz_out[first + threadIdx.x] = valid ? row_nnz[threadIdx.x] : 0;
@@ -167,10 +231,10 @@ __global__ void hash_rows_kernel(
   }
   if (col_out) {
     const long long base = first * t_size;
-    for (int i = threadIdx.x; i < cta_entries; i += blockDim.x) {
-      col_out[base + i] = keys[i];
-      if (WITH_VALUES) val_out[base + i] = vals[i];
-    }
+    dump_words(col_out + base, keys, cta_entries);
+    if (WITH_VALUES)
+      dump_words(reinterpret_cast<int*>(val_out) + base,
+                 reinterpret_cast<const int*>(vals), cta_entries);
   }
 }
 
@@ -231,6 +295,28 @@ int hash_max_smem_bytes(int* out) {
   err = cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   return static_cast<int>(err);
+}
+
+// CTAs of one rung's launch that fit on one SM at once (the runtime's
+// occupancy calculator: threads, registers and shared memory together).
+int hash_ctas_per_sm(int with_values, int single_access, int t_size,
+                     int rows_per_cta, int threads_per_row, int* out) {
+  const size_t smem = smem_bytes(t_size, rows_per_cta, with_values != 0);
+  const void* kernel =
+      with_values
+          ? (single_access
+                 ? reinterpret_cast<const void*>(hash_rows_kernel<true, true>)
+                 : reinterpret_cast<const void*>(hash_rows_kernel<false, true>))
+          : (single_access
+                 ? reinterpret_cast<const void*>(hash_rows_kernel<true, false>)
+                 : reinterpret_cast<const void*>(
+                       hash_rows_kernel<false, false>));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kernel, rows_per_cta * threads_per_row, smem));
 }
 
 int symbolic_bin(const int* rows, const int* count, const int* a_rpt,

@@ -30,8 +30,12 @@ Probe disciplines (paper §5.2, Fig. 9):
 
 Raw tables have stride ``t_size``: the 128-lane padding of the reference's
 TPU tiles has no meaning here, and :func:`numeric_epilogue` takes whatever
-stride its tables have.  The sort/condense epilogue, the ESC fallback rung
-and the binning stay torch ops, as they were jnp outside any kernel.  The
+stride its tables have.  On the card the tables of a bin's padding rows
+(rows at or past ``count``) are left unwritten: their blocks exit before
+building anything, and the epilogue masks those rows.  The plain versions
+still write them empty (-1 / 0), as the reference does.  The
+sort/condense epilogue, the ESC fallback rung and the binning stay torch
+ops, as they were jnp outside any kernel.  The
 drivers mark the fallback rung and the epilogue with profiler ranges
 (``hash_fallback``, ``hash_epilogue``) so a trace splits their time.
 
@@ -43,7 +47,7 @@ block's shared memory; the wrappers refuse them on the card.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -256,6 +260,20 @@ def _max_smem_bytes(device_index: int) -> int:
     return int(out[0])
 
 
+def ctas_per_sm(t_size: int, pack: int, *, with_values: bool,
+                single_access: bool = True,
+                device: Optional[torch.device] = None) -> int:
+    """CTAs of a rung's launch (:func:`launch_geometry`) that fit on one SM
+    of the card at once, by the CUDA occupancy calculator."""
+    rows_per_cta, threads = launch_geometry(t_size, pack)
+    out = torch.zeros(1, dtype=torch.int32)
+    with torch.cuda.device(device):
+        build.check(build.library("spgemm_hash").hash_ctas_per_sm(
+            int(with_values), int(single_access), t_size, rows_per_cta,
+            threads, out.data_ptr()), "hash_ctas_per_sm")
+    return int(out[0])
+
+
 def _cuda_launch_args(device: torch.device, t_size: int, pack: int,
                       with_values: bool) -> Tuple[int, int]:
     rows_per_cta, threads = launch_geometry(t_size, pack)
@@ -299,10 +317,12 @@ def symbolic_bin_call(rows, count, a_rpt, a_col, b_rpt, b_col, *,
                       t_size: int, rows_cap: int, pack: int = 1,
                       single_access: bool = True):
     """Symbolic hash kernel over one bin -> (nnz, accesses), both
-    (rows_cap,) int32.
+    (rows_cap,) int32, 0 on the padding rows.
 
     rows: (rows_cap,) int32 row ids (padded); count: (1,) int32 valid rows,
-    read on the device.  ``pack`` rows share one block (a warp each).
+    read on the device.  ``pack`` rows share one block (a warp each).  On
+    the card a block whose rows are all padding writes their zeros and
+    exits.
     """
     if not rows.is_cuda:
         return symbolic_bin_plain(rows, count, a_rpt, a_col, b_rpt, b_col,
@@ -335,7 +355,12 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                      *, t_size: int, rows_cap: int, single_access: bool):
     """Numeric hash kernel over one bin -> (col_tabs, val_tabs, accesses):
     col_tabs (rows_cap, t_size) int32 raw tables (-1 = empty), val_tabs
-    (rows_cap, t_size) float32, accesses (rows_cap,) int32.  Never packs.
+    (rows_cap, t_size) float32, accesses (rows_cap,) int32 (0 on the
+    padding rows).  Never packs.
+
+    On the card the tables of rows at or past ``count`` are NOT written
+    (``torch.empty``: they hold whatever the memory held); only rows below
+    ``count`` carry tables.  The plain version writes them empty.
     """
     if not rows.is_cuda:
         return numeric_bin_plain(rows, count, a_rpt, a_col, a_val, b_rpt,
@@ -367,15 +392,30 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
 numeric_bin_call.launches = 0
 
 
+def fused_outputs(rows_cap: int, t_size: int, device) -> Tuple:
+    """Uninitialised (nnz, col_tabs, val_tabs, accesses) for one fused
+    launch, allocated on the current stream."""
+    return (torch.empty(rows_cap, dtype=torch.int32, device=device),
+            torch.empty((rows_cap, t_size), dtype=torch.int32, device=device),
+            torch.empty((rows_cap, t_size), dtype=torch.float32,
+                        device=device),
+            torch.empty(rows_cap, dtype=torch.int32, device=device))
+
+
 def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                    *, t_size: int, rows_cap: int, pack: int = 1,
-                   single_access: bool = True):
+                   single_access: bool = True, out: Optional[Tuple] = None):
     """Fused symbolic->numeric hash kernel over one bin ->
     (nnz, col_tabs, val_tabs, accesses):
-      nnz      (rows_cap,) int32 distinct columns per row;
+      nnz      (rows_cap,) int32 distinct columns per row (0 on padding);
       col_tabs (rows_cap, t_size) int32 raw tables (-1 = empty);
       val_tabs (rows_cap, t_size) float32 accumulated values;
-      accesses (rows_cap,) int32 table transactions per row.
+      accesses (rows_cap,) int32 table transactions per row (0 on padding).
+
+    On the card the tables of rows at or past ``count`` are NOT written
+    (their blocks exit first); the plain version writes them empty.
+    ``out`` (CUDA only) takes the four outputs from :func:`fused_outputs`,
+    so a caller can allocate them on another stream than the launch's.
     """
     if not rows.is_cuda:
         return fused_bin_plain(rows, count, a_rpt, a_col, a_val, b_rpt,
@@ -388,11 +428,8 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                        [("a_val", a_val), ("b_val", b_val)], rows_cap)
     dev = rows.device
     rows_per_cta, threads = _cuda_launch_args(dev, t_size, pack, True)
-    nnz = torch.empty(rows_cap, dtype=torch.int32, device=dev)
-    col_tabs = torch.empty((rows_cap, t_size), dtype=torch.int32, device=dev)
-    val_tabs = torch.empty((rows_cap, t_size), dtype=torch.float32,
-                           device=dev)
-    acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
+    nnz, col_tabs, val_tabs, acc = (fused_outputs(rows_cap, t_size, dev)
+                                    if out is None else out)
     if rows_cap:
         with torch.cuda.device(dev):
             err = build.library("spgemm_hash").fused_bin(
@@ -701,6 +738,68 @@ def numeric_binned(A: CSR, B: CSR, rpt: torch.Tensor, binning: Binning,
     return C
 
 
+class FusedRung(NamedTuple):
+    """One populated table rung of a fused launch schedule."""
+    b: int
+    t_size: int
+    rows_cap: int
+    pack: int
+    rows: torch.Tensor     # (rows_cap,) int32 row ids, padded
+    count: torch.Tensor    # (1,) int32 valid rows, on the device
+
+
+def fused_rungs(binning: Binning, ladder: BinLadder, row_buckets, *,
+                row_packing: bool = False) -> List[FusedRung]:
+    """The schedule's populated table rungs, largest tables first (the
+    §5.5 launch-order rule), with their row ids and counts."""
+    out = []
+    for b in range(len(ladder.table_sizes) - 1, -1, -1):
+        rows_cap = row_buckets[b]
+        if not rows_cap:
+            continue
+        pack = min(ladder.rows_per_block[b] if row_packing else 1, rows_cap)
+        rows, count = binning.rows_of_bin(b, rows_cap)
+        out.append(FusedRung(b, ladder.table_sizes[b], rows_cap, pack, rows,
+                             count.reshape(1)))
+    return out
+
+
+def launch_fused_rungs(A: CSR, B: CSR, rungs: List[FusedRung], *,
+                       single_access: bool = True) -> List[Tuple]:
+    """:func:`fused_bin_call` for each rung, in the given order ->
+    one (nnz, col_tabs, val_tabs, accesses) per rung.
+
+    On the card each rung runs on its own side stream, so the rungs
+    overlap: a rung's tail (the top rung holds one CTA per SM) leaves SMs
+    to the others.  The outputs are allocated on the current stream before
+    the fork, and the current stream waits on every side stream before this
+    returns: whatever the caller enqueues next, including the completion
+    event that ``SpgemmEngine.submit``/``drain`` record after a dispatch,
+    runs after every rung, and the caching allocator cannot hand the
+    outputs or the inputs to other work early.  No host sync.
+    """
+    def launch(rung, out=None):
+        return fused_bin_call(
+            rung.rows, rung.count, A.rpt, A.col, A.val, B.rpt, B.col, B.val,
+            t_size=rung.t_size, rows_cap=rung.rows_cap, pack=rung.pack,
+            single_access=single_access, out=out)
+
+    if A.device.type != "cuda":
+        return [launch(rung) for rung in rungs]
+    dev = A.device
+    outs = [fused_outputs(rung.rows_cap, rung.t_size, dev) for rung in rungs]
+    current = torch.cuda.current_stream(dev)
+    fork = torch.cuda.Event()
+    fork.record(current)
+    for rung, out in zip(rungs, outs):
+        stream = torch.cuda.Stream(device=dev)     # from torch's pool
+        stream.wait_event(fork)
+        with torch.cuda.stream(stream):
+            launch(rung, out)
+        current.wait_stream(stream)
+    return outs
+
+
 def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
                     row_buckets, nnz_capacity: int,
                     fallback_prod_capacity: int = 0,
@@ -715,6 +814,12 @@ def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
     every row's nnz is known the row pointers are an exclusive sum and the
     dumped tables condense/sort/scatter into C.  Symbolic-ladder tables
     are sized by n_prod (>= n_nz), so they never overflow.
+
+    On the card the table rungs run concurrently
+    (:func:`launch_fused_rungs`): forked from the current stream after the
+    fallback rung, one side stream each, largest tables first, and joined
+    back into the current stream before the exclusive sum.  On the CPU they
+    run one after another in the same order.
 
     Returns ``(C, nnz, sub_prod, accesses)``: the assembled CSR, the (M,)
     per-row nnz, the fallback rung's product total to verify against
@@ -743,17 +848,12 @@ def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
             _scatter_nnz(nnz_buf, rows, valid, subC.nnz_per_row(), m)
         fallback = (subC, rows, valid)
 
-    for b in range(len(ladder.table_sizes) - 1, -1, -1):
-        rows_cap = row_buckets[b]
-        if not rows_cap:
-            continue
-        pack = min(ladder.rows_per_block[b] if row_packing else 1, rows_cap)
-        rows, count = binning.rows_of_bin(b, rows_cap)
-        nnz_bin, col_tabs, val_tabs, acc_bin = fused_bin_call(
-            rows, count.reshape(1), A.rpt, A.col, A.val, B.rpt, B.col, B.val,
-            t_size=ladder.table_sizes[b], rows_cap=rows_cap, pack=pack,
-            single_access=single_access)
-        valid = torch.arange(rows_cap, device=dev) < count
+    rungs = fused_rungs(binning, ladder, row_buckets,
+                        row_packing=row_packing)
+    outs = launch_fused_rungs(A, B, rungs, single_access=single_access)
+    for rung, (nnz_bin, col_tabs, val_tabs, acc_bin) in zip(rungs, outs):
+        rows, count = rung.rows, rung.count
+        valid = torch.arange(rung.rows_cap, device=dev) < count
         _scatter_nnz(nnz_buf, rows, valid, nnz_bin, m)
         if collect_accesses:
             accesses = accesses + acc_bin.masked_fill(~valid, 0).sum()

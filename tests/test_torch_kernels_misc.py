@@ -176,6 +176,10 @@ BSR_CASES = {
     "bm-ne-bk": (4, 3, 32, 8, 40, False),
     "n-ragged": (3, 3, 128, 128, 100, True),
     "tiny": (2, 2, 8, 8, 8, False),
+    # several blocks per block row: the K loop crosses blocks and wraps
+    # the bf16 kernel's ring of stages
+    "64x64-multi": (4, 8, 64, 64, 192, False),
+    "128x128-multi": (3, 8, 128, 128, 384, False),
 }
 
 
@@ -207,3 +211,17 @@ def test_bsr_spmm_kernel_matches_plain(cuda_device, case, dtype):
     torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
     if empty_row:
         assert not got[bm:2 * bm].any()
+
+
+@pytest.mark.parametrize("source", ["spgemm_hash", "bsr_spmm"])
+def test_ablation_variants_edit_the_current_sources(source):
+    """Every ablation build of ``repro_torch.kernels.ablate`` finds its
+    anchor in today's source, and all but the baseline change it."""
+    from repro_torch.kernels import ablate, build
+    variants = {"spgemm_hash": ablate.HASH_VARIANTS,
+                "bsr_spmm": ablate.BSR_VARIANTS}[source]
+    src = (build.CSRC / f"{source}.cu").read_text()
+    edited = [edit(src) for edit in variants.values()]
+    assert edited[0] == src
+    assert all(e != src for e in edited[1:])
+    assert len(set(edited)) == len(edited)

@@ -332,6 +332,94 @@ def test_launch_geometry():
                                t_size=32, rows_cap=6, pack=4)
 
 
+def test_numeric_epilogue_ignores_padding_row_tables():
+    """On the card the tables of rows >= count are left unwritten; the
+    epilogue must give the same C whatever they hold."""
+    A, B = _pair()
+    TA, TB = _port(A), _port(B)
+    m = A.nrows
+    nnz = jesc.symbolic(A, B, prod_capacity=1 << 15)[:m]
+    jb, tb = _bins(A, B, NUM, sizes=nnz)
+    rpt = texcl(torch.from_numpy(np.asarray(nnz).copy()))
+    jrpt = jexcl(nnz)
+    cap = int(rpt[-1]) + 8
+    rng = np.random.default_rng(11)
+    for b in _populated(jb, NUM)[0]:
+        t = NUM[2][b]
+        jr, jc, tr, tc = _rung_inputs(jb, tb, b, 64)
+        jcol, jval, _ = jsh.numeric_bin_call(
+            jr, jc, A.rpt, A.col, A.val, B.rpt, B.col, B.val, t_size=t,
+            rows_cap=64, single_access=True, interpret=True)
+        tcol, tval, _ = tsh.numeric_bin_call(
+            tr, tc, TA.rpt, TA.col, TA.val, TB.rpt, TB.col, TB.val,
+            t_size=t, rows_cap=64, single_access=True)
+        n = int(tc[0])
+        assert n < 64                               # the bin has padding
+        gcol, gval = tcol.clone(), tval.clone()
+        gcol[n:] = torch.from_numpy(rng.integers(
+            -5, TB.ncols, (64 - n, t), dtype=np.int32))
+        gval[n:] = torch.from_numpy(rng.standard_normal(
+            (64 - n, t)).astype(np.float32))
+        gval[n:, ::7] = float("nan")
+        outs = []
+        for col_tabs, val_tabs in ((tcol, tval), (gcol, gval)):
+            c_col = torch.zeros(cap + 1, dtype=torch.int32)
+            c_val = torch.zeros(cap + 1, dtype=torch.float32)
+            tsh.numeric_epilogue(col_tabs, val_tabs, tr, tc, rpt, c_col,
+                                 c_val, nnz_capacity=cap)
+            outs.append((c_col[:cap], c_val[:cap]))
+        jcc, jcv = jsh.numeric_epilogue(
+            jcol, jval, jr, jc, jrpt, jnp.zeros(cap + 1, jnp.int32),
+            jnp.zeros(cap + 1, jnp.float32), nnz_capacity=cap)
+        for c_col, c_val in outs:
+            np.testing.assert_array_equal(_np(c_col), np.asarray(jcc)[:cap])
+            np.testing.assert_allclose(_np(c_val), np.asarray(jcv)[:cap],
+                                       **VAL_TOL)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_fused_rungs_and_scheduled_match_reference_with_padding(packed):
+    """fused_scheduled's rung list (largest tables first) and its result
+    on a 2x-headroom schedule, whose buckets hold padding rows, against
+    the reference's fused_bin_call and fused_scheduled."""
+    A, B = _pair()
+    TA, TB = _port(A), _port(B)
+    jl, tl = jladder(*SYM), make_ladder(*SYM)
+    jb, tb = _bins(A, B, SYM)
+    packs = (jl.rows_per_block, tl.rows_per_block) if packed else (None,
+                                                                   None)
+    sched = jsh.host_schedule(A, B, jb, jl, headroom=2.0, packs=packs[0])
+    assert sched == tsh.host_schedule(TA, TB, tb, tl, headroom=2.0,
+                                      packs=packs[1])
+    rungs = tsh.fused_rungs(tb, tl, sched[0], row_packing=packed)
+    assert [r.b for r in rungs] == [2, 1, 0]
+    outs = tsh.launch_fused_rungs(TA, TB, rungs)
+    for rung, (tn, tcol, tval, ta) in zip(rungs, outs):
+        assert int(rung.count[0]) < rung.rows_cap   # padding rows present
+        jr, jc = jb.rows_of_bin(rung.b, rung.rows_cap)
+        jn, jcol, jval, ja = jsh.fused_bin_call(
+            jr, jc.reshape(1), A.rpt, A.col, A.val, B.rpt, B.col, B.val,
+            t_size=rung.t_size, rows_cap=rung.rows_cap, pack=rung.pack,
+            interpret=True)
+        np.testing.assert_array_equal(_np(tn), np.asarray(jn))
+        np.testing.assert_array_equal(_np(ta), np.asarray(ja))
+        np.testing.assert_array_equal(_np(tcol),
+                                      np.asarray(jcol)[:, :rung.t_size])
+        np.testing.assert_allclose(_np(tval),
+                                   np.asarray(jval)[:, :rung.t_size],
+                                   **VAL_TOL)
+    kw = dict(row_buckets=sched[0], fallback_prod_capacity=sched[1],
+              nnz_capacity=4096, row_packing=packed, collect_accesses=True)
+    jC, jnz, jsp, jacc = jsh.fused_scheduled(A, B, jb, jl, interpret=True,
+                                             **kw)
+    tC, tnz, tsp, tacc = tsh.fused_scheduled(TA, TB, tb, tl, **kw)
+    np.testing.assert_array_equal(_np(tnz), np.asarray(jnz))
+    np.testing.assert_array_equal(_np(tC.rpt), np.asarray(jC.rpt))
+    np.testing.assert_array_equal(_np(tC.col), np.asarray(jC.col))
+    np.testing.assert_allclose(_np(tC.val), np.asarray(jC.val), **VAL_TOL)
+    assert int(tsp) == int(jsp) and int(tacc) == int(jacc)
+
+
 # ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version.
 # ---------------------------------------------------------------------------
@@ -357,31 +445,96 @@ def test_cuda_kernels_match_plain(cuda_device, kind, single_access):
     ts = (tnprod(TA, TB)[:96] if sizes is None
           else torch.from_numpy(sizes.copy()).to(cuda_device))
     tb = tbin(ts, make_ladder(*lad))
+    nprod = tnprod(TA, TB).long()
     for b in _populated(jb, lad)[0]:
         t = lad[2][b]
         rows, count = tb.rows_of_bin(b, 128)
         count = count.reshape(1)
+        valid = torch.arange(128, device=cuda_device) < count
         if kind == "symbolic":
             args = (rows, count, TA.rpt, TA.col, TB.rpt, TB.col)
-            k = tsh.symbolic_bin_call(*args, t_size=t, rows_cap=128,
-                                      single_access=single_access)
-            p = tsh.symbolic_bin_plain(*args, t_size=t, rows_cap=128)
-            assert torch.equal(k[0], p[0])
-            continue
-        args = (rows, count, TA.rpt, TA.col, TA.val, TB.rpt, TB.col, TB.val)
-        if kind == "numeric":
-            kc, kv, _ = tsh.numeric_bin_call(*args, t_size=t, rows_cap=128,
-                                             single_access=single_access)
-            pc, pv, _ = tsh.numeric_bin_plain(*args, t_size=t, rows_cap=128,
-                                              single_access=True)
-        else:
-            kn, kc, kv, _ = tsh.fused_bin_call(
-                *args, t_size=t, rows_cap=128, single_access=single_access)
-            pn, pc, pv, _ = tsh.fused_bin_plain(*args, t_size=t,
-                                                rows_cap=128)
+            kn, ka = tsh.symbolic_bin_call(*args, t_size=t, rows_cap=128,
+                                           single_access=single_access)
+            pn, _ = tsh.symbolic_bin_plain(*args, t_size=t, rows_cap=128)
             assert torch.equal(kn, pn)
-        ks, ko = torch.sort(kc, dim=1)
-        ps, po = torch.sort(pc, dim=1)
-        assert torch.equal(ks, ps)
-        torch.testing.assert_close(kv.gather(1, ko), pv.gather(1, po),
-                                   rtol=1e-5, atol=1e-5)
+        else:
+            args = (rows, count, TA.rpt, TA.col, TA.val, TB.rpt, TB.col,
+                    TB.val)
+            if kind == "numeric":
+                kc, kv, ka = tsh.numeric_bin_call(
+                    *args, t_size=t, rows_cap=128,
+                    single_access=single_access)
+                pc, pv, _ = tsh.numeric_bin_plain(
+                    *args, t_size=t, rows_cap=128, single_access=True)
+            else:
+                kn, kc, kv, ka = tsh.fused_bin_call(
+                    *args, t_size=t, rows_cap=128,
+                    single_access=single_access)
+                pn, pc, pv, _ = tsh.fused_bin_plain(*args, t_size=t,
+                                                    rows_cap=128)
+                assert torch.equal(kn, pn)           # all rows, 0 on padding
+            # Tables only below count: the padding rows' stay unwritten.
+            ks, ko = torch.sort(kc[valid], dim=1)
+            ps, po = torch.sort(pc[valid], dim=1)
+            assert torch.equal(ks, ps)
+            torch.testing.assert_close(kv[valid].gather(1, ko),
+                                       pv[valid].gather(1, po),
+                                       rtol=1e-5, atol=1e-5)
+        # Accesses on all rows: at least one per product, none on padding.
+        ka = ka.long()
+        assert bool((ka[valid] >= nprod[rows.long()][valid]).all())
+        assert not bool(ka[~valid].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["symbolic", "numeric", "fused"])
+def test_cuda_kernels_count_zero(cuda_device, kind):
+    """A bin with no valid row: every block exits at once, nnz and accesses
+    are 0 on every row."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    rows = torch.arange(256, dtype=torch.int32, device=cuda_device) % 96
+    count = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    ints = (TA.rpt, TA.col)
+    if kind == "symbolic":
+        nnz, acc = tsh.symbolic_bin_call(rows, count, *ints, TB.rpt, TB.col,
+                                         t_size=64, rows_cap=256, pack=32)
+    elif kind == "numeric":
+        _, _, acc = tsh.numeric_bin_call(
+            rows, count, *ints, TA.val, TB.rpt, TB.col, TB.val, t_size=63,
+            rows_cap=256, single_access=True)
+        nnz = torch.zeros_like(acc)
+    else:
+        nnz, _, _, acc = tsh.fused_bin_call(
+            rows, count, *ints, TA.val, TB.rpt, TB.col, TB.val, t_size=128,
+            rows_cap=256)
+    torch.cuda.synchronize()
+    assert not bool(nnz.any()) and not bool(acc.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_fused_scheduled_on_side_streams_matches_cpu(cuda_device,
+                                                          packed):
+    """fused_scheduled on the card (rungs on side streams) against the
+    plain path on the CPU, on a 2x-headroom schedule with padding rows."""
+    A, B = _pair()
+    TA, TB = _port(A), _port(B)
+    GA, GB = _port(A, cuda_device), _port(B, cuda_device)
+    tl = make_ladder(*SYM)
+    tb = tbin(tnprod(TA, TB)[:TA.nrows], tl)
+    gb = tbin(tnprod(GA, GB)[:GA.nrows], tl)
+    packs = tl.rows_per_block if packed else None
+    buckets, fall = tsh.host_schedule(TA, TB, tb, tl, headroom=2.0,
+                                      packs=packs)
+    kw = dict(row_buckets=buckets, fallback_prod_capacity=fall,
+              nnz_capacity=4096, row_packing=packed)
+    C0, nnz0, _, _ = tsh.fused_scheduled(TA, TB, tb, tl, **kw)
+    C, nnz, _, _ = tsh.fused_scheduled(GA, GB, gb, tl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(nnz.cpu(), nnz0)
+    assert torch.equal(C.rpt.cpu(), C0.rpt)
+    nz = int(C0.rpt[-1])
+    assert torch.equal(C.col[:nz].cpu(), C0.col[:nz])
+    torch.testing.assert_close(C.val[:nz].cpu(), C0.val[:nz], rtol=1e-5,
+                               atol=1e-5)
