@@ -17,10 +17,14 @@ Phases, in order; any failure exits non-zero:
   3. the first slice: C = A·A through spgemm(method="hash") for the
      paper's Table-3 matrix mono_500Hz at its full row count (one cold
      call, then steady calls), with the launch counters read around it,
-     the steady dispatch checked for host syncs, a profile of one steady
-     call, and C held against scipy; torch.sparse as the yardstick.
-  4. each hash kernel at the shapes the main path gave it: its time, its
-     plain version's time on the same inputs (and agreement), its bound;
+     the cold call's per-step times (its StepTimer), the steady dispatch
+     checked for host syncs, a profile of one steady call, and C held
+     against scipy; torch.sparse as the yardstick.
+  4. each hash kernel at the shapes the main path gave it, rung by rung:
+     its time (the wrapper's launch alone; the numeric kernel's nnz for
+     the comparison comes from the valid rows' tables, outside the
+     timing), its CTAs per SM, its plain version's time on the same
+     inputs (and agreement), its bound;
      then the steady call's fused rungs as the main path launches them
      (one side stream each) against the sum of their times alone and
      against one stream, each rung's CTAs per SM, and rung 2's geometry
@@ -160,11 +164,11 @@ def kernel_args(kind, A, B, rows, count):
     return (rows, count, A.rpt, A.col, A.val, B.rpt, B.col, B.val)
 
 
-def run_bin(sh, kind, plain, A, B, rows, count, t_size, rows_cap, *,
-            pack=1, single_access=True):
-    """One bin through the kernel (plain=False) or its plain version;
-    returns dict(nnz, cols, vals, acc) with tables where the kernel has
-    them."""
+def bin_call(sh, kind, plain, A, B, rows, count, t_size, rows_cap, *,
+             pack=1, single_access=True):
+    """One bin through the kernel wrapper (plain=False) or its plain
+    version, outputs as the function returns them: what a kernel's time
+    covers."""
     args = kernel_args(kind, A, B, rows, count)
     kw = dict(t_size=t_size, rows_cap=rows_cap, single_access=single_access)
     if kind != "numeric_bin":
@@ -177,14 +181,24 @@ def run_bin(sh, kind, plain, A, B, rows, count, t_size, rows_cap, *,
         ("fused_bin", False): sh.fused_bin_call,
         ("fused_bin", True): sh.fused_bin_plain,
     }[(kind, plain)]
-    out = fn(*args, **kw)
+    return fn(*args, **kw)
+
+
+def run_bin(sh, kind, plain, A, B, rows, count, t_size, rows_cap, *,
+            pack=1, single_access=True):
+    """:func:`bin_call` -> dict(nnz, cols, vals, acc) with tables where the
+    kernel has them.  The numeric kernel's nnz is derived here from the
+    tables of the valid rows (0 on padding rows), outside any timing."""
+    out = bin_call(sh, kind, plain, A, B, rows, count, t_size, rows_cap,
+                   pack=pack, single_access=single_access)
     if kind == "symbolic_bin":
         return dict(nnz=out[0], cols=None, vals=None, acc=out[1])
     if kind == "numeric_bin":
         cols, vals, acc = out
         valid = torch.arange(rows_cap, device=cols.device) < count
-        nnz = (cols >= 0).sum(1).masked_fill(~valid, 0)
-        return dict(nnz=nnz.to(torch.int32), cols=cols, vals=vals, acc=acc)
+        nnz = torch.zeros(rows_cap, dtype=torch.int32, device=cols.device)
+        nnz[valid] = (cols[valid] >= 0).sum(1).to(torch.int32)
+        return dict(nnz=nnz, cols=cols, vals=vals, acc=acc)
     return dict(nnz=out[0], cols=out[1], vals=out[2], acc=out[3])
 
 
@@ -495,16 +509,21 @@ def phase_main_shapes(sh, A, plan, result, errs):
                 f"main-shape {kind} rung {b} (t={t_size}, "
                 f"rows={int(count)}/{rows_cap})", k, p, nprod_rows, valid))
             del p, k
-            kms = time_cuda(lambda: run_bin(
+            # The wrapper's launch alone: no reduction over its tables.
+            kms = time_cuda(lambda: bin_call(
                 sh, kind, False, A, A, rows, count, t_size, rows_cap), 3)
             rb, pb = bound_bytes(kind, A, A, rows, count, t_size, rows_cap)
+            ctas = sh.ctas_per_sm(t_size, kernel=kind)
             ms += kms
             plain_ms += pms
             nbytes += rb
             pad_bytes += pb
             rungs.append(dict(rung=b, t_size=t_size, rows=int(count),
                               rows_cap=rows_cap, ms=kms, plain_ms=pms,
-                              bytes=rb, pad_bytes=pb))
+                              bytes=rb, pad_bytes=pb, ctas_per_sm=ctas))
+            log(f"  {kind} rung {b} (t={t_size}, rows {int(count)}/"
+                f"{rows_cap}, {ctas} CTAs/SM): {kms:.3f} ms, bound "
+                f"{rb / HBM_BYTES_PER_S * 1e3:.4f} ms")
             torch.cuda.empty_cache()
         stats[kind] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes,
                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -543,7 +562,7 @@ def phase_fused_streams(sh, A, plan, result):
         per_rung.append(dict(
             rung=r.b, t_size=r.t_size, rows=int(r.count), rows_cap=r.rows_cap,
             ms=time_cuda(lambda: one(r), 3),
-            ctas_per_sm=sh.ctas_per_sm(r.t_size, r.pack, with_values=True,
+            ctas_per_sm=sh.ctas_per_sm(r.t_size, r.pack, kernel="fused_bin",
                                        single_access=sa)))
         torch.cuda.empty_cache()
     sum_ms = sum(x["ms"] for x in per_rung)
@@ -756,6 +775,11 @@ def phase_slice(A):
         f"steady {steady_launches}, host syncs in steady dispatch: 0")
     log(f"schedule: {entry.plan.hash_schedule}, nnz bucket "
         f"{entry.plan.nnz_bucket}, policy {entry.plan.policy}")
+    # A cold call always runs the StepTimer of the steps path (each step
+    # waits for the device), as SpgemmConfig(timing=True) would.
+    cold_steps_ms = {k: v * 1e3 for k, v in res_cold.timings.items()}
+    log("cold call steps: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in cold_steps_ms.items()))
 
     prof = profile_steady(lambda: spgemm(A, A, cfg))
     log(f"profile of one steady call: wall {prof['wall_ms']:.1f} ms, "
@@ -780,7 +804,7 @@ def phase_slice(A):
     return res, entry.plan, launches, dict(
         matrix=MONO["name"], rows=A.nrows, nnz=int(A.nnz()),
         total_nprod=res.total_nprod, total_nnz=res.total_nnz,
-        cold_ms=cold_ms, steady_ms=steady_ms,
+        cold_ms=cold_ms, cold_steps_ms=cold_steps_ms, steady_ms=steady_ms,
         steady_median_ms=statistics.median(steady_ms), peak_bytes=peak,
         torch_sparse_ms=sparse_ms, cold_launches=cold_launches,
         steady_launches=steady_launches,

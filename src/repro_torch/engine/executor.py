@@ -75,7 +75,8 @@ class StepTimer:
 
     With an enabled ``tracer`` each measured step also records a span,
     nested under the tracer's current ``with``-span (``cold_steps``): the
-    steps path waits for the device at each step anyway.
+    steps path waits for the device at each step anyway.  Under
+    ``torch.profiler`` each wait is a range ``step_wait:<step>``.
     """
 
     def __init__(self, enabled: bool, tracer: Optional[Telemetry] = None,
@@ -92,7 +93,8 @@ class StepTimer:
             span = (self.tracer.start_span(name, uid=self.uid)
                     if self.tracer is not None else None)
             t0 = time.perf_counter()
-            _sync(value)
+            with torch.profiler.record_function("step_wait:" + name):
+                _sync(value)
             self.timings[name] = self.timings.get(name, 0.0) + (
                 time.perf_counter() - t0)
             if span is not None:

@@ -5,14 +5,29 @@ compiled with the same ``nvcc`` flags into ``build/repro_torch/ablate/``
 and called through the same C entry point.  A variant's output is not a
 product: it only says what the removed stage costs.
 
-    python -m repro_torch.kernels.ablate [--report PATH]
+    python -m repro_torch.kernels.ablate [--report PATH] [--parts LIST]
 
-needs one card.  It builds the analog of mono_500Hz (paper Table 3, the
-matrix ``chip_smoke.py`` drives) and times ``fused_bin`` at the steady
-call's rungs for every variant in ``HASH_VARIANTS``, prints the SASS
-opcodes of the hash kernels that touch memory, and times the bfloat16
-``bsr_spmm`` at the layer shape of ``chip_smoke.py`` with the ring depths
-of ``BSR_VARIANTS``.
+needs one card.  It builds the analogs of mono_500Hz and scircuit (paper
+Table 3, the matrices ``chip_smoke.py`` drives) and derives the rungs of
+their exact-mode cold calls as the engine does.  Parts (``--parts``, a
+subset of ``PARTS``):
+
+- ``cold``: mono_500Hz's exact-mode cold call, three times on the product
+  build and three on ``hash_rows_only`` (``numeric_bin`` on
+  ``hash_rows_kernel``), each with a new engine, then once each under
+  ``torch.profiler``: per ``StepTimer`` step, the host's dispatch time,
+  the wait at the step's synchronize, and the device work of the step.
+- ``fused``: ``fused_bin`` at mono_500Hz's symbolic rungs (those of the
+  steady call) for every ``HASH_VARIANTS`` build.
+- ``two_pass``: ``symbolic_bin`` and ``numeric_bin`` at mono_500Hz's
+  cold-call rungs for the builds ``TWO_PASS_TIMED`` lists.
+- ``pack``: ``numeric_bin`` at scircuit's cold-call numeric rungs (its
+  rows fill the one-warp rungs t = 31 and 255) packed as the wrapper
+  launches it, one row to a block, and on ``hash_rows_kernel``.
+- ``bsr``: the bfloat16 ``bsr_spmm`` at the layer shape of
+  ``chip_smoke.py`` with the ring depths of ``BSR_VARIANTS``.
+
+It also prints the SASS opcodes of the hash kernels that touch memory.
 """
 from __future__ import annotations
 
@@ -21,6 +36,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 import zlib
 from pathlib import Path
 from typing import Callable, Dict
@@ -31,8 +47,7 @@ import torch
 from . import build
 
 ABLATE_DIR = build.BUILD_DIR / "ablate"
-# The steady call's symbolic-ladder buckets for the mono_500Hz analog.
-MONO_BUCKETS = (0, 16384, 262144, 131072, 65536, 16384, 4096, 4096, 2048)
+MATRICES = {"mono_500Hz": (169410, 29.7, 719), "scircuit": (170998, 5.6, 353)}
 
 _INSERT = '''          accesses += insert<SINGLE_ACCESS, WITH_VALUES>(
               row_keys, row_vals, b_col[j], prod, t_size, pow2, guard,
@@ -53,6 +68,7 @@ def _replace(old: str, new: str) -> Callable[[str], str]:
     return edit
 
 
+# Edits of hash_rows_kernel (fused_bin, symbolic_bin).
 HASH_VARIANTS: Dict[str, Callable[[str], str]] = {
     "base": lambda src: src,
     # valid CTAs keep their tables in shared memory: no dump
@@ -73,6 +89,71 @@ HASH_VARIANTS: Dict[str, Callable[[str], str]] = {
         "        break;\n      }\n    } else {",
         "        break;\n      }\n      break;\n    } else {")),
 }
+
+_NUMERIC_LAUNCH = """\
+  return slot_dispatch(mod, single_access, rows, count, a_rpt, a_col, a_val,
+                       b_rpt, b_col, b_val, t_size, rows_cap, rows_per_cta,
+                       threads_per_row, col_out, val_out, acc_out, stream);
+"""
+# Edits of slot_rows_kernel (numeric_bin).
+SLOT_VARIANTS: Dict[str, Callable[[str], str]] = {
+    "base": lambda src: src,
+    # numeric_bin on hash_rows_kernel, one row to a block: the kernel it
+    # ran before slot_rows_kernel, for a side-by-side time
+    "hash_rows_only": _replace(_NUMERIC_LAUNCH, """\
+  return dispatch<true>(single_access, rows, count, a_rpt, a_col, a_val,
+                        b_rpt, b_col, b_val, t_size, rows_cap, 1,
+                        threads_per_row, nullptr, col_out, val_out, acc_out,
+                        stream);
+"""),
+    # valid CTAs keep their tables in shared memory: no dump
+    "no_dump": _replace("  dump_slots(col_out + base",
+                        "  if (t_size < 0) dump_slots(col_out + base"),
+    # valid CTAs fill and dump their tables, nothing else
+    "fill_dump_only": _replace(
+        "  if (local < rows_here && idx < n_valid) {",
+        "  if (local < rows_here && idx < n_valid && t_size < 0) {"),
+    # every load of the insert loop stays, no table access
+    "loads_only": _replace("""\
+          accesses += insert_slot<SINGLE_ACCESS>(
+              row_slots, b_col[j], a * b_val[j], t_size, pow2, mod, guard);
+""", "          accesses += (b_col[j] ^ __float_as_int(a * b_val[j])) & 1;\n"),
+    # the 64-bit slot read and written without an atomic (wrong sums under
+    # races, the same probes)
+    "plain_value_add": _replace("""\
+      const unsigned long long old = atomicCAS(
+          &slots[h], seen, pack_slot(key, slot_val(seen) + prod));
+""", """\
+      const unsigned long long old = slots[h];
+      const bool mine = slot_key(old) == kEmpty || slot_key(old) == key;
+      if (mine) slots[h] = pack_slot(key, slot_val(old) + prod);
+      seen = mine ? old : ~old;
+"""),
+    # every product gives up after its first pass: no probe chains
+    "one_cas": _replace(
+        "  while (probed < guard) {\n",
+        "  for (int once = 0; once < 1 && probed < guard; ++once) {\n"),
+    # the multiply-high floor mod replaced by an AND with the mask of the
+    # next power of two, folded once into the table (t_size = 2^k - 1: only
+    # slot 0 takes two hashes), which prices the mod alone
+    "mod_as_and": _replace(
+        "  const unsigned t1 = __umulhi(mod.magic, p);\n",
+        "  int h = static_cast<int>(p & ((1u << (32 - __clz(t_size))) - 1u));"
+        "\n  if (h >= t_size) h -= t_size;\n  return h;\n"
+        "  const unsigned t1 = __umulhi(mod.magic, p);\n"),
+}
+# What the two-pass ablation times, by kernel: (variant set, variant).
+# "unpacked" is the base build with numeric_bin at one row to a block.
+TWO_PASS_TIMED = {
+    "symbolic_bin": tuple(("hash", k) for k in (
+        "base", "fill_dump_only", "loads_only", "one_cas")),
+    "numeric_bin": (("slot", "base"), ("slot", "hash_rows_only"),
+                    ("slot", "unpacked"),
+                    *(("slot", k) for k in SLOT_VARIANTS
+                      if k not in ("base", "hash_rows_only"))),
+}
+PACK_TIMED = (("slot", "base"), ("slot", "unpacked"),
+              ("slot", "hash_rows_only"))
 
 BSR_VARIANTS: Dict[str, Callable[[str], str]] = {
     "3 stages, 2 CTAs/SM": lambda src: src,
@@ -135,25 +216,54 @@ def sass_memory_ops(name: str) -> Dict[str, Dict[str, int]]:
             for kernel, ops in build.sass_opcodes(name).items()}
 
 
-def mono_rungs():
-    """The mono_500Hz analog on the card and its fused rungs."""
-    from repro_torch.core import (bin_rows, nprod_into_rpt, random_csr,
-                                  symbolic_ladder)
-    from . import spgemm_hash as sh
-    A = random_csr(zlib.crc32(b"mono_500Hz"), 169410, 169410,
-                   avg_nnz_per_row=29.7, max_nnz_per_row=719,
-                   distribution="powerlaw", device="cuda")
-    lad = symbolic_ladder()
-    nprod = nprod_into_rpt(A, A)[:A.nrows]
-    binning = bin_rows(nprod, upper=lad.upper, num_bins=lad.num_bins)
-    return A, sh.fused_rungs(binning, lad, MONO_BUCKETS)
+def table3_matrix(name: str):
+    """The analog of a Table-3 matrix (``MATRICES``) on the card, built as
+    ``chip_smoke.py`` builds it."""
+    from repro_torch.core import random_csr
+    rows, avg, most = MATRICES[name]
+    return random_csr(zlib.crc32(name.encode()), rows, rows,
+                      avg_nnz_per_row=avg, max_nnz_per_row=most,
+                      distribution="powerlaw", device="cuda")
 
 
-def ablate_fused() -> Dict[str, Dict]:
-    """fused_bin of every hash variant at the steady call's rungs."""
+def cold_schedule(name: str, A):
+    """The rungs of A·A's exact-mode cold call: the symbolic ladder's
+    (which the steady call's fused kernel also runs) and the numeric
+    ladder's, bucketed with the engine's initial headroom as
+    ``_execute_steps`` buckets them."""
+    from repro_torch.core import (bin_rows_for_ladder, nprod_into_rpt,
+                                  numeric_ladder, symbolic_ladder)
+    from repro_torch.engine.autotune import AdaptivePolicy
     from . import spgemm_hash as sh
-    libs = build_variants("spgemm_hash", HASH_VARIANTS)
-    A, rungs = mono_rungs()
+    headroom = AdaptivePolicy().headroom_init
+    sym, num = symbolic_ladder(), numeric_ladder()
+    sym_bins = bin_rows_for_ladder(nprod_into_rpt(A, A)[:A.nrows], sym)
+    sym_buckets, sym_fall = sh.host_schedule(A, A, sym_bins, sym,
+                                             headroom=headroom)
+    nnz, _, _ = sh.symbolic_scheduled(A, A, sym_bins, sym,
+                                      row_buckets=sym_buckets,
+                                      fallback_prod_capacity=sym_fall)
+    num_bins = bin_rows_for_ladder(nnz[:A.nrows], num)
+    num_buckets, _ = sh.host_schedule(A, A, num_bins, num,
+                                      headroom=headroom)
+    num_rows = num_bins.bin_size.tolist()
+    print(f"{name} buckets: symbolic {sym_buckets}, numeric {num_buckets} "
+          f"(valid rows {num_rows})", flush=True)
+    return (sh.fused_rungs(sym_bins, sym, sym_buckets),
+            sh.fused_rungs(num_bins, num, num_buckets))
+
+
+def _time_rungs(what: str, label: str, rungs, launch) -> Dict:
+    per = {r.b: time_ms(lambda: launch(r), 3) for r in rungs}
+    print(f"{what} {label}: {sum(per.values()):.3f} ms; by rung "
+          + ", ".join(f"{b}: {ms:.3f}" for b, ms in per.items()),
+          flush=True)
+    return dict(ms=sum(per.values()), rungs=per)
+
+
+def ablate_fused(libs, A, rungs) -> Dict[str, Dict]:
+    """fused_bin of every HASH_VARIANTS build at the steady call's rungs."""
+    from . import spgemm_hash as sh
     stream = torch.cuda.current_stream().cuda_stream
     outs = {r.b: sh.fused_outputs(r.rows_cap, r.t_size, A.device)
             for r in rungs}
@@ -168,13 +278,152 @@ def ablate_fused() -> Dict[str, Dict]:
             rows_per_cta, threads, 1, nnz.data_ptr(), cols.data_ptr(),
             vals.data_ptr(), acc.data_ptr(), stream), "fused_bin variant")
 
+    return {label: _time_rungs("fused_bin", label, rungs,
+                               lambda r, lib=libs["hash " + label]:
+                               launch(lib, r))
+            for label in HASH_VARIANTS}
+
+
+def _two_pass_launchers(libs, A, sym_rungs, num_rungs):
+    """(symbolic, numeric): launch one rung of A·A through the build of a
+    (variant set, variant) pair, single access, into preallocated
+    outputs."""
+    from . import spgemm_hash as sh
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = A.device
+    outs = {r.b: (torch.empty(r.rows_cap, dtype=torch.int32, device=dev),
+                  torch.empty(r.rows_cap, dtype=torch.int32, device=dev))
+            for r in sym_rungs}
+    tabs = {r.b: sh.fused_outputs(r.rows_cap, r.t_size, dev)[1:]
+            for r in num_rungs}
+
+    def symbolic(group, label, r):
+        rows_per_cta, threads = sh.launch_geometry(r.t_size, r.pack)
+        nnz, acc = outs[r.b]
+        build.check(libs[f"{group} {label}"].symbolic_bin(
+            r.rows.data_ptr(), r.count.data_ptr(), A.rpt.data_ptr(),
+            A.col.data_ptr(), A.rpt.data_ptr(), A.col.data_ptr(), r.t_size,
+            r.rows_cap, rows_per_cta, threads, 1, nnz.data_ptr(),
+            acc.data_ptr(), stream), "symbolic_bin variant")
+
+    def numeric(group, label, r):
+        rows_per_cta, threads = sh.numeric_launch_geometry(r.t_size)
+        if label == "unpacked":
+            label, rows_per_cta = "base", 1
+        cols, vals, acc = tabs[r.b]
+        build.check(libs[f"{group} {label}"].numeric_bin(
+            r.rows.data_ptr(), r.count.data_ptr(), A.rpt.data_ptr(),
+            A.col.data_ptr(), A.val.data_ptr(), A.rpt.data_ptr(),
+            A.col.data_ptr(), A.val.data_ptr(), r.t_size, r.rows_cap,
+            rows_per_cta, threads, 1, *sh.hash_mod(r.t_size),
+            cols.data_ptr(), vals.data_ptr(), acc.data_ptr(), stream),
+            "numeric_bin variant")
+
+    return symbolic, numeric
+
+
+def ablate_two_pass(libs, A, sym_rungs, num_rungs) -> Dict[str, Dict]:
+    """symbolic_bin and numeric_bin of the TWO_PASS_TIMED builds at the
+    exact-mode cold call's rungs."""
+    launchers = dict(zip(("symbolic_bin", "numeric_bin"),
+                         _two_pass_launchers(libs, A, sym_rungs, num_rungs)))
+    rungs = {"symbolic_bin": sym_rungs, "numeric_bin": num_rungs}
+    return {kind: {f"{group}:{label}": _time_rungs(
+        kind, f"{group}:{label}", rungs[kind],
+        lambda r, g=group, v=label, k=kind: launchers[k](g, v, r))
+        for group, label in TWO_PASS_TIMED[kind]} for kind in rungs}
+
+
+def ablate_pack(libs) -> Dict[str, Dict]:
+    """numeric_bin of the PACK_TIMED builds at scircuit's cold-call numeric
+    rungs, whose rows fill the one-warp rungs."""
+    S = table3_matrix("scircuit")
+    sym_rungs, num_rungs = cold_schedule("scircuit", S)
+    _, numeric = _two_pass_launchers(libs, S, [], num_rungs)
+    return {f"{group}:{label}": _time_rungs(
+        "scircuit numeric_bin", f"{group}:{label}", num_rungs,
+        lambda r, g=group, v=label: numeric(g, v, r))
+        for group, label in PACK_TIMED}
+
+
+def _step_windows(trace: Dict) -> Dict[str, Dict]:
+    """Per StepTimer step of a profiled cold call (its ``step_wait:<name>``
+    ranges): the host's time from the end of the previous wait (the
+    first: from the trace's first event) to the start of this one
+    (dispatch), the wait, and the device work that
+    started in that window (kernels, copies and fills: their summed time,
+    their count and the three longest by name)."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    waits = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"].startswith("step_wait:")),
+                   key=lambda e: e["ts"])
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                     "gpu_memset")]
+    out = {}
+    lo = min(e["ts"] for e in events)
+    for w in waits:
+        end = w["ts"] + w["dur"]
+        mine = [e for e in device if lo <= e["ts"] < end]
+        by_name: Dict[str, float] = {}
+        for e in mine:
+            by_name[e["name"][:80]] = by_name.get(e["name"][:80], 0.0) \
+                + e["dur"] / 1e3
+        out[w["name"].split(":", 1)[1]] = dict(
+            dispatch_ms=(w["ts"] - lo) / 1e3, wait_ms=w["dur"] / 1e3,
+            device_ms=sum(e["dur"] for e in mine) / 1e3,
+            device_ops=len(mine),
+            top=sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
+        lo = end
+    return out
+
+
+def ablate_cold(libs, A, report_dir: Path) -> Dict[str, Dict]:
+    """mono_500Hz's exact-mode cold call on the product build and on
+    ``hash_rows_only``: three timed runs each, then one profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import SpgemmConfig
+    from repro_torch.engine import SpgemmEngine
+    cfg = SpgemmConfig(method="hash", timing=True)
+    product = build.library("spgemm_hash")
     result = {}
-    for label, lib in libs.items():
-        per = {r.b: time_ms(lambda: launch(lib, r), 3) for r in rungs}
-        result[label] = dict(ms=sum(per.values()), rungs=per)
-        print(f"fused_bin {label}: {sum(per.values()):.3f} ms; by rung "
-              + ", ".join(f"{b}: {ms:.3f}" for b, ms in per.items()),
-              flush=True)
+    try:
+        for label in ("slot base", "slot hash_rows_only"):
+            build._LIBS["spgemm_hash"] = (product if label == "slot base"
+                                          else libs[label])
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = SpgemmEngine().execute(A, A, cfg)
+                torch.cuda.synchronize()
+                runs.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                 steps={k: v * 1e3
+                                        for k, v in res.timings.items()}))
+                del res
+                torch.cuda.empty_cache()
+                print(f"cold {label}: {runs[-1]['ms']:.1f} ms, steps "
+                      + ", ".join(f"{k} {v:.1f}"
+                                  for k, v in runs[-1]["steps"].items()),
+                      flush=True)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                res = SpgemmEngine().execute(A, A, cfg)
+                torch.cuda.synchronize()
+            del res
+            torch.cuda.empty_cache()
+            path = report_dir / f"cold_trace_{label.split()[1]}.json"
+            prof.export_chrome_trace(str(path))
+            windows = _step_windows(json.loads(path.read_text()))
+            for step, w in windows.items():
+                print(f"cold {label} profiled {step}: dispatch "
+                      f"{w['dispatch_ms']:.1f} ms, wait {w['wait_ms']:.1f} "
+                      f"ms, device {w['device_ms']:.1f} ms in "
+                      f"{w['device_ops']} ops, top "
+                      + "; ".join(f"{n} {ms:.1f}" for n, ms in w["top"]),
+                      flush=True)
+            result[label] = dict(runs=runs, profiled=windows)
+    finally:
+        build._LIBS["spgemm_hash"] = product
     return result
 
 
@@ -209,21 +458,60 @@ def ablate_bsr() -> Dict[str, float]:
     return result
 
 
+PARTS = ("cold", "fused", "two_pass", "pack", "bsr")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", type=Path, default=None)
+    parser.add_argument("--parts", default=",".join(PARTS),
+                        help="comma-separated subset of " + ",".join(PARTS))
     args = parser.parse_args()
+    parts = set(args.parts.split(","))
+    if not parts <= set(PARTS):
+        parser.error(f"--parts takes a subset of {','.join(PARTS)}")
     if not torch.cuda.is_available():
         print("ablate: no CUDA device visible", file=sys.stderr)
         return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
     build.build_all()
     sass = sass_memory_ops("spgemm_hash")
     for kernel, ops in sass.items():
         print(f"SASS {kernel}: {ops}", flush=True)
-    report = dict(card=torch.cuda.get_device_name(0), sass=sass,
-                  fused_bin=ablate_fused(), bsr_spmm_bf16=ablate_bsr())
+    report = dict(card=card, sass=sass)
+    report_dir = (args.report.parent if args.report is not None
+                  else ABLATE_DIR)
+    report_dir.mkdir(parents=True, exist_ok=True)
+    if parts & {"cold", "fused", "two_pass", "pack"}:
+        variants = {"hash " + k: v for k, v in HASH_VARIANTS.items()}
+        variants.update({"slot " + k: v for k, v in SLOT_VARIANTS.items()
+                         if k != "base"})
+        libs = build_variants("spgemm_hash", variants)
+        libs["slot base"] = libs["hash base"]
+        if parts & {"cold", "fused", "two_pass"}:
+            A = table3_matrix("mono_500Hz")
+            if "cold" in parts:
+                report["cold"] = ablate_cold(libs, A, report_dir)
+            if parts & {"fused", "two_pass"}:
+                sym_rungs, num_rungs = cold_schedule("mono_500Hz", A)
+                if "fused" in parts:
+                    report["fused_bin"] = ablate_fused(libs, A, sym_rungs)
+                if "two_pass" in parts:
+                    report.update(ablate_two_pass(libs, A, sym_rungs,
+                                                  num_rungs))
+                del sym_rungs, num_rungs
+            del A
+            torch.cuda.empty_cache()
+        if "pack" in parts:
+            report["pack"] = ablate_pack(libs)
+            torch.cuda.empty_cache()
+    if "bsr" in parts:
+        report["bsr_spmm_bf16"] = ablate_bsr()
     if args.report is not None:
-        args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
     return 0
 

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 # C signatures of every entry point, by source: pointers and the stream are
 # c_void_p (ctypes would cut a pointer passed as a plain int), sizes c_int.
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
@@ -37,8 +38,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hash_ctas_per_sm": (_I, _I, _I, _I, _I, _P),
         "symbolic_bin": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                          _P),
-        "numeric_bin": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                        _P, _P, _P),
+        "numeric_bin": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _U, _I, _U, _P, _P, _P, _P),
         "fused_bin": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                       _P, _P, _P, _P),
     },

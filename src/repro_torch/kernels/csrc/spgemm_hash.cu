@@ -8,50 +8,81 @@
 //   fused_bin     <- fused_bin_call / _make_fused_kernel (one (col, val)
 //                    table build per row: nnz, raw tables and accesses)
 //
-// What each computes is the TPU kernel's function, not its block layout:
+// What each computes is the TPU kernel's function, not its block layout.
+// Two kernel bodies: hash_rows_kernel runs fused_bin and symbolic_bin,
+// slot_rows_kernel runs numeric_bin.  Common to both:
 //   * Row mapping.  A group of `threads_per_row` threads owns one output row
-//     and its table; a CTA holds `rows_per_cta` such groups.  rows_per_cta=1
-//     is one CTA per row (the large rungs); rows_per_cta>1 with a warp per
-//     row is the GPU form of the reference's row packing (several small
-//     rows' sub-tables in one block).  Inside a row, warp w takes A entries
-//     a_lo+w, a_lo+w+W, ... and its lanes stride over that B row, so short
-//     B rows still keep most lanes busy.
+//     and its table; a CTA holds `rows_per_cta` such groups (a warp each
+//     when there are several).  Inside a row, warp w takes A entries
+//     a_lo+w, a_lo+w+W, ..., fetched 32 at a time (column, value, B row
+//     bounds), one per lane, so the dependent global loads are paid once
+//     per 32 entries.
 //   * Tables live in (dynamic) shared memory, one `t_size` slice per row.
-//     Keys go in with atomicCAS, values with atomicAdd.  The fused top rung
-//     (24576 entries x 8 B = 196,608 B) needs the opt-in above 48 KB.
+//     The fused top rung (24576 entries x 8 B = 196,608 B) needs the
+//     opt-in above 48 KB.
 //   * Hash: key*107 as a uint32 product (no signed overflow), reduced with
 //     AND for a power-of-two table and with a floor mod of the int32 value
 //     otherwise: the reference's slot for every key, never a negative one.
-//     Linear probing; the probe guard is 2*t_size as in the reference.
-//   * Accesses per row: one per probe with single access (Alg 4/5: the CAS
-//     is the probe), and with check-then-CAS one for the read plus one for
-//     the CAS whenever an empty slot is claimed.
+//     Linear probing; the probe guard is 2*t_size slots as in the
+//     reference.
 //   * The bin size is read from device memory (`count`), never from the
 //     host.  Rows at or past it emit nnz 0 and accesses 0, and their tables
 //     are NOT written: the wrappers allocate the tables with torch.empty,
 //     so a padding row's table holds whatever the memory held.  The one
-//     consumer, numeric_epilogue, masks rows >= count.  (A CTA that holds a
-//     valid row and, packed, some padding rows writes empty tables for
-//     those.)
-//   * Raw tables go out with stride t_size (no TPU lane padding).
+//     consumer, numeric_epilogue, masks rows >= count.  A CTA whose first
+//     row is at or past `count` writes its rows' zeros and returns before
+//     it touches shared memory; a CTA that holds a valid row and, packed,
+//     some padding rows writes empty tables for those.
+//   * Raw tables go out with stride t_size (no TPU lane padding), with
+//     16-byte stores from the first 16-byte boundary of the CTA's range
+//     (numeric-ladder sizes, 2^k - 1, are not multiples of 4, so the ends
+//     go word by word).
 //
-// What bounds it on the card: device-memory bytes for the valid rows (B
+// hash_rows_kernel (fused_bin, symbolic_bin): the lanes of a warp stride
+// over one B row at a time (j = lo + lane), and every lane inserts with
+// `insert`: keys with a 32-bit atomicCAS, values with atomicAdd (a CAS
+// loop for float).
+// Accesses per row: one per probe with single access (Alg 4/5: the CAS is
+// the probe), and with check-then-CAS one for the read plus one for the
+// CAS whenever an empty slot is claimed.  fused_scheduled (spgemm_hash.py)
+// launches its rungs on side streams, so a rung's tail, where few CTAs of
+// the top rung hold most SMs' shared memory, overlaps the other rungs.
+//
+// slot_rows_kernel (numeric_bin) walks a row's products as
+// hash_rows_kernel does (entry by entry, the lanes striding the entry's B
+// row), with:
+//   * One 64-bit slot per entry, the key in the low word and the float
+//     value's bits in the high word (empty: key -1, +0.0f).  One 64-bit
+//     atomicCAS claims an empty slot and stores the value; a hit on the
+//     row's own key adds by CAS on the value it saw.  This replaces the key
+//     CAS plus the float atomicAdd, which compiles to a CAS spin loop
+//     (ATOMS.CAST.SPIN), by one native ATOMS.CAS.64.  8 B per entry, as
+//     before, so CTAs per SM do not change.  The dump splits the slots into
+//     col_tabs and val_tabs.
+//   * No divide in the hash: the floor mod by a t_size that is not a power
+//     of two (the numeric ladder's 2^k - 1) is a multiply-high by constants
+//     the wrapper computes once per t_size (HashMod below), exact for every
+//     key.
+//   * rows_per_cta rows to a CTA, a warp each, where the wrapper packs
+//     (numeric_launch_geometry); the last CTA may hold fewer rows when
+//     rows_per_cta does not divide rows_cap.
+//   * At most 32 registers a thread (__launch_bounds__(1024, 2)), so two
+//     1024-thread CTAs still fit an SM on the top rungs.
+//   Accesses per row: one per shared-memory transaction on the table.
+//   Single access: each atomicCAS is one; a product claims an empty slot
+//   in one, adds to its own key in two (the CAS that expected an empty
+//   slot returns the current value, the next one adds to it), and pays one
+//   per slot held by another key and one per CAS lost to another lane.
+//   Check-then-CAS: every read of a slot is one, and every CAS after it
+//   one more.  So each product costs at least one access (accesses >=
+//   n_prod on a valid row), padding rows 0, and per product single access
+//   never costs more than check-then-CAS, whose claims and hits cost two.
+//   The lost CAS races do not count against the probe guard, which counts
+//   slots.
+//
+// What bounds them on the card: device-memory bytes for the valid rows (B
 // reads, the raw table dump), and, inside a row, the latency of the chain
-// A entry -> B row pointers -> B entries -> shared atomics.  The schedule
-// pads each bin to a pow-2 bucket with headroom, so most of a bucket's rows
-// can be padding; what the design does about each:
-//   * A CTA whose first row is at or past `count` writes nnz/accesses 0 and
-//     returns before it touches shared memory: no table fill, no probe, no
-//     dump.  Padding costs one launch slot and two stores per row.
-//   * A warp fetches the next 32 of its A entries (column, value, B row
-//     bounds) at once, one per lane, and walks them from registers through
-//     shuffles, so the dependent global loads are paid once per 32 entries.
-//   * Tables are dumped with 16-byte stores (4 words a thread), starting at
-//     the first 16-byte boundary of the row range; numeric-ladder sizes
-//     (2^k - 1) are not multiples of 4, so the ends go word by word.
-//   * fused_scheduled (spgemm_hash.py) launches its rungs on side
-//     streams, so a rung's tail, where few CTAs of the top rung hold most
-//     SMs' shared memory, overlaps the other rungs.
+// A entry -> B row pointers -> B entries -> shared atomics.
 //
 // Every entry point returns cudaGetLastError() right after its launch (or
 // the error of the shared-memory opt-in); the Python wrapper raises on
@@ -283,6 +314,263 @@ int dispatch(int single_access, const int* rows, const int* count,
       acc_out, s);
 }
 
+// ---------------------------------------------------------------------------
+// slot_rows_kernel: numeric_bin (see the header).
+// ---------------------------------------------------------------------------
+
+// A numeric slot: the key in the low word, the float value's bits in the
+// high word.  Empty: key -1, value +0.0f.
+constexpr unsigned long long kEmptySlot = 0x00000000ffffffffull;
+
+// Exact floor mod of a key's hash by a t_size that is not a power of two,
+// with no divide (Granlund & Montgomery 1994, Fig. 4.1, N = 32): for every
+// uint32 p, q = (t1 + ((p - t1) >> 1)) >> shift with t1 = umulhi(magic, p)
+// is floor(p / t_size).  The int32 value of p is p - 2^32 when negative,
+// so its floor mod takes away wrap = 2^32 mod t_size and adds t_size back
+// if that went below 0.  The wrapper computes (magic, shift, wrap) once per
+// t_size (spgemm_hash.py: hash_mod).
+struct HashMod {
+  unsigned magic;
+  int shift;
+  unsigned wrap;
+};
+
+__device__ __forceinline__ int hash_slot(int key, int t_size, bool pow2,
+                                         HashMod mod) {
+  const unsigned p = static_cast<unsigned>(key) * kHashScale;
+  if (pow2) return static_cast<int>(p) & (t_size - 1);
+  const unsigned t1 = __umulhi(mod.magic, p);
+  const unsigned q = (t1 + ((p - t1) >> 1)) >> mod.shift;
+  int r = static_cast<int>(p - q * static_cast<unsigned>(t_size));
+  if (static_cast<int>(p) < 0) {
+    r -= static_cast<int>(mod.wrap);
+    if (r < 0) r += t_size;
+  }
+  return r;
+}
+
+__device__ __forceinline__ unsigned long long pack_slot(int key, float val) {
+  return (static_cast<unsigned long long>(__float_as_uint(val)) << 32) |
+         static_cast<unsigned>(key);
+}
+
+__device__ __forceinline__ int slot_key(unsigned long long slot) {
+  return static_cast<int>(static_cast<unsigned>(slot));
+}
+
+__device__ __forceinline__ float slot_val(unsigned long long slot) {
+  return __uint_as_float(static_cast<unsigned>(slot >> 32));
+}
+
+// Inserts one product into a row's 64-bit slots; returns the table
+// accesses it took.  The guard (2 * t_size) counts the slots probed: the
+// CAS races a product loses on its own key do not count, or a row of
+// heavy duplicates could drop a product.
+template <bool SINGLE_ACCESS>
+__device__ __forceinline__ int insert_slot(unsigned long long* slots, int key,
+                                           float prod, int t_size, bool pow2,
+                                           HashMod mod, int guard) {
+  int h = hash_slot(key, t_size, pow2, mod);
+  int txn = 0, probed = 0;
+  unsigned long long seen = kEmptySlot;  // single access: the slot as seen
+  while (probed < guard) {
+    if (SINGLE_ACCESS) {
+      // One 64-bit CAS: claims the slot if it is as last seen (empty at
+      // first) and adds the value in the same transaction.
+      const unsigned long long old = atomicCAS(
+          &slots[h], seen, pack_slot(key, slot_val(seen) + prod));
+      txn += 1;
+      if (old == seen) break;
+      if (slot_key(old) == key) {  // its own key: add to what it holds
+        seen = old;
+        continue;
+      }
+      seen = kEmptySlot;
+    } else {
+      const unsigned long long cur =
+          reinterpret_cast<volatile unsigned long long*>(slots)[h];
+      txn += 1;
+      if (slot_key(cur) == key || slot_key(cur) == kEmpty) {
+        const unsigned long long old = atomicCAS(
+            &slots[h], cur, pack_slot(key, slot_val(cur) + prod));
+        txn += 1;
+        if (old == cur) break;
+        continue;  // lost a race here: read the slot again
+      }
+    }
+    probed += 1;
+    h = hash_next(h, t_size);
+  }
+  return txn;
+}
+
+// Splits n (key, value) slots into dst_cols / dst_vals: word by word up to
+// the first 16-byte boundary of dst_cols, then four slots a thread with
+// 16-byte stores into both (the two outputs share their alignment), then
+// the tail.
+__device__ __forceinline__ void dump_slots(int* __restrict__ dst_cols,
+                                           float* __restrict__ dst_vals,
+                                           const unsigned long long* src,
+                                           int n) {
+  const bool same = ((reinterpret_cast<uintptr_t>(dst_cols) ^
+                      reinterpret_cast<uintptr_t>(dst_vals)) & 15) == 0;
+  const int head =
+      same ? min(n, static_cast<int>(
+                        (16 - (reinterpret_cast<uintptr_t>(dst_cols) & 15)) &
+                        15) / 4)
+           : n;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) {
+    dst_cols[i] = slot_key(src[i]);
+    dst_vals[i] = slot_val(src[i]);
+  }
+  const int quads = (n - head) / 4;
+  for (int i = threadIdx.x; i < quads; i += blockDim.x) {
+    const int j = head + 4 * i;
+    const unsigned long long s0 = src[j], s1 = src[j + 1], s2 = src[j + 2],
+                             s3 = src[j + 3];
+    *reinterpret_cast<int4*>(dst_cols + j) =
+        make_int4(slot_key(s0), slot_key(s1), slot_key(s2), slot_key(s3));
+    *reinterpret_cast<float4*>(dst_vals + j) =
+        make_float4(slot_val(s0), slot_val(s1), slot_val(s2), slot_val(s3));
+  }
+  for (int i = head + 4 * quads + threadIdx.x; i < n; i += blockDim.x) {
+    dst_cols[i] = slot_key(src[i]);
+    dst_vals[i] = slot_val(src[i]);
+  }
+}
+
+// At most 32 registers a thread, so that two 1024-thread CTAs (the top
+// rungs) fit an SM as with hash_rows_kernel.
+template <bool SINGLE_ACCESS>
+__global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
+    const int* __restrict__ rows, const int* __restrict__ count,
+    const int* __restrict__ a_rpt, const int* __restrict__ a_col,
+    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
+    const int* __restrict__ b_col, const float* __restrict__ b_val,
+    int t_size, int rows_cap, int rows_per_cta, int threads_per_row,
+    HashMod mod, int* __restrict__ col_out, float* __restrict__ val_out,
+    int* __restrict__ acc_out) {
+  const int n_valid = *count;
+  const long long first = static_cast<long long>(blockIdx.x) * rows_per_cta;
+  // The last CTA may hold fewer rows when rows_per_cta does not divide
+  // rows_cap.
+  const int rows_here = static_cast<int>(
+      min(static_cast<long long>(rows_per_cta), rows_cap - first));
+  if (first >= n_valid) {
+    // Padding CTA: counts only; its tables stay unwritten.
+    if (threadIdx.x < rows_here) acc_out[first + threadIdx.x] = 0;
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char slot_smem[];
+  unsigned long long* slots = reinterpret_cast<unsigned long long*>(slot_smem);
+  int* row_acc = reinterpret_cast<int*>(slots + rows_per_cta * t_size);
+  const int cta_entries = rows_here * t_size;
+  for (int i = threadIdx.x; i < cta_entries; i += blockDim.x)
+    slots[i] = kEmptySlot;
+  if (threadIdx.x < rows_per_cta) row_acc[threadIdx.x] = 0;
+  __syncthreads();
+
+  const int local = threadIdx.x / threads_per_row;
+  const int tid = threadIdx.x % threads_per_row;
+  const int warps = threads_per_row / 32;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const long long idx = first + local;
+  const bool pow2 = (t_size & (t_size - 1)) == 0;
+  const int guard = kGuardFactor * t_size;
+
+  if (local < rows_here && idx < n_valid) {  // uniform across a warp
+    const int r = rows[idx];
+    const int a_lo = a_rpt[r], a_hi = a_rpt[r + 1];
+    unsigned long long* row_slots = slots + local * t_size;
+    int accesses = 0;
+    // The warp's entries are a_lo + warp + warps*s, s = 0, 1, ...; lane l
+    // fetches entry s0 + l of each batch of 32, and the warp walks them
+    // entry by entry, its lanes striding the entry's B row.
+    for (int base = a_lo + warp; base < a_hi; base += 32 * warps) {
+      const int e = base + lane * warps;
+      int b_lo = 0, b_hi = 0;
+      float av = 0.0f;
+      if (e < a_hi) {
+        const int k = a_col[e];
+        av = a_val[e];
+        b_lo = b_rpt[k];
+        b_hi = b_rpt[k + 1];
+      }
+      const int batch = min(32, (a_hi - base + warps - 1) / warps);
+      for (int s = 0; s < batch; ++s) {
+        const int lo = __shfl_sync(0xffffffffu, b_lo, s);
+        const int hi = __shfl_sync(0xffffffffu, b_hi, s);
+        const float a = __shfl_sync(0xffffffffu, av, s);
+        for (int j = lo + lane; j < hi; j += 32) {
+          accesses += insert_slot<SINGLE_ACCESS>(
+              row_slots, b_col[j], a * b_val[j], t_size, pow2, mod, guard);
+        }
+      }
+    }
+    if (accesses) atomicAdd(&row_acc[local], accesses);
+  }
+  __syncthreads();
+
+  if (threadIdx.x < rows_here) {
+    const bool valid = first + threadIdx.x < n_valid;
+    acc_out[first + threadIdx.x] = valid ? row_acc[threadIdx.x] : 0;
+  }
+  const long long base = first * t_size;
+  dump_slots(col_out + base, val_out + base, slots, cta_entries);
+}
+
+template <bool SINGLE_ACCESS>
+int launch_slot(HashMod mod, const int* rows, const int* count,
+                const int* a_rpt, const int* a_col, const float* a_val,
+                const int* b_rpt, const int* b_col, const float* b_val,
+                int t_size, int rows_cap, int rows_per_cta,
+                int threads_per_row, int* col_out, float* val_out,
+                int* acc_out, cudaStream_t stream) {
+  if (rows_cap == 0) return 0;
+  auto kernel = slot_rows_kernel<SINGLE_ACCESS>;
+  const size_t smem = smem_bytes(t_size, rows_per_cta, true);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((rows_cap + rows_per_cta - 1) / rows_per_cta);
+  const dim3 block(rows_per_cta * threads_per_row);
+  kernel<<<grid, block, smem, stream>>>(
+      rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
+      rows_cap, rows_per_cta, threads_per_row, mod, col_out, val_out,
+      acc_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int slot_dispatch(HashMod mod, int single_access, const int* rows,
+                  const int* count, const int* a_rpt, const int* a_col,
+                  const float* a_val, const int* b_rpt, const int* b_col,
+                  const float* b_val, int t_size, int rows_cap,
+                  int rows_per_cta, int threads_per_row, int* col_out,
+                  float* val_out, int* acc_out, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (single_access)
+    return launch_slot<true>(mod, rows, count, a_rpt, a_col, a_val, b_rpt,
+                             b_col, b_val, t_size, rows_cap, rows_per_cta,
+                             threads_per_row, col_out, val_out, acc_out, s);
+  return launch_slot<false>(mod, rows, count, a_rpt, a_col, a_val, b_rpt,
+                            b_col, b_val, t_size, rows_cap, rows_per_cta,
+                            threads_per_row, col_out, val_out, acc_out, s);
+}
+
+template <bool SINGLE_ACCESS, bool WITH_VALUES>
+const void* hash_rows_fn() {
+  return reinterpret_cast<const void*>(
+      hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES>);
+}
+
+template <bool SINGLE_ACCESS>
+const void* slot_rows_fn() {
+  return reinterpret_cast<const void*>(slot_rows_kernel<SINGLE_ACCESS>);
+}
+
 }  // namespace
 
 extern "C" {
@@ -299,24 +587,23 @@ int hash_max_smem_bytes(int* out) {
 
 // CTAs of one rung's launch that fit on one SM at once (the runtime's
 // occupancy calculator: threads, registers and shared memory together).
-int hash_ctas_per_sm(int with_values, int single_access, int t_size,
+// kernel: 0 symbolic_bin, 1 numeric_bin, 2 fused_bin.
+int hash_ctas_per_sm(int kernel, int single_access, int t_size,
                      int rows_per_cta, int threads_per_row, int* out) {
-  const size_t smem = smem_bytes(t_size, rows_per_cta, with_values != 0);
-  const void* kernel =
-      with_values
-          ? (single_access
-                 ? reinterpret_cast<const void*>(hash_rows_kernel<true, true>)
-                 : reinterpret_cast<const void*>(hash_rows_kernel<false, true>))
-          : (single_access
-                 ? reinterpret_cast<const void*>(hash_rows_kernel<true, false>)
-                 : reinterpret_cast<const void*>(
-                       hash_rows_kernel<false, false>));
+  const void* fn =
+      kernel == 0 ? (single_access ? hash_rows_fn<true, false>()
+                                   : hash_rows_fn<false, false>())
+      : kernel == 1 ? (single_access ? slot_rows_fn<true>()
+                                     : slot_rows_fn<false>())
+                    : (single_access ? hash_rows_fn<true, true>()
+                                     : hash_rows_fn<false, true>());
+  const size_t smem = smem_bytes(t_size, rows_per_cta, kernel != 0);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, kernel, rows_per_cta * threads_per_row, smem));
+      out, fn, rows_per_cta * threads_per_row, smem));
 }
 
 int symbolic_bin(const int* rows, const int* count, const int* a_rpt,
@@ -333,12 +620,14 @@ int symbolic_bin(const int* rows, const int* count, const int* a_rpt,
 int numeric_bin(const int* rows, const int* count, const int* a_rpt,
                 const int* a_col, const float* a_val, const int* b_rpt,
                 const int* b_col, const float* b_val, int t_size,
-                int rows_cap, int threads_per_row, int single_access,
-                int* col_out, float* val_out, int* acc_out, void* stream) {
-  return dispatch<true>(single_access, rows, count, a_rpt, a_col, a_val,
-                        b_rpt, b_col, b_val, t_size, rows_cap, 1,
-                        threads_per_row, nullptr, col_out, val_out, acc_out,
-                        stream);
+                int rows_cap, int rows_per_cta, int threads_per_row,
+                int single_access, unsigned hash_magic, int hash_shift,
+                unsigned hash_wrap, int* col_out, float* val_out,
+                int* acc_out, void* stream) {
+  const HashMod mod{hash_magic, hash_shift, hash_wrap};
+  return slot_dispatch(mod, single_access, rows, count, a_rpt, a_col, a_val,
+                       b_rpt, b_col, b_val, t_size, rows_cap, rows_per_cta,
+                       threads_per_row, col_out, val_out, acc_out, stream);
 }
 
 int fused_bin(const int* rows, const int* count, const int* a_rpt,

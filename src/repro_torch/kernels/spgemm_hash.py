@@ -250,6 +250,33 @@ def launch_geometry(t_size: int, pack: int) -> Tuple[int, int]:
     return 1, threads
 
 
+NUMERIC_ROWS_PER_CTA = 8   # rows of a block on the one-warp numeric rungs
+
+
+def numeric_launch_geometry(t_size: int) -> Tuple[int, int]:
+    """(rows_per_cta, threads_per_row) of a :func:`numeric_bin_call`
+    launch: :func:`launch_geometry`'s threads per row, and
+    ``NUMERIC_ROWS_PER_CTA`` rows (a warp each) in a block where that is
+    one warp (t_size <= 255), so those rungs are not held to the card's
+    32 resident blocks (1024 threads) per SM."""
+    _, threads = launch_geometry(t_size, 1)
+    return (NUMERIC_ROWS_PER_CTA if threads == 32 else 1), threads
+
+
+def hash_mod(t_size: int) -> Tuple[int, int, int]:
+    """(magic, shift, wrap): the constants of the kernels' divide-free
+    floor mod by a ``t_size`` that is not a power of two (Granlund &
+    Montgomery 1994, Fig. 4.1, for 32-bit dividends).  With l = ceil(log2
+    t_size): magic = floor(2^32 (2^l - t_size) / t_size) + 1 < 2^32,
+    shift = l - 1, and wrap = 2^32 mod t_size, which a negative int32 hash
+    takes away.  Power-of-two sizes hash with an AND: (0, 0, 0)."""
+    if _is_pow2(t_size):
+        return 0, 0, 0
+    lg = t_size.bit_length()
+    return ((2 ** 32 * (2 ** lg - t_size)) // t_size + 1, lg - 1,
+            2 ** 32 % t_size)
+
+
 @functools.lru_cache(maxsize=None)
 def _max_smem_bytes(device_index: int) -> int:
     out = torch.zeros(1, dtype=torch.int32)
@@ -260,23 +287,28 @@ def _max_smem_bytes(device_index: int) -> int:
     return int(out[0])
 
 
-def ctas_per_sm(t_size: int, pack: int, *, with_values: bool,
+_KERNEL_IDS = {"symbolic_bin": 0, "numeric_bin": 1, "fused_bin": 2}
+
+
+def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
                 single_access: bool = True,
                 device: Optional[torch.device] = None) -> int:
-    """CTAs of a rung's launch (:func:`launch_geometry`) that fit on one SM
+    """CTAs of one rung's launch of ``kernel`` (symbolic_bin, numeric_bin
+    or fused_bin, in the geometry its wrapper launches) that fit on one SM
     of the card at once, by the CUDA occupancy calculator."""
-    rows_per_cta, threads = launch_geometry(t_size, pack)
+    rows_per_cta, threads = (numeric_launch_geometry(t_size)
+                             if kernel == "numeric_bin"
+                             else launch_geometry(t_size, pack))
     out = torch.zeros(1, dtype=torch.int32)
     with torch.cuda.device(device):
         build.check(build.library("spgemm_hash").hash_ctas_per_sm(
-            int(with_values), int(single_access), t_size, rows_per_cta,
+            _KERNEL_IDS[kernel], int(single_access), t_size, rows_per_cta,
             threads, out.data_ptr()), "hash_ctas_per_sm")
     return int(out[0])
 
 
-def _cuda_launch_args(device: torch.device, t_size: int, pack: int,
-                      with_values: bool) -> Tuple[int, int]:
-    rows_per_cta, threads = launch_geometry(t_size, pack)
+def _check_smem(device: torch.device, t_size: int, rows_per_cta: int,
+                with_values: bool) -> None:
     need = rows_per_cta * t_size * (8 if with_values else 4) \
         + 8 * rows_per_cta
     limit = _max_smem_bytes(device.index if device.index is not None
@@ -287,7 +319,6 @@ def _cuda_launch_args(device: torch.device, t_size: int, pack: int,
             f"{need} B of shared memory; this card allows {limit} B per "
             "block.  The vmem_extended ladders need a global-memory rung, "
             "which is not ported yet.")
-    return rows_per_cta, threads
 
 
 def _check_cuda_inputs(rows, count, ints, floats, rows_cap: int) -> None:
@@ -333,7 +364,8 @@ def symbolic_bin_call(rows, count, a_rpt, a_col, b_rpt, b_col, *,
                                      ("b_rpt", b_rpt), ("b_col", b_col)],
                        [], rows_cap)
     dev = rows.device
-    rows_per_cta, threads = _cuda_launch_args(dev, t_size, pack, False)
+    rows_per_cta, threads = launch_geometry(t_size, pack)
+    _check_smem(dev, t_size, rows_per_cta, False)
     nnz = torch.empty(rows_cap, dtype=torch.int32, device=dev)
     acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
     if rows_cap:
@@ -356,11 +388,21 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     """Numeric hash kernel over one bin -> (col_tabs, val_tabs, accesses):
     col_tabs (rows_cap, t_size) int32 raw tables (-1 = empty), val_tabs
     (rows_cap, t_size) float32, accesses (rows_cap,) int32 (0 on the
-    padding rows).  Never packs.
+    padding rows).
 
     On the card the tables of rows at or past ``count`` are NOT written
     (``torch.empty``: they hold whatever the memory held); only rows below
     ``count`` carry tables.  The plain version writes them empty.
+
+    The reference never packs rows here: packing is a layout of its VMEM
+    tiles, which the card does not have.  On the card the launch takes
+    :func:`numeric_launch_geometry`: 8 rows to a block, a warp each, on
+    the rungs where one row gets one warp, one row to a block above.  The
+    output is (rows_cap, t_size) per row either way.  A table entry is one
+    64-bit word in shared memory (the key and the float value's bits), so
+    a single 64-bit CAS claims a slot and adds the value; the hash's mod
+    by t_size (2^k - 1 on the numeric ladder) is a multiply-high by the
+    constants of :func:`hash_mod`, with the reference's slots.
     """
     if not rows.is_cuda:
         return numeric_bin_plain(rows, count, a_rpt, a_col, a_val, b_rpt,
@@ -371,7 +413,8 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                                      ("b_rpt", b_rpt), ("b_col", b_col)],
                        [("a_val", a_val), ("b_val", b_val)], rows_cap)
     dev = rows.device
-    _, threads = _cuda_launch_args(dev, t_size, 1, True)
+    rows_per_cta, threads = numeric_launch_geometry(t_size)
+    _check_smem(dev, t_size, rows_per_cta, True)
     col_tabs = torch.empty((rows_cap, t_size), dtype=torch.int32, device=dev)
     val_tabs = torch.empty((rows_cap, t_size), dtype=torch.float32,
                            device=dev)
@@ -382,8 +425,9 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
                 a_col.data_ptr(), a_val.data_ptr(), b_rpt.data_ptr(),
                 b_col.data_ptr(), b_val.data_ptr(), t_size, rows_cap,
-                threads, int(single_access), col_tabs.data_ptr(),
-                val_tabs.data_ptr(), acc.data_ptr(), _stream(dev))
+                rows_per_cta, threads, int(single_access), *hash_mod(t_size),
+                col_tabs.data_ptr(), val_tabs.data_ptr(), acc.data_ptr(),
+                _stream(dev))
         build.check(err, "numeric_bin")
         numeric_bin_call.launches += 1
     return col_tabs, val_tabs, acc
@@ -427,7 +471,8 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                                      ("b_rpt", b_rpt), ("b_col", b_col)],
                        [("a_val", a_val), ("b_val", b_val)], rows_cap)
     dev = rows.device
-    rows_per_cta, threads = _cuda_launch_args(dev, t_size, pack, True)
+    rows_per_cta, threads = launch_geometry(t_size, pack)
+    _check_smem(dev, t_size, rows_per_cta, True)
     nnz, col_tabs, val_tabs, acc = (fused_outputs(rows_cap, t_size, dev)
                                     if out is None else out)
     if rows_cap:

@@ -213,15 +213,43 @@ def test_bsr_spmm_kernel_matches_plain(cuda_device, case, dtype):
         assert not got[bm:2 * bm].any()
 
 
-@pytest.mark.parametrize("source", ["spgemm_hash", "bsr_spmm"])
+@pytest.mark.parametrize("source", ["spgemm_hash", "bsr_spmm",
+                                    "spgemm_hash slot"])
 def test_ablation_variants_edit_the_current_sources(source):
     """Every ablation build of ``repro_torch.kernels.ablate`` finds its
     anchor in today's source, and all but the baseline change it."""
     from repro_torch.kernels import ablate, build
     variants = {"spgemm_hash": ablate.HASH_VARIANTS,
-                "bsr_spmm": ablate.BSR_VARIANTS}[source]
-    src = (build.CSRC / f"{source}.cu").read_text()
+                "bsr_spmm": ablate.BSR_VARIANTS,
+                "spgemm_hash slot": ablate.SLOT_VARIANTS}[source]
+    src = (build.CSRC / f"{source.split()[0]}.cu").read_text()
     edited = [edit(src) for edit in variants.values()]
     assert edited[0] == src
     assert all(e != src for e in edited[1:])
     assert len(set(edited)) == len(edited)
+
+
+def test_hash_ablations_keep_to_their_kernel():
+    """The HASH_VARIANTS edit hash_rows_kernel's code only (fused_bin,
+    symbolic_bin), and the SLOT_VARIANTS leave it (and the insert and dump
+    it calls) as they are, so each ablation prices its own kernel; every
+    timed build exists."""
+    from repro_torch.kernels import ablate, build
+    src = (build.CSRC / "spgemm_hash.cu").read_text()
+    fused = slice(src.index("__device__ __forceinline__ int insert("),
+                  src.index("size_t smem_bytes("))
+    slot = "// slot_rows_kernel: numeric_bin"
+    for label, edit in ablate.HASH_VARIANTS.items():
+        out = edit(src)
+        assert out[out.index(slot):] == src[src.index(slot):], label
+    for label, edit in ablate.SLOT_VARIANTS.items():
+        assert edit(src)[fused] == src[fused], label
+    hash_rows = ablate.SLOT_VARIANTS["hash_rows_only"](src)
+    assert "return slot_dispatch(" not in hash_rows
+    tables = {"hash": ablate.HASH_VARIANTS, "slot": ablate.SLOT_VARIANTS}
+    timed = [*ablate.TWO_PASS_TIMED["symbolic_bin"],
+             *ablate.TWO_PASS_TIMED["numeric_bin"], *ablate.PACK_TIMED]
+    assert ablate.TWO_PASS_TIMED["numeric_bin"][:2] == (
+        ("slot", "base"), ("slot", "hash_rows_only"))
+    for group, label in timed:
+        assert label in tables[group] or label == "unpacked", label

@@ -24,7 +24,9 @@ from repro_torch import convert
 from repro_torch.core.analysis import exclusive_sum_in_place as texcl
 from repro_torch.core.analysis import nprod_into_rpt as tnprod
 from repro_torch.core.binning import bin_rows_for_ladder as tbin
-from repro_torch.core.binning_ranges import make_ladder, symbolic_ladder
+from repro_torch.core.binning_ranges import (NUMERIC_TABLE_SIZES,
+                                             make_ladder, symbolic_ladder)
+from repro_torch.core.csr import CSR
 from repro_torch.kernels import spgemm_hash as tsh
 
 VAL_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels_spgemm_hash.py:56
@@ -332,6 +334,68 @@ def test_launch_geometry():
                                t_size=32, rows_cap=6, pack=4)
 
 
+
+def _divide_free_slot(keys: np.ndarray, t_size: int) -> np.ndarray:
+    """The CUDA kernels' hash for a t_size that is not a power of two
+    (hash_slot in csrc/spgemm_hash.cu), step by step in uint32 arithmetic,
+    with the wrapper's constants from hash_mod."""
+    magic, shift, wrap = tsh.hash_mod(t_size)
+    m32 = np.uint64(0xFFFFFFFF)
+    p = (keys.astype(np.uint64) * np.uint64(107)) & m32
+    t1 = (p * np.uint64(magic)) >> np.uint64(32)                # __umulhi
+    q = (((p - t1) >> np.uint64(1)) + t1) & m32
+    q >>= np.uint64(shift)
+    r = ((p - q * np.uint64(t_size)) & m32).astype(np.int64)
+    negative = p >= np.uint64(2 ** 31)                          # int32 < 0
+    r = np.where(negative, r - wrap, r)
+    return np.where(r < 0, r + t_size, r)
+
+
+@pytest.mark.parametrize("t_size", NUMERIC_TABLE_SIZES + (12288, 24576, 3,
+                                                          15, 1000))
+def test_divide_free_hash_is_the_reference_floor_mod(t_size):
+    """Keys near 0, near 2^31/107 (where key*107 first wraps int32) and
+    near 2^31 - 1, plus random ones: the kernels' multiply-high mod gives
+    numpy's floor mod of the int32 product, and the reference's slot."""
+    edge = 2 ** 31 // 107
+    keys = np.concatenate([
+        np.arange(0, 4096), np.arange(edge - 4096, edge + 4096),
+        np.arange(2 ** 31 - 4096, 2 ** 31),
+        np.random.default_rng(t_size).integers(0, 2 ** 31, 100_000),
+    ]).astype(np.int64)
+    product = ((keys * 107) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    want = np.mod(product.astype(np.int64), t_size)
+    got = _divide_free_slot(keys, t_size)
+    np.testing.assert_array_equal(got, want)
+    assert (want[keys == edge + 1]
+            == np.mod(107 * (edge + 1) - 2 ** 32, t_size)).all()
+    sample = keys[::37].astype(np.int32)
+    np.testing.assert_array_equal(
+        got[::37], np.asarray(jsh._hash_init(jnp.asarray(sample), t_size)))
+    magic, shift, wrap = tsh.hash_mod(t_size)
+    assert 0 < magic < 2 ** 32 and wrap == 2 ** 32 % t_size
+
+
+def test_hash_mod_of_power_of_two_sizes_is_unused():
+    for t in (1, 2, 32, 512, 8192):
+        assert tsh.hash_mod(t) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("t_size", NUMERIC_TABLE_SIZES)
+def test_numeric_launch_geometry_packs_the_one_warp_rungs(t_size):
+    rows_per_cta, threads = tsh.numeric_launch_geometry(t_size)
+    assert threads == tsh.launch_geometry(t_size, 1)[1]
+    if threads == 32:            # t_size 31 and 255
+        assert t_size <= 255
+        assert rows_per_cta == tsh.NUMERIC_ROWS_PER_CTA == 8
+    else:
+        assert t_size >= 511 and rows_per_cta == 1
+    # A block's tables (8 B an entry) and per-row counters fit the 48 KB
+    # every launch may take without the opt-in, but for the top rungs.
+    smem = rows_per_cta * (t_size * 8 + 8)
+    assert smem <= 48 * 1024 or t_size >= 8191
+
+
 def test_numeric_epilogue_ignores_padding_row_tables():
     """On the card the tables of rows >= count are left unwritten; the
     epilogue must give the same C whatever they hold."""
@@ -538,3 +602,194 @@ def test_cuda_fused_scheduled_on_side_streams_matches_cpu(cuda_device,
     assert torch.equal(C.col[:nz].cpu(), C0.col[:nz])
     torch.testing.assert_close(C.val[:nz].cpu(), C0.val[:nz], rtol=1e-5,
                                atol=1e-5)
+
+
+def _csr(rpt, col, val, shape, device):
+    return CSR(torch.from_numpy(np.asarray(rpt, np.int32)).to(device),
+               torch.from_numpy(np.asarray(col, np.int32)).to(device),
+               torch.from_numpy(np.asarray(val, np.float32)).to(device),
+               shape)
+
+
+def _rows_csr(rows_of_cols, vals, shape, device):
+    """CSR from one column array (and value array) per row."""
+    rpt = np.concatenate([[0], np.cumsum([len(c) for c in rows_of_cols])])
+    col = (np.concatenate(rows_of_cols) if len(rows_of_cols)
+           else np.zeros(0))
+    return _csr(rpt, col, np.concatenate(vals), shape, device)
+
+
+def _sized_pair(t_size: int, device, *, m: int = 24, seed: int = 0):
+    """A (m x 512) and B (512 x 4*t_size): every B row has 8 entries, and
+    row i of A at most t_size // 16 entries, so each row's products (and
+    distinct columns) fill at most half of a t_size table."""
+    rng = np.random.default_rng(seed + t_size)
+    k, per_b, n = 512, 8, 4 * t_size
+    b_cols = [np.sort(rng.choice(n, per_b, replace=False)) for _ in range(k)]
+    b_vals = [rng.standard_normal(per_b) for _ in range(k)]
+    a_len = rng.integers(1, max(t_size // 16, 1) + 1, m)
+    a_cols = [np.sort(rng.choice(k, j, replace=False)) for j in a_len]
+    a_vals = [rng.standard_normal(j) for j in a_len]
+    return (_rows_csr(a_cols, a_vals, (m, k), device),
+            _rows_csr(b_cols, b_vals, (k, n), device))
+
+
+def _numeric_bin(args, *, t_size, rows_cap, single_access,
+                 rows_per_cta=None):
+    """numeric_bin_call, or with ``rows_per_cta`` the C entry point
+    launched in that geometry (as ``repro_torch.kernels.ablate`` launches
+    it); the outputs are the wrapper's."""
+    if rows_per_cta is None:
+        return tsh.numeric_bin_call(*args, t_size=t_size, rows_cap=rows_cap,
+                                    single_access=single_access)
+    from repro_torch.kernels import build
+    dev = args[0].device
+    _, threads = tsh.numeric_launch_geometry(t_size)
+    cols = torch.empty((rows_cap, t_size), dtype=torch.int32, device=dev)
+    vals = torch.empty((rows_cap, t_size), dtype=torch.float32, device=dev)
+    acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
+    build.check(build.library("spgemm_hash").numeric_bin(
+        *(a.data_ptr() for a in args), t_size, rows_cap, rows_per_cta,
+        threads, int(single_access), *tsh.hash_mod(t_size), cols.data_ptr(),
+        vals.data_ptr(), acc.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "numeric_bin")
+    return cols, vals, acc
+
+
+def _check_numeric_against_plain(A, B, rows, count, t_size, rows_cap, *,
+                                 single_access, rows_per_cta=None,
+                                 exact_slots=False):
+    """numeric_bin_call on the card against its plain version: sorted
+    columns exactly (and, with ``exact_slots``, every slot), values within
+    1e-5 + 1e-5*|v| (few products per entry), accesses by the invariants.
+    Returns the card's total accesses over the valid rows."""
+    args = (rows, count, A.rpt, A.col, A.val, B.rpt, B.col, B.val)
+    kc, kv, ka = _numeric_bin(args, t_size=t_size, rows_cap=rows_cap,
+                              single_access=single_access,
+                              rows_per_cta=rows_per_cta)
+    pc, pv, _ = tsh.numeric_bin_plain(*args, t_size=t_size,
+                                      rows_cap=rows_cap, single_access=True)
+    torch.cuda.synchronize()
+    valid = torch.arange(rows_cap, device=rows.device) < count
+    if exact_slots:
+        assert torch.equal(kc[valid], pc[valid])
+    ks, ko = torch.sort(kc[valid], dim=1)
+    ps, po = torch.sort(pc[valid], dim=1)
+    assert torch.equal(ks, ps)
+    torch.testing.assert_close(kv[valid].gather(1, ko),
+                               pv[valid].gather(1, po), rtol=1e-5, atol=1e-5)
+    nprod = tnprod(A, B).long()[rows.long().clamp(max=A.nrows - 1)]
+    ka = ka.long()
+    assert bool((ka[valid] >= nprod[valid]).all())
+    assert not bool(ka[~valid].any())
+    return int(ka[valid].sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows_per_cta", [None, 1])
+@pytest.mark.parametrize("t_size", NUMERIC_TABLE_SIZES)
+def test_cuda_numeric_bin_every_ladder_size(cuda_device, t_size,
+                                            rows_per_cta):
+    """Every numeric-ladder size, in the wrapper's geometry (8 rows to a
+    block on the one-warp rungs) and one row to a block, both disciplines;
+    70 rows (not a multiple of 8: a ragged last block), 61 valid."""
+    A, B = _sized_pair(t_size, cuda_device)
+    rows_cap = 70
+    rows = (torch.arange(rows_cap, dtype=torch.int32, device=cuda_device)
+            * 7) % A.nrows
+    count = torch.tensor([61], dtype=torch.int32, device=cuda_device)
+    totals = {sa: _check_numeric_against_plain(
+        A, B, rows, count, t_size, rows_cap, single_access=sa,
+        rows_per_cta=rows_per_cta) for sa in (True, False)}
+    assert totals[True] < totals[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_size", NUMERIC_TABLE_SIZES + (12288,))
+def test_cuda_numeric_hash_where_key_times_107_wraps(cuda_device, t_size):
+    """Column ids past 2^31/107 = 20,069,940, where key*107 wraps int32 to
+    negative values and the floor mod adds t_size back.  Rows with one
+    product hold their key at its hash slot, so the card's tables must
+    equal the plain version's slot for slot; rows with several products
+    are compared as sets."""
+    rng = np.random.default_rng(t_size)
+    edge = 2 ** 31 // 107
+    keys = np.concatenate([np.arange(edge - 3, edge + 5),
+                           np.arange(2 ** 31 - 8, 2 ** 31),
+                           rng.integers(edge, 2 ** 31, 16)])
+    n = 2 ** 31 - 1
+    m = len(keys)
+    B = _rows_csr([[k] for k in keys], [rng.standard_normal(1)
+                                        for _ in keys], (m, n), cuda_device)
+    A = _rows_csr([[i] for i in range(m)], [np.ones(1)] * m, (m, m),
+                  cuda_device)
+    rows = torch.arange(m, dtype=torch.int32, device=cuda_device)
+    count = torch.tensor([m], dtype=torch.int32, device=cuda_device)
+    for sa in (True, False):
+        _check_numeric_against_plain(A, B, rows, count, t_size, m,
+                                     single_access=sa, exact_slots=True)
+    many = min(t_size // 2, m)
+    A2 = _rows_csr([rng.choice(m, many, replace=False) for _ in range(8)],
+                   [rng.standard_normal(many) for _ in range(8)], (8, m),
+                   cuda_device)
+    rows2 = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    count2 = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    _check_numeric_against_plain(A2, B, rows2, count2, t_size, 8,
+                                 single_access=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_size", [31, 255, 2047])
+def test_cuda_many_products_on_few_columns(cuda_device, t_size):
+    """96 A entries a row, every B row the same 3 columns: 288 products
+    race for 3 slots (across the warps of a row where it has several).
+    Values are positive, so any summation order stays within 96 * 2^-24
+    relative of the plain version's."""
+    rng = np.random.default_rng(5)
+    k, m = 128, 40
+    B = _rows_csr([np.array([5, 17, 29])] * k,
+                  [rng.uniform(0.5, 1.5, 3) for _ in range(k)], (k, 64),
+                  cuda_device)
+    A = _rows_csr([np.sort(rng.choice(k, 96, replace=False))
+                   for _ in range(m)],
+                  [rng.uniform(0.5, 1.5, 96) for _ in range(m)], (m, k),
+                  cuda_device)
+    rows = torch.arange(m, dtype=torch.int32, device=cuda_device)
+    count = torch.tensor([m], dtype=torch.int32, device=cuda_device)
+    for sa in (True, False):
+        for rows_per_cta in (None, 1):
+            _check_numeric_against_plain(A, B, rows, count, t_size, m,
+                                         single_access=sa,
+                                         rows_per_cta=rows_per_cta)
+        nnz, acc = tsh.symbolic_bin_call(rows, count, A.rpt, A.col, B.rpt,
+                                         B.col, t_size=max(t_size, 32),
+                                         rows_cap=m, single_access=sa)
+        torch.cuda.synchronize()
+        assert bool((nnz == 3).all()) and bool((acc >= 288).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,t_size,rows_cap,rows_per_cta", [
+    ("numeric", 31, 70, None), ("numeric", 2047, 64, None),
+    ("numeric", 255, 64, 1), ("symbolic", 512, 64, None),
+    ("symbolic", 12288, 16, None)])
+def test_cuda_slot_kernels_count_zero(cuda_device, kind, t_size, rows_cap,
+                                      rows_per_cta):
+    """symbolic_bin and numeric_bin with no valid row, in each geometry:
+    nnz and accesses are 0 on every row."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    rows = torch.arange(rows_cap, dtype=torch.int32, device=cuda_device) % 96
+    count = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    if kind == "symbolic":
+        nnz, acc = tsh.symbolic_bin_call(rows, count, TA.rpt, TA.col, TB.rpt,
+                                         TB.col, t_size=t_size,
+                                         rows_cap=rows_cap)
+    else:
+        _, _, acc = _numeric_bin(
+            (rows, count, TA.rpt, TA.col, TA.val, TB.rpt, TB.col, TB.val),
+            t_size=t_size, rows_cap=rows_cap, single_access=True,
+            rows_per_cta=rows_per_cta)
+        nnz = torch.zeros_like(acc)
+    torch.cuda.synchronize()
+    assert not bool(nnz.any()) and not bool(acc.any())
