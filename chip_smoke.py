@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
   1. card and build: the card's name and power limit, then every kernel
      source in src/repro_torch/kernels/csrc built with nvcc (one process
      each, all started together) and each kernel's ptxas line
-     (registers, shared memory, spills).
+     (registers, shared memory, spills); the float32 bsr_spmm kernel and
+     binning_histogram must spill nothing.
   2. hash kernels against their plain PyTorch versions on the card, both
      probe disciplines, packed and unpacked, on a tiny ladder that
      populates every rung and the fallback rung, and on rows of the
@@ -33,14 +34,19 @@ Phases, in order; any failure exits non-zero:
      (symbolic ladder) and C's nnz per row (numeric ladder), equal to its
      plain version and to the slice's Binning objects; then timed at the
      row count of delaunay_n24 (16,777,216 rows) against
-     torch.bincount(torch.bucketize(...)).
+     torch.bincount(torch.bucketize(...)), with the kernel's time alone
+     (its C entry point) and the wrapper's host cost per call beside the
+     wrapper's time.
   6. bsr_spmm: the bfloat16 kernel's SASS must hold tensor-core MMA
-     instructions (cuobjdump -sass); edge cases against the plain version
+     instructions and the float32 kernel's 16-byte shared loads (LDS.128,
+     cuobjdump -sass); each kernel's CTAs per SM; edge cases against the
+     plain version
      (empty block row, padding blocks, bm != bk, N not a multiple of the
      tile, several blocks per block row) in float32 and bfloat16, then one
      block-sparse weight layer (M = K = 8192 in 128 x 128 blocks, 10 %
      stored, N = 4096) in both types, timed against
-     torch.sparse_bsr_tensor(...) @ dense.
+     torch.sparse_bsr_tensor(...) @ dense; then blocks of 96 x 40 with N
+     = 37 and block rows of 1 to 13 blocks.
   7. the request path: a fresh SpgemmEngine(telemetry=True) with
      plan_mode="estimate" takes mono_500Hz A·A twice and the scircuit
      analog A·A twice through submit and drain(window=2); each C is
@@ -110,6 +116,9 @@ VAL_RTOL = VAL_ATOL = 1e-5    # kernel vs plain: few products per entry
 BSR_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),
            "bfloat16": dict(rtol=2 ** -7, atol=1e-2)}
 STEADY_CALLS = 5
+# Kernels whose ptxas report must show no spill (source, kernel).
+NO_SPILLS = (("bsr_spmm", "bsr_spmm_f32_kernel"),
+             ("binning_histogram", "binning_histogram_kernel"))
 
 
 class SmokeError(Exception):
@@ -864,30 +873,59 @@ def phase_binning(A, res, errs):
     require(torch.equal(lib.to(torch.int32), hist),
             "binning_histogram differs from bincount(bucketize(...))")
     ms = time_cuda(lambda: binning_histogram(sizes, **kw), 20)
+    kernel_ms = histogram_kernel_ms(sizes, 20, **kw)
+    # The wrapper's host cost per call, on 1,000 rows (the device idles).
+    small = sizes[:1000]
+    _, calls_ms = time_host(lambda: [binning_histogram(small, **kw)
+                                     for _ in range(200)])
+    host_us = calls_ms / 200 * 1e3
     plain_ms = time_cuda(lambda: binning_histogram_ref(sizes, **kw), 5)
     library_ms = time_cuda(lambda: torch.bincount(
         torch.bucketize(sizes, bounds), minlength=sym.num_bins), 5)
     nbytes = 4 * DELAUNAY_ROWS + 4 * (sym.num_bins + 1)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"phase binning_histogram at {DELAUNAY_ROWS} rows: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bincount(bucketize) "
-        f"{library_ms:.4f} ms (two calls), bound {bound_ms:.4f} ms "
-        f"({nbytes} B): ok")
+    log(f"phase binning_histogram at {DELAUNAY_ROWS} rows: wrapper "
+        f"{ms:.4f} ms (the kernel alone {kernel_ms:.4f} ms; the wrapper's "
+        f"host cost {host_us:.1f} us a call), "
+        f"plain {plain_ms:.4f} ms, bincount(bucketize) {library_ms:.4f} ms "
+        f"(two calls), bound {bound_ms:.4f} ms ({nbytes} B, "
+        f"{bound_ms / ms:.1%} of the wrapper's time): ok")
     errs["binning_histogram"] = 0.0
     del sizes
     torch.cuda.empty_cache()
-    return dict(launches=launches, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, library_calls=2, bound_ms=bound_ms,
-                bound_by="bytes", bytes=nbytes, rows=DELAUNAY_ROWS)
+    return dict(launches=launches, ms=ms, kernel_ms=kernel_ms,
+                host_us=host_us, plain_ms=plain_ms, library_ms=library_ms, library_calls=2,
+                bound_ms=bound_ms, bound_by="bytes",
+                bound_share=bound_ms / ms, bytes=nbytes, rows=DELAUNAY_ROWS)
+
+
+def histogram_kernel_ms(sizes, reps, *, upper, num_bins):
+    """Mean ms of the histogram kernel alone: its C entry point (one
+    memset of the outputs, then the kernel) launched reps times back to
+    back (CUDA events), without the wrapper's Python."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library("binning_histogram")
+    out = torch.zeros(num_bins + 1, dtype=torch.int32, device=sizes.device)
+    bounds = (ctypes.c_int * len(upper))(*upper)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        build.check(lib.binning_histogram(
+            sizes.data_ptr(), sizes.shape[0], 1024, bounds, len(upper),
+            num_bins, out.data_ptr(), out[num_bins:].data_ptr(), stream),
+            "binning_histogram")
+    return time_cuda(launch, reps)
 
 
 def _bsr_case(rng, nbr, nbc, bm, bk, density, *, every_row=True,
               empty_row=None, padding=0):
-    """Random block layout (blk_rows, blk_cols) on the host: ``every_row``
-    stores a block in each block row but ``empty_row``; ``padding`` zero
-    blocks repeat the last row."""
+    """Random block layout (blk_rows, blk_cols) on the host: ``density``
+    (one for all block rows, or one per block row) is the share of blocks
+    stored; ``every_row`` stores a block in each block row but
+    ``empty_row``; ``padding`` zero blocks repeat the last row."""
     import numpy as np
-    mask = rng.random((nbr, nbc)) < density
+    mask = rng.random((nbr, nbc)) < np.reshape(density, (-1, 1))
     if every_row:
         mask[np.arange(nbr), np.arange(nbr) % nbc] = True
     if empty_row is not None:
@@ -917,13 +955,16 @@ def _bsr_err(got, want, dtype_name, what):
     return err
 
 
-def sass_mma(name):
-    """Tensor-core MMA instructions (HGMMA: wgmma, HMMA: mma.sync) of each
-    kernel in the SASS of the built library of csrc/<name>.cu."""
+def sass_counts(name):
+    """Per kernel in the SASS of the built library of csrc/<name>.cu:
+    its tensor-core MMA instructions (HGMMA: wgmma, HMMA: mma.sync) and
+    its 16-byte shared loads (LDS.128)."""
     from repro_torch.kernels import build
-    return {kernel: {mma: sum(n for op, n in ops.items()
-                              if op.split(".")[0] == mma)
-                     for mma in ("HGMMA", "HMMA")}
+    def count(ops, base, width=""):
+        return sum(n for op, n in ops.items()
+                   if op.split(".")[0] == base and width in op)
+    return {kernel: {"HGMMA": count(ops, "HGMMA"), "HMMA": count(ops, "HMMA"),
+                     "LDS.128": count(ops, "LDS", ".128")}
             for kernel, ops in build.sass_opcodes(name).items()}
 
 
@@ -931,23 +972,28 @@ def phase_bsr(errs):
     """bsr_spmm: SASS check, edge cases, then one block-sparse weight
     layer."""
     import numpy as np
-    from repro_torch.kernels.bsr_spmm import (bf16_occupancy,
-                                              block_row_pointers, bsr_spmm)
+    from repro_torch.kernels.bsr_spmm import (block_row_pointers, bsr_spmm,
+                                              occupancy)
     from repro_torch.kernels.ref import bsr_spmm_ref
     torch.backends.cuda.matmul.allow_tf32 = False    # plain in full fp32
-    mma = sass_mma("bsr_spmm")
-    tc = mma.get("bsr_spmm_bf16_kernel", {})
+    sass = sass_counts("bsr_spmm")
+    tc = sass.get("bsr_spmm_bf16_kernel", {})
     require(tc.get("HGMMA", 0) + tc.get("HMMA", 0) > 0,
-            f"the bfloat16 kernel's SASS holds no tensor-core MMA: {mma}")
-    smem, ctas = bf16_occupancy()
-    log(f"phase bsr_spmm SASS (cuobjdump): {mma}; the bfloat16 kernel "
-        f"takes {smem} B of dynamic shared memory, {ctas} CTAs per SM: ok")
+            f"the bfloat16 kernel's SASS holds no tensor-core MMA: {sass}")
+    require(sass.get("bsr_spmm_f32_kernel", {}).get("LDS.128", 0) > 0,
+            f"the float32 kernel's SASS holds no LDS.128: {sass}")
+    occ = {name: occupancy(dt) for name, dt in (("float32", torch.float32),
+                                                ("bfloat16", torch.bfloat16))}
+    log(f"phase bsr_spmm SASS (cuobjdump): {sass}; dynamic shared memory "
+        f"and CTAs per SM: " + ", ".join(f"{name} {smem} B, {ctas}"
+                                         for name, (smem, ctas) in occ.items())
+        + ": ok")
     rng = np.random.default_rng(zlib.crc32(b"bsr_spmm"))
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     err = {name: 0.0 for name in dtypes}
 
-    def edge_case(what, nbr, nbc, bm, bk, n, empty, pad):
-        rows, cols, n_real = _bsr_case(rng, nbr, nbc, bm, bk, 0.5,
+    def edge_case(what, nbr, nbc, bm, bk, n, empty, pad, density=0.5):
+        rows, cols, n_real = _bsr_case(rng, nbr, nbc, bm, bk, density,
                                        empty_row=empty, padding=pad)
         for name, dt in dtypes.items():
             t = _bsr_tensors(rows, cols, n_real, bm, bk, nbc * bk, n, dt,
@@ -1022,25 +1068,29 @@ def phase_bsr(errs):
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            bound_share=max(ops_ms, bytes_ms) / ms,
             ops_ms=ops_ms, bytes_ms=bytes_ms, flops=flops, bytes=nbytes,
             max_abs_err=e, library_max_abs_err=lib_err,
-            tflops=flops / ms / 1e9)
+            tflops=flops / ms / 1e9, smem_bytes=occ[name][0],
+            ctas_per_sm=occ[name][1])
         log(f"phase bsr_spmm layer ({name}, {nnzb} blocks, {flops / 1e9:.1f}"
             f" GFLOP): kernel {ms:.3f} ms ({stats[name]['tflops']:.1f} "
             f"TFLOP/s), plain {plain_ms:.3f} ms, torch.sparse "
             f"{library_ms:.3f} ms, bound {stats[name]['bound_ms']:.3f} ms "
             f"by {stats[name]['bound_by']} (ops {ops_ms:.3f}, bytes "
-            f"{bytes_ms:.3f}), max |err| {e:.3e}: ok")
+            f"{bytes_ms:.3f}; {stats[name]['bound_share']:.1%} of it), max "
+            f"|err| {e:.3e}: ok")
     del inputs, outs
     torch.cuda.empty_cache()
     # Drawn after the layer, so the layer's blocks stay those of earlier
     # runs: the bf16 kernel's K loop crosses blocks and wraps its ring.
     edge_case("64 x 64, several blocks per block row", 4, 8, 64, 64, 192,
               None, 1)
+    edge_case("96 x 40 blocks, N = 37, rows of 1 to 13 blocks", 3, 13, 96,
+              40, 37, None, 1, density=(0.0, 0.5, 1.0))
     errs["bsr_spmm"] = err["float32"]
     return dict(launches=launches, nnzb=nnzb, m=nbr * bm, k=nbc * bk, n=n,
-                block=(bm, bk), edge_max_abs_err=err, sass_mma=mma,
-                bf16_smem_bytes=smem, bf16_ctas_per_sm=ctas, **stats)
+                block=(bm, bk), edge_max_abs_err=err, sass=sass, **stats)
 
 
 def phase_request_path(A, C_mono):
@@ -1160,6 +1210,13 @@ def run():
     for name, lines in ptxas.items():
         for line in lines:
             log(f"  ptxas {name}.cu {line}")
+    for name, kernel in NO_SPILLS:    # every instance of a template
+        lines = [x for x in ptxas[name]
+                 if x.split(":")[0].split("<")[0] == kernel]
+        require(lines and all("0 bytes spill stores, 0 bytes spill loads"
+                              in x for x in lines),
+                f"{kernel} spills (or has no ptxas line): {lines}")
+    log("ptxas: " + ", ".join(k for _, k in NO_SPILLS) + " spill nothing: ok")
 
     errs = {k: 0.0 for k in REPLACES}
     phase_tiny(sh, errs)
@@ -1186,9 +1243,12 @@ def run():
         entry.update({k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")})
         if name == "binning_histogram":
-            entry["library_calls"] = s["library_calls"]
+            entry.update(library_calls=s["library_calls"],
+                         kernel_ms=s["kernel_ms"], host_us=s["host_us"],
+                         bound_share=s["bound_share"])
         if name == "bsr_spmm":
-            entry["dtype"] = "float32"
+            entry.update(dtype="float32", bound_share=top["bound_share"],
+                         ctas_per_sm=top["ctas_per_sm"])
             entry["bfloat16"] = {k: s["bfloat16"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err")}

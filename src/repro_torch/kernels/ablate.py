@@ -26,6 +26,17 @@ subset of ``PARTS``):
   launches it, one row to a block, and on ``hash_rows_kernel``.
 - ``bsr``: the bfloat16 ``bsr_spmm`` at the layer shape of
   ``chip_smoke.py`` with the ring depths of ``BSR_VARIANTS``.
+- ``bsr_f32``: the float32 ``bsr_spmm`` on the layer of ``chip_smoke.py``
+  (its 438 blocks) with the block rows in their own order or longest
+  first, at 2 and 3 stages (``BSR_F32_VARIANTS``), in turns; what
+  building that order costs per call; the SM clock and power draw while
+  the product build runs.
+- ``baseline`` (with ``--baseline DIR``, another checkout's root): the
+  float32 ``bsr_spmm`` on that layer and ``binning_histogram`` on
+  delaunay_n24's 16,777,216 sizes and on the first 169,410 of them
+  (mono_500Hz's row count), built from DIR's sources and from these,
+  timed in turns (DIR, these, these, DIR) through the same C entry
+  points.  Not in the default parts.
 
 It also prints the SASS opcodes of the hash kernels that touch memory.
 """
@@ -165,17 +176,34 @@ BSR_VARIANTS: Dict[str, Callable[[str], str]] = {
             "constexpr int kStages = 3;", "constexpr int kStages = 4;")(src)),
 }
 
+# Edits of bsr_spmm_f32_kernel: the order of its block rows and its ring.
+# Longest first reads the order that ablate_bsr_f32 passes after the row
+# pointers (the grid holds n_block_rows * m_tiles * n_tiles CTAs).
+_longest_first = _replace(
+    "  const int r = slot / m_tiles;                 // block row",
+    "  const int r = ptr[gridDim.x / (m_tiles * n_tiles) + 1 + slot / "
+    "m_tiles];")
+_three_stages = _replace("constexpr int kF32Stages = 2;",
+                         "constexpr int kF32Stages = 3;")
+BSR_F32_VARIANTS: Dict[str, Callable[[str], str]] = {
+    "block-row order, 2 stages": lambda src: src,
+    "longest first, 2 stages": _longest_first,
+    "block-row order, 3 stages": _three_stages,
+    "longest first, 3 stages": lambda src: _longest_first(_three_stages(src)),
+}
 
-def build_variants(name: str, variants: Dict[str, Callable[[str], str]]
-                   ) -> Dict[str, ctypes.CDLL]:
-    """Compile every variant of ``csrc/<name>.cu`` (all ``nvcc`` runs at
+
+def build_variants(name: str, variants: Dict[str, Callable[[str], str]],
+                   csrc: Path = build.CSRC) -> Dict[str, ctypes.CDLL]:
+    """Compile every variant of ``<csrc>/<name>.cu`` (all ``nvcc`` runs at
     once) and bind its entry points as ``build`` binds the product's."""
     ABLATE_DIR.mkdir(parents=True, exist_ok=True)
-    src = (build.CSRC / f"{name}.cu").read_text()
+    src = (csrc / f"{name}.cu").read_text()
+    tag = "" if csrc == build.CSRC else "_baseline"
     procs = {}
     for i, (label, edit) in enumerate(variants.items()):
-        cu = ABLATE_DIR / f"{name}_{i}.cu"
-        so = ABLATE_DIR / f"lib{name}_{i}.so"
+        cu = ABLATE_DIR / f"{name}{tag}_{i}.cu"
+        so = ABLATE_DIR / f"lib{name}{tag}_{i}.so"
         cu.write_text(edit(src))
         procs[label] = (subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
@@ -187,6 +215,8 @@ def build_variants(name: str, variants: Dict[str, Callable[[str], str]]
             raise RuntimeError(f"variant {label!r} of {name}.cu failed:\n{out}")
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in build.SIGNATURES[name].items():
+            if not hasattr(lib, fn):    # another checkout's source
+                continue
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         libs[label] = lib
@@ -458,18 +488,205 @@ def ablate_bsr() -> Dict[str, float]:
     return result
 
 
-PARTS = ("cold", "fused", "two_pass", "pack", "bsr")
+def smoke_layer():
+    """The block layout (rows, cols) of ``chip_smoke.py``'s 8192 x 8192
+    layer: 64 x 64 blocks of 128 x 128, 10 % stored, drawn from its RNG
+    after the masks of the four edge cases that come before it."""
+    rng = np.random.default_rng(zlib.crc32(b"bsr_spmm"))
+    for shape in ((6, 5), (4, 3), (3, 3), (4, 4)):
+        rng.random(shape)
+    return np.nonzero(rng.random((64, 64)) < 0.1)
+
+
+def f32_layer():
+    """chip_smoke.py's float32 layer on the card: (row pointers, block
+    columns, blocks, dense, out, n_block_rows, block size, N)."""
+    from .bsr_spmm import block_row_pointers
+    nb, blk, n = 64, 128, 4096
+    rows, cols = smoke_layer()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    blocks = torch.randn((len(rows), blk, blk), generator=g, device="cuda")
+    dense = torch.randn((nb * blk, n), generator=g, device="cuda")
+    ptr = block_row_pointers(torch.from_numpy(rows.astype(np.int32)).cuda(),
+                             nb)
+    cols_t = torch.from_numpy(cols.astype(np.int32)).cuda()
+    out = torch.empty((nb * blk, n), device="cuda")
+    return ptr, cols_t, blocks, dense, out, nb, blk, n
+
+
+def f32_launcher(lib, ptr, cols, blocks, dense, out, nb, blk, n):
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        build.check(lib.bsr_spmm_f32(
+            ptr.data_ptr(), cols.data_ptr(), blocks.data_ptr(),
+            dense.data_ptr(), out.data_ptr(), nb, blk, blk, n, stream),
+            "bsr_spmm_f32 variant")
+    return launch
+
+
+def in_turns(launchers: Dict[str, Callable[[], None]], rounds: int,
+             what: str, after: Callable[[str], None] = lambda label: None
+             ) -> Dict[str, Dict]:
+    """time_ms of every launcher, ``rounds`` times in turns (forward, then
+    backward); ``after(label)`` runs after each timing."""
+    labels = list(launchers)
+    times: Dict[str, list] = {label: [] for label in labels}
+    for turn in range(rounds):
+        for label in labels if turn % 2 == 0 else labels[::-1]:
+            times[label].append(time_ms(launchers[label], 20))
+            after(label)
+    result = {}
+    for label, ts in times.items():
+        result[label] = dict(ms=sum(ts) / len(ts), runs=ts)
+        print(f"{what} {label}: {result[label]['ms']:.4f} ms (runs "
+              f"{', '.join(f'{t:.4f}' for t in ts)})", flush=True)
+    return result
+
+
+def ablate_bsr_f32(rounds: int = 3) -> Dict[str, Dict]:
+    """The float32 layer of chip_smoke.py (N = 4096) with each
+    BSR_F32_VARIANTS build, ``rounds`` times in turns (forward, then
+    backward).  Every build gets the row pointers followed by the block
+    rows longest first (ties by row); the block-row-order builds do not
+    read the order."""
+    libs = build_variants("bsr_spmm", BSR_F32_VARIANTS)
+    rows_ptr, *rest = f32_layer()
+
+    def with_order():
+        order = torch.argsort(rows_ptr.diff(), descending=True, stable=True)
+        return torch.cat([rows_ptr, order.to(torch.int32)])
+    ptr = with_order()
+    # what a wrapper would pay per call to build the order on the device
+    order_ms = time_ms(with_order, 50)
+    print(f"bsr_spmm f32 longest-first order, built per call: "
+          f"{order_ms:.4f} ms", flush=True)
+    out = rest[3]
+    first = {}
+
+    def same_result(label):
+        first.setdefault("out", out.clone())
+        if not torch.equal(out, first["out"]):
+            raise RuntimeError(f"bsr_spmm f32 {label} differs")
+    result = in_turns({label: f32_launcher(lib, ptr, *rest)
+                       for label, lib in libs.items()}, rounds,
+                      "bsr_spmm f32 (438 blocks)", same_result)
+    result["order_ms"] = order_ms
+    result["clocks"] = clocks_while(
+        f32_launcher(libs[next(iter(libs))], ptr, *rest), 2000)
+    return result
+
+
+def clocks_while(launch: Callable[[], None], reps: int) -> Dict:
+    """The SM clock, its maximum and the power draw (``nvidia-smi`` every
+    200 ms) while ``launch`` runs reps times back to back: whether the
+    card holds its clock under this load."""
+    launch()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        smi.terminate()
+    samples = [[float(x) for x in line.split(",")]
+               for line in smi.communicate()[0].split("\n") if line.strip()]
+    # the samples of the busy second half
+    busy = samples[len(samples) // 2:-1] or samples
+    out = dict(seconds=secs, sm_mhz=[s[0] for s in busy],
+               max_sm_mhz=busy[0][1], watts=[s[2] for s in busy])
+    print(f"clocks over {reps} launches ({secs:.2f} s): SM "
+          f"{min(out['sm_mhz']):.0f}-{max(out['sm_mhz']):.0f} MHz of "
+          f"{out['max_sm_mhz']:.0f}, {min(out['watts']):.1f}-"
+          f"{max(out['watts']):.1f} W", flush=True)
+    return out
+
+
+def ablate_baseline(root: Path, rounds: int = 4) -> Dict[str, Dict]:
+    """The float32 bsr_spmm layer and binning_histogram at delaunay_n24's
+    row count, built from the checkout at ``root`` and from this one,
+    timed in turns (root's first), each output held to this build's."""
+    from repro_torch.core import symbolic_ladder
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    base = {"bsr_spmm": build_variants("bsr_spmm", {"x": lambda s: s},
+                                       csrc)["x"],
+            "binning_histogram": build_variants(
+                "binning_histogram", {"x": lambda s: s}, csrc)["x"]}
+    libs = {"baseline": base, "this tree": {
+        name: build.library(name) for name in base}}
+    layer = f32_layer()
+    out = layer[4]
+    want = {}
+
+    def check(kind, label):
+        got = (out if kind == "bsr" else hist).clone()
+        if kind not in want:
+            want[kind] = got
+        elif not (torch.equal(got, want[kind]) if kind == "hist" else
+                  torch.allclose(got, want[kind], rtol=1e-4, atol=1e-3)):
+            raise RuntimeError(f"{kind} of the {label} build differs")
+    result = {"bsr_spmm_f32": in_turns(
+        {label: f32_launcher(lib["bsr_spmm"], *layer)
+         for label, lib in libs.items()}, rounds,
+        "bsr_spmm f32 (438 blocks)", lambda label: check("bsr", label))}
+    del layer, out
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(zlib.crc32(b"delaunay_n24"))
+    sizes = torch.from_numpy(rng.poisson(36.0, 16777216).astype(np.int32)
+                             ).cuda()
+    lad = symbolic_ladder()
+    bounds = (ctypes.c_int * len(lad.upper))(*lad.upper)
+    stream = torch.cuda.current_stream().cuda_stream
+    hist = torch.zeros(lad.num_bins + 1, dtype=torch.int32, device="cuda")
+
+    def hist_launcher(lib, m, caller_zeroes):
+        # The baseline's entry point may leave the zeroing to its caller
+        # (this tree's zeroes its outputs itself): time the same work.
+        def launch():
+            if caller_zeroes:
+                hist.zero_()
+            build.check(lib.binning_histogram(
+                sizes.data_ptr(), m, 1024, bounds, len(lad.upper),
+                lad.num_bins, hist.data_ptr(),
+                hist[lad.num_bins:].data_ptr(), stream), "binning_histogram")
+        return launch
+    # delaunay_n24's rows, then mono_500Hz's row count (launch-bound)
+    for m in (sizes.shape[0], MATRICES["mono_500Hz"][0]):
+        want.pop("hist", None)
+        result[f"binning_histogram {m} rows"] = in_turns(
+            {label: hist_launcher(lib["binning_histogram"], m,
+                                  label == "baseline")
+             for label, lib in libs.items()}, rounds,
+            f"binning_histogram ({m} rows, with its zeroing)",
+            lambda label: check("hist", label))
+    return result
+
+
+PARTS = ("cold", "fused", "two_pass", "pack", "bsr", "bsr_f32",
+         "baseline")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", type=Path, default=None)
-    parser.add_argument("--parts", default=",".join(PARTS),
+    parser.add_argument("--parts", default=",".join(PARTS[:-1]),
                         help="comma-separated subset of " + ",".join(PARTS))
+    parser.add_argument("--baseline", type=Path, default=None,
+                        help="root of another checkout (part baseline)")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not parts <= set(PARTS):
         parser.error(f"--parts takes a subset of {','.join(PARTS)}")
+    if ("baseline" in parts) != (args.baseline is not None):
+        parser.error("part baseline and --baseline go together")
     if not torch.cuda.is_available():
         print("ablate: no CUDA device visible", file=sys.stderr)
         return 2
@@ -511,6 +728,10 @@ def main() -> int:
             torch.cuda.empty_cache()
     if "bsr" in parts:
         report["bsr_spmm_bf16"] = ablate_bsr()
+    if "bsr_f32" in parts:
+        report["bsr_spmm_f32"] = ablate_bsr_f32()
+    if "baseline" in parts:
+        report["baseline"] = ablate_baseline(args.baseline)
     if args.report is not None:
         args.report.write_text(json.dumps(report, indent=1))
     return 0

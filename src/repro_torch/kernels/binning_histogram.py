@@ -2,11 +2,11 @@
 
 Replaces the Pallas TPU kernel ``binning_histogram`` of
 ``repro/kernels/binning_pallas.py``, with the same name and keywords: each
-block of ``block`` rows classifies its row sizes against the rung bounds,
-keeps a local histogram, adds it once into ``bin_size``, and folds its
-rows' maximum into ``max_size``.  The kernel is in
-``csrc/binning_histogram.cu``; its plain version is
-:func:`repro_torch.kernels.ref.binning_histogram_ref`.
+row's size is classified against the rung bounds, the rows of each rung
+are counted into ``bin_size`` and the largest size into ``max_size``.
+The kernel (``csrc/binning_histogram.cu``) counts in registers, per thread
+and bound, the rows above it, on a grid the size of the card; its plain
+version is :func:`repro_torch.kernels.ref.binning_histogram_ref`.
 
 Like the reference, the port's engine bins with tensor ops
 (``core/binning.bin_rows``); this function is its own entry point.
@@ -23,7 +23,7 @@ from . import build
 from .ref import binning_histogram_ref
 
 MAX_RUNGS = 16       # bounds the kernel's parameter struct holds
-MAX_BINS = 32        # bins its shared-memory histogram holds
+MAX_BINS = 32        # bins it counts
 
 
 @functools.lru_cache(maxsize=64)
@@ -38,10 +38,11 @@ def binning_histogram(sizes: torch.Tensor, *, upper: Tuple[int, ...],
     """Pass 1 of the binning method -> ``(bin_size (num_bins,) int32,
     max_size () int32)``.
 
-    ``sizes`` (m,) of any integer type is read as int32.  ``block`` is the
-    rows each CTA owns.  ``interpret`` has no effect (it selects the
-    reference's Pallas interpreter): CPU tensors run the plain version,
-    CUDA tensors the kernel, which raises rather than fall back.
+    ``sizes`` (m,) of any integer type is read as int32; ``upper`` may
+    come in any order.  ``block`` is the rows a CTA takes per step of its
+    walk (no result depends on it).  ``interpret`` has no effect (it
+    selects the reference's Pallas interpreter): CPU tensors run the plain
+    version, CUDA tensors the kernel, which raises rather than fall back.
     """
     upper = tuple(int(u) for u in upper)
     if not sizes.is_cuda:
@@ -54,18 +55,30 @@ def binning_histogram(sizes: torch.Tensor, *, upper: Tuple[int, ...],
                          f"{len(upper)} bounds, {num_bins} bins, "
                          f"block={block}")
     dev = sizes.device
-    sizes = sizes.to(torch.int32).contiguous()
-    hist = torch.zeros(num_bins, dtype=torch.int32, device=dev)
-    mx = torch.zeros((), dtype=torch.int32, device=dev)
     m = sizes.shape[0]
-    if m:
+    if not m:
+        return (torch.zeros(num_bins, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    # The host's part of a call is close to the kernel's time even at
+    # delaunay_n24's 16.7M rows, so each step below takes the cheapest
+    # call: no copy of int32 contiguous sizes, the raw stream handle, the
+    # device entered only when it is not the current one.
+    if sizes.dtype != torch.int32 or not sizes.is_contiguous():
+        sizes = sizes.to(torch.int32).contiguous()
+    # One buffer, zeroed by the entry point: bin_size, then max_size.
+    out = torch.empty(num_bins + 1, dtype=torch.int32, device=dev)
+    hist, mx = out.narrow(0, 0, num_bins), out.select(0, num_bins)
+    args = (sizes.data_ptr(), m, block, _bounds(upper), len(upper), num_bins,
+            hist.data_ptr(), mx.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    entry = build.library("binning_histogram").binning_histogram
+    if dev.index == torch.cuda.current_device():
+        err = entry(*args)
+    else:
         with torch.cuda.device(dev):
-            err = build.library("binning_histogram").binning_histogram(
-                sizes.data_ptr(), m, block, _bounds(upper), len(upper),
-                num_bins, hist.data_ptr(), mx.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        build.check(err, "binning_histogram")
-        binning_histogram.launches += 1
+            err = entry(*args)
+    build.check(err, "binning_histogram")
+    binning_histogram.launches += 1
     return hist, mx
 
 

@@ -12,8 +12,9 @@ slice, column tile) and walk the block row's blocks between row pointers
 that this wrapper builds on the device from the sorted ``blk_rows``
 (``torch.searchsorted``: no host read).  bfloat16 runs on the tensor cores
 (``wgmma`` over a ring of cp.async stages, 128 x 128 tiles); float32 on
-the CUDA cores (64 x 64 tiles).  Block rows with no block come out zero,
-where the TPU kernel leaves them unwritten.  The plain version is
+the CUDA cores (8 x 8 sums a thread in 128 x 128 tiles over a ring of
+cp.async stages).  Block rows with no block come out zero, where the TPU
+kernel leaves them unwritten.  The plain version is
 :func:`repro_torch.kernels.ref.bsr_spmm_ref`.
 """
 from __future__ import annotations
@@ -38,14 +39,15 @@ def block_row_pointers(blk_rows: torch.Tensor,
     return torch.searchsorted(blk_rows, bounds, out_int32=True)
 
 
-def bf16_occupancy(device=None) -> Tuple[int, int]:
-    """(dynamic shared memory bytes per CTA, CTAs per SM) of the bfloat16
-    tensor-core kernel on the card."""
+def occupancy(dtype: torch.dtype, device=None) -> Tuple[int, int]:
+    """(dynamic shared memory bytes per CTA, CTAs per SM) of the kernel of
+    ``dtype`` (float32 or bfloat16) on the card."""
     smem = torch.zeros(1, dtype=torch.int32)
     ctas = torch.zeros(1, dtype=torch.int32)
+    entry = _ENTRY[dtype] + "_occupancy"
     with torch.cuda.device(device):
-        build.check(build.library("bsr_spmm").bsr_spmm_bf16_occupancy(
-            smem.data_ptr(), ctas.data_ptr()), "bsr_spmm_bf16_occupancy")
+        build.check(getattr(build.library("bsr_spmm"), entry)(
+            smem.data_ptr(), ctas.data_ptr()), entry)
     return int(smem[0]), int(ctas[0])
 
 

@@ -49,6 +49,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "bsr_spmm": {
         "bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "bsr_spmm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "bsr_spmm_f32_occupancy": (_P, _P),
         "bsr_spmm_bf16_occupancy": (_P, _P),
     },
 }
@@ -119,7 +120,8 @@ def build_all() -> float:
 
 def kernel_name(mangled: str) -> str:
     """Readable name of a kernel in a (possibly anonymous) namespace, from
-    its mangled symbol (``hash_rows_kernel<1,0>``), else the symbol."""
+    its mangled symbol (``hash_rows_kernel<1,0>``, with bool or int
+    template arguments), else the symbol."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -130,9 +132,11 @@ def kernel_name(mangled: str) -> str:
     start = pos + m.end()
     end = start + int(m.group(1))
     name = mangled[start:end]
-    args = re.match(r"I((?:Lb[01]E)+)E", mangled[end:])
+    args = re.match(r"I((?:L[bi]n?\d+E)+)E", mangled[end:])
     if args:
-        name += "<" + ",".join(re.findall(r"Lb([01])E", args.group(1))) + ">"
+        name += "<" + ",".join(
+            a.replace("n", "-")
+            for a in re.findall(r"L[bi](n?\d+)E", args.group(1))) + ">"
     return name
 
 

@@ -36,12 +36,31 @@
 // let two CTAs share an SM, so one CTA's epilogue overlaps the other's
 // K loop.
 //
-// float32 (bsr_spmm_f32): CUDA cores.  What bounds it is the float32 FMAs
-// against the 67 TFLOP/s CUDA-core peak.  Each CTA stages a 64 x 16 slice
-// of the block (transposed) and the matching 16 x 64 slice of the dense
-// stripe in shared memory and keeps a 4 x 4 tile of sums per thread in
-// registers.  Ragged edges are masked on load and on store.
-//
+// float32 (bsr_spmm_f32): CUDA cores, in full float32 (TF32 would keep
+// about three decimal digits).  What bounds it is the float32 FMAs against
+// the 67 TFLOP/s CUDA-core peak, so the design keeps the FMA pipes fed:
+//   * One CTA of 256 threads computes a 128 x 128 output tile; each thread
+//     holds 8 x 8 sums, two 4 x 4 quads 64 rows and 64 columns apart, and
+//     reads its A and B fragments with 16-byte shared loads: 64 FMAs for 4
+//     loads.  A warp covers 4 x 8 threads, so each load of a warp touches 4
+//     (A) or 8 (B) distinct chunks and takes one pass of the banks.
+//   * B (the dense stripe, N-major) goes straight into s_b[k][n] by 16-byte
+//     cp.async.  A (row-major bm x bk) is read 16 bytes at a time along k
+//     into registers and stored transposed into s_a[k][m], its 16-byte
+//     chunks XOR-swizzled by depth so a warp's stores hit all 32 banks.
+//   * A ring of two 16-deep stages: the loads of stage k+1 are in flight
+//     while the FMAs run on stage k (three stages measured 5 % slower:
+//     the ablation's `bsr_f32` part).  The CTA walks its block row's blocks
+//     as one long K loop, so the ring does not drain at block boundaries.
+//   * Ragged edges take the bf16 kernel's one code path: a chunk that is not
+//     whole or not aligned is read element by element and zero-filled, and
+//     the store is masked.
+//   * At most 128 registers a thread and 32 KB of shared memory let two
+//     CTAs share an SM.  Column tiles vary fastest in the grid, so the CTAs
+//     of one block row run together and read its blocks from L2.  Taking
+//     the block rows longest first did not pay on the card (the ablation's
+//     `bsr_f32` part measures it).
+
 // Every entry point returns cudaGetLastError() right after its launch; the
 // Python wrapper raises on anything but 0.
 
@@ -52,89 +71,224 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// float32: CUDA-core FMAs.
+// Shared by both kernels: cp.async groups.
 // ---------------------------------------------------------------------------
 
-constexpr int kTM = 64;       // output rows per CTA
-constexpr int kTN = 64;       // output columns per CTA
-constexpr int kKC = 16;       // depth of one shared-memory stage
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kMicro = 4;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// float32: CUDA-core FMAs, an SGEMM-style register tile over a cp.async ring.
+// ---------------------------------------------------------------------------
+
+constexpr int kFM = 128;          // output rows per CTA
+constexpr int kFN = 128;          // output columns per CTA
+constexpr int kFK = 16;           // depth of one stage
+constexpr int kF32Stages = 2;
+constexpr int kFThreads = 256;    // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kFStageFloats = kFK * (kFM + kFN);
+constexpr int kFSmemBytes = kF32Stages * kFStageFloats * 4;
+// Each thread moves two 16-byte chunks of A and two of B per stage, and
+// the depths of a stage span at most the 4 swizzles of a_swizzle.
+static_assert(kFM * kFK / 4 == 2 * kFThreads && kFK * kFN / 4 == 2 * kFThreads,
+              "two chunks of A and of B per thread and stage");
+static_assert(kFSmemBytes <= 48 * 1024,
+              "above 48 KB the ring needs the dynamic shared memory opt-in");
+
+// One 16-byte chunk (4 floats) from global memory: a vector load when all
+// 4 elements exist and the source is 16-byte aligned, otherwise the
+// `valid` leading elements one by one and zeros after them.
+__device__ __forceinline__ float4 load_chunk_f32(const float* src,
+                                                 int valid) {
+  if (valid >= 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0)
+    return __ldg(reinterpret_cast<const float4*>(src));
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (valid > 0) v.x = __ldg(src);
+  if (valid > 1) v.y = __ldg(src + 1);
+  if (valid > 2) v.z = __ldg(src + 2);
+  if (valid > 3) v.w = __ldg(src + 3);
+  return v;
+}
+
+// The same chunk into shared memory: cp.async when whole and aligned.
+__device__ __forceinline__ void copy_chunk_f32(float* dst, const float* src,
+                                               int valid) {
+  if (valid >= 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+    return;
+  }
+  *reinterpret_cast<float4*>(dst) = load_chunk_f32(src, valid);
+}
+
+// Stores 4 consecutive outputs of one row, masked at the ragged edge.
+__device__ __forceinline__ void store_quad(float* dst, int col, int n,
+                                           float4 v) {
+  if (col + 3 < n && (reinterpret_cast<uintptr_t>(dst + col) & 15) == 0) {
+    *reinterpret_cast<float4*>(dst + col) = v;
+    return;
+  }
+  if (col < n) dst[col] = v.x;
+  if (col + 1 < n) dst[col + 1] = v.y;
+  if (col + 2 < n) dst[col + 2] = v.z;
+  if (col + 3 < n) dst[col + 3] = v.w;
+}
+
+// Stage layout: s_a[k][m] (the block slice transposed) then s_b[k][n] (the
+// dense stripe slice), kFK x 128 floats each.  In s_a, the 16-byte chunk
+// of rows 4c..4c+3 at depth k sits at chunk c ^ a_swizzle(k), so that the
+// transposing stores of a warp (8 rows x 4 depths) hit all 32 banks.
+__device__ __forceinline__ int a_swizzle(int k) { return ((k >> 2) & 3) << 1; }
+
+__global__ void __launch_bounds__(kFThreads, 2)
 bsr_spmm_f32_kernel(const int* __restrict__ ptr,
                     const int* __restrict__ blk_cols,
                     const float* __restrict__ blocks,
                     const float* __restrict__ dense, float* __restrict__ out,
-                    int bm, int bk, int n, int m_tiles) {
-  __shared__ float s_a[kKC][kTM];   // block slice, transposed
-  __shared__ float s_b[kKC][kTN];   // dense stripe slice
+                    int bm, int bk, int n, int m_tiles, int n_tiles,
+                    int k_steps) {
+  extern __shared__ float4 smem_f32[];
+  float* const smem = reinterpret_cast<float*>(smem_f32);
 
-  const int r = blockIdx.x / m_tiles;           // block row
-  const int m0 = (blockIdx.x % m_tiles) * kTM;  // first row inside it
-  const int n0 = blockIdx.y * kTN;
+  const int nt = blockIdx.x % n_tiles;
+  const int slot = blockIdx.x / n_tiles;
+  const int r = slot / m_tiles;                 // block row
+  const int m0 = (slot % m_tiles) * kFM;        // first row in it
+  const int n0 = nt * kFN;
   const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  float acc[kMicro][kMicro];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
-
   const int lo = ptr[r];
-  const int hi = ptr[r + 1];
-  for (int e = lo; e < hi; ++e) {
-    const float* blk = blocks + static_cast<size_t>(e) * bm * bk;
-    const float* stripe = dense + static_cast<size_t>(blk_cols[e]) * bk * n;
-    for (int kc = 0; kc < bk; kc += kKC) {
-#pragma unroll
-      for (int q = 0; q < kTM * kKC / kThreads; ++q) {
-        const int idx = tid + q * kThreads;
-        const int row = idx / kKC;
-        const int kk = idx % kKC;
-        const bool ok = m0 + row < bm && kc + kk < bk;
-        s_a[kk][row] = ok ? blk[static_cast<size_t>(m0 + row) * bk + kc + kk]
-                          : 0.0f;
-      }
-#pragma unroll
-      for (int q = 0; q < kKC * kTN / kThreads; ++q) {
-        const int idx = tid + q * kThreads;
-        const int kk = idx / kTN;
-        const int col = idx % kTN;
-        const bool ok = kc + kk < bk && n0 + col < n;
-        s_b[kk][col] = ok ? stripe[static_cast<size_t>(kc + kk) * n + n0 +
-                                   col]
-                          : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKC; ++kk) {
-        float a[kMicro], b[kMicro];
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i) a[i] = s_a[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) b[j] = s_b[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  const int total = (ptr[r + 1] - lo) * k_steps;  // stages of the K loop
+
+  // A warp covers 4 x 8 threads of the 16 x 16 grid: it reads 4 distinct
+  // A chunks and 8 distinct B chunks per depth, each set in one pass.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);   // rows 4ty.., 64 + 4ty..
+  const int tx = (warp & 1) * 8 + (lane & 7);     // cols 4tx.., 64 + 4tx..
+
+  // Chunks this thread moves per stage: A (128 x 16 floats) and B (16 x
+  // 128 floats) are 512 chunks each, two per thread.  The next stage to
+  // load is depth kc of block e; `advance` steps it on.
+  int e = lo, kc = 0;
+  auto advance = [&]() {
+    kc += kFK;
+    if (kc >= bk) {
+      kc = 0;
+      ++e;
     }
-  }
+  };
+  float4 a_next[2];
+  auto load_a = [&]() {
+    const float* blk = blocks + static_cast<size_t>(e) * bm * bk;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = tid + i * kFThreads;
+      const int row = q >> 2, c = q & 3;     // 4 chunks along k per row
+      const int gr = m0 + row, gk = kc + c * 4;
+      a_next[i] = load_chunk_f32(blk + static_cast<size_t>(gr) * bk + gk,
+                                 gr < bm ? bk - gk : 0);
+    }
+  };
+  auto store_a = [&](int t) {
+    float* sa = smem + (t % kF32Stages) * kFStageFloats;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = tid + i * kFThreads;
+      const int row = q >> 2, c = q & 3;
+      const int at = (((row >> 2) ^ a_swizzle(c * 4)) << 2) | (row & 3);
+      sa[(c * 4 + 0) * kFM + at] = a_next[i].x;
+      sa[(c * 4 + 1) * kFM + at] = a_next[i].y;
+      sa[(c * 4 + 2) * kFM + at] = a_next[i].z;
+      sa[(c * 4 + 3) * kFM + at] = a_next[i].w;
+    }
+  };
+  auto load_b = [&](int t) {
+    const float* stripe = dense + static_cast<size_t>(blk_cols[e]) * bk * n;
+    float* sb = smem + (t % kF32Stages) * kFStageFloats + kFK * kFM;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = tid + i * kFThreads;
+      const int k = q >> 5, cn = q & 31;     // 32 chunks per B row
+      const int gk = kc + k, gn = n0 + cn * 4;
+      copy_chunk_f32(sb + k * kFN + cn * 4,
+                     stripe + static_cast<size_t>(gk) * n + gn,
+                     gk < bk ? n - gn : 0);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  // Offset of this thread's first A chunk at depths 4s..4s+3 (its second
+  // is 64 floats on).
+  int a_off[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) a_off[s] = (ty ^ a_swizzle(s * 4)) << 2;
 
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int row = m0 + ty + 16 * i;
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (s < total) {
+      load_a();
+      load_b(s);
+      advance();
+    }
+    cp_async_commit();
+    if (s < total) store_a(s);
+  }
+  for (int t = 0; t < total; ++t) {
+    cp_async_wait<kF32Stages - 2>();   // stage t's B has landed (mine)
+    __syncthreads();                   // ... everyone's, A too, and the
+                                       // slot of stage t - 1 is free
+    const int tn = t + kF32Stages - 1;
+    if (tn < total) {
+      load_a();                        // into registers, stored below
+      load_b(tn);
+      advance();
+    }
+    cp_async_commit();
+    const float* sa = smem + (t % kF32Stages) * kFStageFloats;
+    const float* sb = sa + kFK * kFM;
+#pragma unroll
+    for (int k = 0; k < kFK; ++k) {
+      const int off = a_off[k >> 2];
+      const float4 a0 = *reinterpret_cast<const float4*>(sa + k * kFM + off);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(sa + k * kFM + 64 + off);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(sb + k * kFN + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(sb + k * kFN + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (tn < total) store_a(tn);       // the slot of stage t - 1
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
     if (row >= bm) continue;
     float* dst = out + (static_cast<size_t>(r) * bm + row) * n;
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < n) dst[col] = acc[i][j];
-    }
+    store_quad(dst, n0 + tx * 4, n,
+               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    store_quad(dst, n0 + 64 + tx * 4, n,
+               make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
   }
 }
 
@@ -164,10 +318,6 @@ constexpr uint32_t kALbo = 16;
 constexpr uint32_t kASbo = kGroupBytes;
 constexpr uint32_t kBLbo = kBHalf;
 constexpr uint32_t kBSbo = kGroupBytes;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Matrix descriptor of a shared-memory operand in the 128-byte swizzle.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
@@ -222,13 +372,6 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // Makes this thread's shared-memory writes (cp.async and plain stores)
 // visible to wgmma, which reads through the async proxy.
@@ -377,11 +520,11 @@ cudaError_t set_bf16_attributes() {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-bool grid_of(int n_block_rows, int bm, int n, int tm, int tn, int* m_tiles,
-             dim3* grid) {
-  *m_tiles = (bm + tm - 1) / tm;
+// The bf16 kernel's grid: (block row x row slice, column tile).
+bool grid_of(int n_block_rows, int bm, int n, int* m_tiles, dim3* grid) {
+  *m_tiles = (bm + kBM - 1) / kBM;
   const long long gx = static_cast<long long>(n_block_rows) * *m_tiles;
-  const int gy = (n + tn - 1) / tn;
+  const int gy = (n + kBN - 1) / kBN;
   if (gx > 0x7fffffffLL || gy > 65535) return false;
   *grid = dim3(static_cast<unsigned>(gx), gy);
   return true;
@@ -400,13 +543,16 @@ int bsr_spmm_f32(const int* ptr, const int* blk_cols, const float* blocks,
   if (n_block_rows < 0 || bm < 1 || bk < 1 || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_block_rows == 0 || n == 0) return 0;
-  int m_tiles;
-  dim3 grid;
-  if (!grid_of(n_block_rows, bm, n, kTM, kTN, &m_tiles, &grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  bsr_spmm_f32_kernel<<<grid, kThreads, 0,
+  const int m_tiles = (bm + kFM - 1) / kFM;
+  const int n_tiles = (n + kFN - 1) / kFN;
+  const long long grid =
+      static_cast<long long>(n_block_rows) * m_tiles * n_tiles;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int k_steps = (bk + kFK - 1) / kFK;
+  bsr_spmm_f32_kernel<<<static_cast<unsigned>(grid), kFThreads, kFSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(
-      ptr, blk_cols, blocks, dense, out, bm, bk, n, m_tiles);
+      ptr, blk_cols, blocks, dense, out, bm, bk, n, m_tiles, n_tiles,
+      k_steps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,7 +564,7 @@ int bsr_spmm_bf16(const int* ptr, const int* blk_cols, const void* blocks,
   if (n_block_rows == 0 || n == 0) return 0;
   int m_tiles;
   dim3 grid;
-  if (!grid_of(n_block_rows, bm, n, kBM, kBN, &m_tiles, &grid))
+  if (!grid_of(n_block_rows, bm, n, &m_tiles, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = set_bf16_attributes();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -429,6 +575,14 @@ int bsr_spmm_bf16(const int* ptr, const int* blk_cols, const void* blocks,
       static_cast<const unsigned short*>(dense),
       static_cast<__nv_bfloat16*>(out), bm, bk, n, m_tiles, k_steps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 kernel's dynamic shared memory per CTA, and how many of its CTAs
+// fit on one SM at once (the runtime's occupancy calculator).
+int bsr_spmm_f32_occupancy(int* smem_bytes, int* ctas_per_sm) {
+  *smem_bytes = kFSmemBytes;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, bsr_spmm_f32_kernel, kFThreads, kFSmemBytes));
 }
 
 // The bf16 kernel's dynamic shared memory per CTA, and how many of its

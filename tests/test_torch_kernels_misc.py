@@ -67,6 +67,25 @@ def test_binning_histogram_int64_sizes_and_overflow_rung():
     assert int(hist[len(lad.upper)]) == 2     # above the last bound
 
 
+@pytest.mark.parametrize("m,block", [(1000, 128), (4099, 1024), (37, 16)])
+def test_binning_histogram_unsorted_bounds_match_reference(m, block):
+    """A row's rung counts the bounds it exceeds, in any order of the
+    bounds; ``block`` need not divide ``m``."""
+    lad = LADDERS["symbolic"]
+    upper = tuple(np.random.default_rng(m).permutation(lad.upper).tolist())
+    assert upper != lad.upper
+    sizes = _sizes(m)
+    hist, mx = binning_histogram(torch.from_numpy(sizes), upper=upper,
+                                 num_bins=lad.num_bins, block=block)
+    jh, jm = jhistogram(jnp.asarray(sizes), upper=upper,
+                        num_bins=lad.num_bins, block=block)
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jh))
+    assert int(mx) == int(jm)
+    sorted_hist, _ = binning_histogram(torch.from_numpy(sizes),
+                                       upper=lad.upper, num_bins=lad.num_bins)
+    assert torch.equal(hist, sorted_hist)
+
+
 def _random_bcsr(seed, nbr, nbc, bm, bk, density=0.3, every_row=True):
     """Blocks of a random block mask; ``every_row`` stores at least one
     block in each block row (the Pallas kernel leaves empty rows
@@ -170,6 +189,67 @@ def test_binning_histogram_kernel_matches_plain(cuda_device, m, block):
         assert int(mx) == int(want_m)
 
 
+def _histogram_on_card(sizes, device, *, offset=0, **kw):
+    """The kernel on ``sizes`` placed ``offset`` int32s past a 16-byte
+    boundary of its allocation, and the plain version on the CPU."""
+    padded = np.concatenate([np.zeros(offset, np.int32), sizes])
+    on_card = torch.from_numpy(padded).to(device)[offset:]
+    assert on_card.data_ptr() % 16 == 4 * offset
+    got = binning_histogram(on_card, **kw)
+    want = ref.binning_histogram_ref(torch.from_numpy(sizes),
+                                     upper=kw["upper"],
+                                     num_bins=kw["num_bins"])
+    return got, want
+
+
+HIST_CASES = {  # m, offset, sizes, bounds, num_bins
+    # every row in rung 1: each warp's rows all land on one counter
+    "one-rung": (70000, 0, "rung1", "symbolic", None),
+    "unaligned-start": (1001, 1, "random", "symbolic", None),
+    "m%4=1": (4097, 0, "random", "numeric", None),
+    "m%4=2": (4098, 2, "random", "numeric", None),
+    "m%4=3": (4099, 3, "random", "numeric", None),
+    "below-a-warp": (5, 3, "random", "symbolic", None),
+    "unsorted-bounds": (5000, 0, "random", "shuffled", None),
+    "above-the-last-bound": (3000, 1, "huge", "symbolic", None),
+    "fewer-bins-than-rungs": (3000, 0, "random", "symbolic", 3),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(HIST_CASES))
+def test_binning_histogram_kernel_edge_cases(cuda_device, case):
+    m, offset, kind, bounds, num_bins = HIST_CASES[case]
+    lad = LADDERS["numeric" if bounds == "numeric" else "symbolic"]
+    upper = lad.upper
+    if bounds == "shuffled":
+        upper = tuple(np.random.default_rng(1).permutation(upper).tolist())
+    sizes = {"random": _sizes(m),
+             "rung1": np.full(m, lad.upper[0] + 1, np.int32),
+             "huge": _sizes(m) + lad.upper[-1] + 1}[kind]
+    kw = dict(upper=upper, num_bins=num_bins or lad.num_bins)
+    (hist, mx), (want_h, want_m) = _histogram_on_card(
+        sizes, cuda_device, offset=offset, **kw)
+    assert hist.shape == want_h.shape and mx.shape == ()
+    assert torch.equal(hist.cpu(), want_h)
+    assert int(mx) == int(want_m)
+    if kind == "rung1":
+        assert int(hist[1]) == m
+    if kind == "huge":
+        assert int(hist[len(upper)]) == m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [3, 4099, 200003])
+def test_binning_histogram_kernel_block_changes_nothing(cuda_device, m):
+    lad = LADDERS["symbolic"]
+    kw = dict(upper=lad.upper, num_bins=lad.num_bins)
+    outs = [_histogram_on_card(_sizes(m), cuda_device, offset=1, block=block,
+                               **kw)[0] for block in (1, 100, 1024, 5000)]
+    for hist, mx in outs[1:]:
+        assert torch.equal(hist, outs[0][0]) and torch.equal(mx, outs[0][1])
+
+
 BSR_CASES = {
     "every-row": (6, 5, 16, 16, 48, False),
     "empty-row": (6, 5, 16, 16, 48, True),
@@ -180,6 +260,9 @@ BSR_CASES = {
     # the bf16 kernel's ring of stages
     "64x64-multi": (4, 8, 64, 64, 192, False),
     "128x128-multi": (3, 8, 128, 128, 384, False),
+    # bm and bk not multiples of the 128-row tile or the 16-deep stage; N
+    # not a multiple of 4, so no output or dense row is 16-byte aligned
+    "96x40-n37": (3, 4, 96, 40, 37, False),
 }
 
 
@@ -213,15 +296,77 @@ def test_bsr_spmm_kernel_matches_plain(cuda_device, case, dtype):
         assert not got[bm:2 * bm].any()
 
 
+def _bsr_on_card(rows, cols, blocks, dense, nbr, device, dense_offset=0):
+    """The float32 kernel with ``dense`` placed ``dense_offset`` floats past
+    a 16-byte boundary of its allocation."""
+    flat = np.concatenate([np.zeros(dense_offset, np.float32),
+                           dense.ravel()])
+    d = torch.from_numpy(flat).to(device)[dense_offset:].view(dense.shape)
+    assert d.data_ptr() % 16 == 4 * dense_offset
+    return bsr_spmm(*(torch.from_numpy(x).to(device)
+                      for x in (rows, cols, blocks)), d, n_block_rows=nbr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unaligned-dense", "rows-of-1-and-13"])
+def test_bsr_spmm_f32_kernel_ragged(cuda_device, case):
+    if case == "unaligned-dense":
+        nbr, nbc, bm, bk, n, offset = 4, 3, 32, 24, 64, 1
+        rows, cols, blocks = _random_bcsr(11, nbr, nbc, bm, bk)
+    else:
+        # block row 0 holds 1 block, block row 2 all 13: one call walks
+        # K loops of 1 and 13 blocks
+        nbr, nbc, bm, bk, n, offset = 3, 13, 128, 128, 160, 0
+        rows = np.repeat(np.arange(3, dtype=np.int32), [1, 6, 13])
+        cols = np.concatenate([[4], np.arange(0, 12, 2),
+                               np.arange(13)]).astype(np.int32)
+        blocks = np.random.default_rng(12).standard_normal(
+            (len(rows), bm, bk)).astype(np.float32)
+    dense = np.random.default_rng(13).standard_normal(
+        (nbc * bk, n)).astype(np.float32)
+    got = _bsr_on_card(rows, cols, blocks, dense, nbr, cuda_device, offset)
+    want = ref.bsr_spmm_ref(*(torch.from_numpy(x) for x in
+                              (rows, cols, blocks, dense)),
+                            nrows_blocks=nbr, block_shape=(bm, bk))
+    torch.testing.assert_close(got.cpu(), want, **BSR_TOL)
+
+
+@pytest.mark.gpu
+def test_bsr_spmm_f32_kernel_is_deterministic(cuda_device):
+    """A fixed summation order inside a CTA: two runs, equal bits."""
+    rows, cols, blocks = _random_bcsr(14, 5, 9, 128, 128, density=0.6)
+    dense = np.random.default_rng(15).standard_normal(
+        (9 * 128, 300)).astype(np.float32)
+    first = _bsr_on_card(rows, cols, blocks, dense, 5, cuda_device)
+    second = _bsr_on_card(rows, cols, blocks, dense, 5, cuda_device)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("args,name", [
+    ("ILb1ELb0EE", "hash_rows_kernel<1,0>"),
+    ("ILi8EE", "hash_rows_kernel<8>"),
+    ("ILin1ELi16EE", "hash_rows_kernel<-1,16>"),
+    ("", "hash_rows_kernel"),
+])
+def test_kernel_name_reads_template_arguments(args, name):
+    """ptxas and SASS reports name each instance of a kernel template by
+    its bool or int arguments."""
+    from repro_torch.kernels.build import kernel_name
+    ns, fn = "_GLOBAL__N__0123abcd_14_spgemm_hash_cu_5c8f1d21", \
+        "hash_rows_kernel"
+    assert kernel_name(f"_ZN{len(ns)}{ns}{len(fn)}{fn}{args}EvPKi") == name
+
+
 @pytest.mark.parametrize("source", ["spgemm_hash", "bsr_spmm",
-                                    "spgemm_hash slot"])
+                                    "spgemm_hash slot", "bsr_spmm f32"])
 def test_ablation_variants_edit_the_current_sources(source):
     """Every ablation build of ``repro_torch.kernels.ablate`` finds its
     anchor in today's source, and all but the baseline change it."""
     from repro_torch.kernels import ablate, build
     variants = {"spgemm_hash": ablate.HASH_VARIANTS,
                 "bsr_spmm": ablate.BSR_VARIANTS,
-                "spgemm_hash slot": ablate.SLOT_VARIANTS}[source]
+                "spgemm_hash slot": ablate.SLOT_VARIANTS,
+                "bsr_spmm f32": ablate.BSR_F32_VARIANTS}[source]
     src = (build.CSRC / f"{source.split()[0]}.cu").read_text()
     edited = [edit(src) for edit in variants.values()]
     assert edited[0] == src
