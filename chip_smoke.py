@@ -30,6 +30,20 @@ Phases, in order; any failure exits non-zero:
      (one side stream each) against the sum of their times alone and
      against one stream, each rung's CTAs per SM, and rung 2's geometry
      with count = 0 against every row valid.
+  4b. the sixth slice: spgemm(method="hash", vmem_extended=True) on
+     mono_500Hz (one cold call, then steady calls), whose rows past the
+     default ladders take the extended rungs on the global-memory kernel:
+     the launch counters (launches_global of the three wrappers) read
+     around it, no ESC call, no fallback rung and no hash_fallback range,
+     C equal to the default slice's C, its cold and steady ms, peak
+     memory and a profiled steady call split into the global rung, the
+     default rungs and the epilogue; then each global rung of that path
+     timed alone against its plain version and its bound; then the
+     global kernels against their plain versions on rows that the
+     extended ladders at multiplier TOP_RUNG_MULTIPLIER route to their
+     top rungs (symbolic 262,144 and 1,048,576, numeric 524,288); then
+     the default method, ESC (SpgemmConfig()), through an engine on the
+     scircuit analog against scipy, cold and steady.
   5. binning_histogram through its own entry point on mono_500Hz's n_prod
      (symbolic ladder) and C's nnz per row (numeric ladder), equal to its
      plain version and to the slice's Binning objects; then timed at the
@@ -56,8 +70,10 @@ Phases, in order; any failure exits non-zero:
      request hot, and a dumped plan cache loaded into a new engine must
      make that engine's first call hot; the engine's report, the drain's
      wall time and peak memory are printed.
-  8. output: a "kernels" JSON line (all five kernels), the card line, and
-     the result line.
+  8. output: a "kernels" JSON line (all five kernels, and the global
+     kernel once for each of the three hash wrappers, named
+     <kernel>_global, its launches those of the extended phase), the
+     card line, and the result line.
 
 Needs one card.  Exits 2 without printing a result when no card is visible
 or when the port's sources are not beside this script.  ``--report PATH``
@@ -84,12 +100,16 @@ FP32_FLOPS = 67e12            # CUDA cores
 BF16_FLOPS = 989e12           # tensor cores
 CSRC = "src/repro_torch/kernels/csrc/"
 HASH_KERNELS = ("symbolic_bin", "numeric_bin", "fused_bin")
+# The global-memory kernel of the vmem_extended rungs, one entry each for
+# the three wrappers that launch it (their launches_global counts).
+GLOBAL_KERNELS = tuple(k + "_global" for k in HASH_KERNELS)
 SOURCES = {
     "symbolic_bin": CSRC + "spgemm_hash.cu",
     "numeric_bin": CSRC + "spgemm_hash.cu",
     "fused_bin": CSRC + "spgemm_hash.cu",
     "binning_histogram": CSRC + "binning_histogram.cu",
     "bsr_spmm": CSRC + "bsr_spmm.cu",
+    **{k: CSRC + "spgemm_hash.cu" for k in GLOBAL_KERNELS},
 }
 REPLACES = {
     "symbolic_bin": "src/repro/kernels/spgemm_hash.py:191",
@@ -97,7 +117,15 @@ REPLACES = {
     "fused_bin": "src/repro/kernels/spgemm_hash.py:462",
     "binning_histogram": "src/repro/kernels/binning_pallas.py:61",
     "bsr_spmm": "src/repro/kernels/bsr_spmm.py:32",
+    "symbolic_bin_global": "src/repro/kernels/spgemm_hash.py:191",
+    "numeric_bin_global": "src/repro/kernels/spgemm_hash.py:309",
+    "fused_bin_global": "src/repro/kernels/spgemm_hash.py:462",
 }
+# Multiplier of the extended ladders that routes mono_500Hz rows to their
+# top rungs (symbolic 262,144 / 1,048,576 by n_prod 94-374 / 375-1,497,
+# numeric 524,288 by nnz 188-748), which the product's own ladders leave
+# empty; the rows checked there stay short for the plain version's loop.
+TOP_RUNG_MULTIPLIER = 700.0
 # Paper Table 3 (benchmarks/matrices.py): rows, nnz/row, max nnz/row,
 # row-size shape.  Each analog is seeded with zlib.crc32 of its name.
 MONO = dict(name="mono_500Hz", rows=169410, avg=29.7, max=719,
@@ -147,11 +175,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t0 = time.perf_counter()
     try:
         report = run()
     except SmokeError as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
+    report["seconds"] = time.perf_counter() - t0
+    log(f"chip_smoke: every phase passed in {report['seconds']:.0f} s")
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
@@ -403,10 +434,18 @@ def kernel_wrappers():
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_global"):
+            fn.launches_global = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Launches of every wrapper (all its kernels), and of the hash
+    wrappers' global-memory kernel apart (``<name>_global``)."""
+    wrappers = kernel_wrappers()
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    out.update({name + "_global": wrappers[name].launches_global
+                for name in HASH_KERNELS})
+    return out
 
 
 def phase_top_rungs(sh, A, sym_binning, num_binning, errs):
@@ -485,9 +524,19 @@ def bound_bytes(kind, A, B, rows, count, t_size, rows_cap):
     return read + n * per_row, (rows_cap - n) * per_row
 
 
-def phase_main_shapes(sh, A, plan, result, errs):
+def on_global(sh, kind, t_size):
+    """Whether the wrapper of ``kind`` launches the global-memory kernel
+    on a rung of ``t_size`` entries (in its own launch geometry)."""
+    rows_per_cta = (sh.numeric_launch_geometry(t_size)[0]
+                    if kind == "numeric_bin" else 1)
+    return sh.is_global(t_size, rows_per_cta, kind != "symbolic_bin")
+
+
+def phase_main_shapes(sh, A, plan, result, errs, *, global_rungs=False):
     """Each kernel at the bins the main path ran: agreement with its plain
-    version, its time, the plain time, and the bound."""
+    version, its time, the plain time, and the bound.  ``global_rungs``
+    takes the rungs that launch the global-memory kernel (their results go
+    under ``<kind>_global`` in ``stats`` and ``errs``), else the others."""
     from repro_torch.core import nprod_into_rpt
     sched = plan.hash_schedule
     nprod = nprod_into_rpt(A, A)
@@ -501,12 +550,13 @@ def phase_main_shapes(sh, A, plan, result, errs):
     }
     stats = {}
     for kind, (binning, ladder, buckets) in jobs.items():
+        name = kind + "_global" if global_rungs else kind
         ms = plain_ms = 0.0
         nbytes = pad_bytes = 0
         rungs = []
         for b, t_size in enumerate(ladder.table_sizes):
             rows_cap = buckets[b]
-            if not rows_cap:
+            if not rows_cap or on_global(sh, kind, t_size) != global_rungs:
                 continue
             rows, count, valid = bin_inputs(binning, b, rows_cap)
             nprod_rows = nprod[rows.long()].long().masked_fill(~valid, 0)
@@ -514,8 +564,8 @@ def phase_main_shapes(sh, A, plan, result, errs):
                 sh, kind, True, A, A, rows, count, t_size, rows_cap))
             k = run_bin(sh, kind, False, A, A, rows, count, t_size, rows_cap)
             torch.cuda.synchronize()
-            errs[kind] = max(errs[kind], compare(
-                f"main-shape {kind} rung {b} (t={t_size}, "
+            errs[name] = max(errs[name], compare(
+                f"main-shape {name} rung {b} (t={t_size}, "
                 f"rows={int(count)}/{rows_cap})", k, p, nprod_rows, valid))
             del p, k
             # The wrapper's launch alone: no reduction over its tables.
@@ -530,20 +580,26 @@ def phase_main_shapes(sh, A, plan, result, errs):
             rungs.append(dict(rung=b, t_size=t_size, rows=int(count),
                               rows_cap=rows_cap, ms=kms, plain_ms=pms,
                               bytes=rb, pad_bytes=pb, ctas_per_sm=ctas))
-            log(f"  {kind} rung {b} (t={t_size}, rows {int(count)}/"
+            rb_ms = rb / HBM_BYTES_PER_S * 1e3
+            log(f"  {name} rung {b} (t={t_size}, rows {int(count)}/"
                 f"{rows_cap}, {ctas} CTAs/SM): {kms:.3f} ms, bound "
-                f"{rb / HBM_BYTES_PER_S * 1e3:.4f} ms")
+                f"{rb_ms:.4f} ms ({rb_ms / kms:.1%} of it), plain "
+                f"{pms:.1f} ms")
             torch.cuda.empty_cache()
-        stats[kind] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes,
+        if not rungs:
+            continue
+        stats[name] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes,
                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                            pad_bytes=pad_bytes,
                            pad_ms=pad_bytes / HBM_BYTES_PER_S * 1e3,
                            rungs=rungs)
-        log(f"phase main shapes {kind}: {len(rungs)} rungs, kernel "
+        stats[name]["bound_share"] = stats[name]["bound_ms"] / ms
+        log(f"phase main shapes {name}: {len(rungs)} rungs, kernel "
             f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{stats[kind]['bound_ms']:.3f} ms ({nbytes} B); padding rows "
-            f"write {pad_bytes} B more ({stats[kind]['pad_ms']:.3f} ms at "
-            f"the memory rate): ok")
+            f"{stats[name]['bound_ms']:.3f} ms ({nbytes} B, "
+            f"{stats[name]['bound_share']:.1%} of the kernel's time); "
+            f"padding rows write {pad_bytes} B more "
+            f"({stats[name]['pad_ms']:.3f} ms at the memory rate): ok")
     return stats
 
 
@@ -672,6 +728,9 @@ def _device_us(evt, inclusive):
 
 
 RANGES = ("hash_fallback", "hash_epilogue")   # record_function ranges
+# The hash kernels' bodies in csrc/spgemm_hash.cu: the shared-memory rungs
+# (hash_rows_kernel, slot_rows_kernel) and the global-memory one.
+HASH_BODIES = ("hash_rows_kernel", "slot_rows_kernel", "global_rows_kernel")
 
 
 def profile_steady(run_once):
@@ -698,6 +757,8 @@ def profile_steady(run_once):
     ops = [e for e in events if e.key.startswith("aten::")]
     top_ops = sorted(ops, key=lambda e: _device_us(e, True),
                      reverse=True)[:10]
+    groups = {name: sum(_device_us(e, False) for e in kernels
+                        if name in e.key) / 1e3 for name in HASH_BODIES}
     ranges = {name: 0.0 for name in RANGES}
     range_sorts = {name: 0.0 for name in RANGES}
     for e in prof.events():
@@ -719,7 +780,10 @@ def profile_steady(run_once):
         top_ops=[dict(name=e.key, calls=e.count,
                       device_ms=_device_us(e, True) / 1e3)
                  for e in top_ops],
-        range_device_ms=ranges, range_sort_device_ms=range_sorts)
+        range_device_ms=ranges, range_sort_device_ms=range_sorts,
+        kernel_device_ms=groups,
+        ranges_seen=sorted({e.name for e in prof.events()
+                            if e.name in RANGES}))
 
 
 def host_syncs(fn):
@@ -753,6 +817,9 @@ def phase_slice(A):
             f"{cold_launches}")
     require(cold_launches["fused_bin"] == 0,
             f"cold call launched the fused kernel: {cold_launches}")
+    require(not any(cold_launches[k] for k in GLOBAL_KERNELS),
+            f"the default ladders launched the global kernel: "
+            f"{cold_launches}")
     steady_ms = []
     syncs = []
     res = None
@@ -819,6 +886,193 @@ def phase_slice(A):
         steady_launches=steady_launches,
         schedule=str(entry.plan.hash_schedule),
         nnz_bucket=entry.plan.nnz_bucket, scipy=ref, profile=prof)
+
+
+class CountCalls:
+    """Counts the calls of some functions of a module while in use (the
+    module's attributes are replaced, so callers that look them up at call
+    time are counted)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.calls = {name: 0 for name in names}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.module, name) for name in self.names}
+        for name, fn in self.saved.items():
+            def counted(*args, _fn=fn, _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*args, **kw)
+            setattr(self.module, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def phase_extended(A, C_default):
+    """The sixth slice: spgemm(method="hash", vmem_extended=True) on
+    mono_500Hz, one cold call and STEADY_CALLS steady ones.  Its rows past
+    the default ladders go to the extended rungs, whose tables (32,768 to
+    1,048,576 entries) run on the global-memory kernel, so the ESC
+    fallback must not run.  C must equal the default slice's C."""
+    from repro_torch import SpgemmConfig, spgemm
+    from repro_torch.core import esc
+    from repro_torch.engine import default_engine, plan_key
+    cfg = SpgemmConfig(method="hash", vmem_extended=True)
+    engine = default_engine()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    esc_fns = ("expand_products", "symbolic", "numeric", "spgemm_fused")
+    reset_launches()
+    with CountCalls(esc, esc_fns) as esc_calls:
+        res_cold, cold_ms = time_host(lambda: spgemm(A, A, cfg))
+        cold = read_launches()
+        steady_ms = []
+        syncs = []
+        for _ in range(STEADY_CALLS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec, caught = host_syncs(lambda: engine.dispatch(A, A, cfg))
+            syncs += caught
+            res = engine.finalize(rec)
+            torch.cuda.synchronize()
+            steady_ms.append((time.perf_counter() - t1) * 1e3)
+        launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steady = {k: launches[k] - cold[k] for k in launches}
+    entry = engine.cache.get(plan_key(A, A, cfg))
+    sched = entry.plan.hash_schedule
+    log(f"extended: cold {cold_ms:.1f} ms, steady median "
+        f"{statistics.median(steady_ms):.1f} ms "
+        f"{['%.1f' % x for x in steady_ms]}, peak {peak / 2**30:.2f} GiB "
+        f"({held / 2**30:.2f} GiB held before), launches cold {cold} "
+        f"steady {steady}, ESC calls {esc_calls.calls}")
+    log(f"extended schedule: {sched}")
+    cold_steps_ms = {k: v * 1e3 for k, v in res_cold.timings.items()}
+    log("extended cold call steps: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in cold_steps_ms.items()))
+    require(not any(esc_calls.calls.values()),
+            f"the extended ladders ran ESC: {esc_calls.calls}")
+    require(not sched.sym_row_buckets[-1] and not sched.num_row_buckets[-1],
+            f"the extended schedule holds a fallback rung: {sched}")
+    require(cold["symbolic_bin_global"] > 0 and cold["numeric_bin_global"] > 0
+            and cold["fused_bin"] == 0,
+            f"the cold call did not run the global two-pass kernels: {cold}")
+    require(steady["fused_bin_global"] >= STEADY_CALLS
+            and not steady["symbolic_bin"] and not steady["numeric_bin"],
+            f"the steady calls did not run the global fused kernel: "
+            f"{steady}")
+    require(entry.stats.hot_calls == STEADY_CALLS
+            and entry.stats.steps_calls == 1,
+            f"expected 1 cold + {STEADY_CALLS} steady calls: {entry.stats}")
+    require(not syncs, f"extended steady dispatch synced the host "
+            f"{len(syncs)} times: {sorted(set(syncs))}")
+    err = compare_csr("extended C vs the default slice's C", res.C,
+                      C_default)
+    cold_err = compare_csr("extended cold C vs the default slice's C",
+                           res_cold.C, C_default)
+    log(f"extended C equals the default slice's C (rpt, col exactly; "
+        f"values within {VAL_ATOL} + {VAL_RTOL}*|v|, max {err:.3e}, cold "
+        f"{cold_err:.3e}): ok")
+    del res_cold
+    torch.cuda.empty_cache()
+
+    prof = profile_steady(lambda: spgemm(A, A, cfg))
+    groups = prof["kernel_device_ms"]
+    log(f"extended profile of one steady call: wall {prof['wall_ms']:.1f} "
+        f"ms, device busy {prof['device_busy_ms']:.1f} ms, idle share "
+        f"{prof['device_idle_share']:.3f}; global rung "
+        f"{groups['global_rows_kernel']:.2f} ms, default rungs "
+        f"{groups['hash_rows_kernel']:.2f} ms, epilogue "
+        f"{prof['range_device_ms']['hash_epilogue']:.1f} ms (of it "
+        f"aten::sort {prof['range_sort_device_ms']['hash_epilogue']:.1f} "
+        f"ms); ranges seen {prof['ranges_seen']}")
+    for e in prof["top_ops"][:6]:
+        log(f"  {e['name']}: {e['device_ms']:.1f} ms device, "
+            f"{e['calls']} calls")
+    require("hash_fallback" not in prof["ranges_seen"],
+            "the extended steady call entered the hash_fallback range")
+    require(groups["global_rows_kernel"] > 0,
+            "the profile shows no global_rows_kernel time")
+    return res, entry.plan, launches, dict(
+        cold_ms=cold_ms, cold_steps_ms=cold_steps_ms, steady_ms=steady_ms,
+        steady_median_ms=statistics.median(steady_ms), peak_bytes=peak,
+        held_bytes=held, cold_launches=cold, steady_launches=steady,
+        esc_calls=esc_calls.calls, schedule=str(sched),
+        nnz_bucket=entry.plan.nnz_bucket, max_abs_err_vs_default=err,
+        profile=prof)
+
+
+def phase_extended_top(sh, A, C_default, errs):
+    """The global kernels against their plain versions on 6 of 8 rows of
+    the extended ladders' top rungs, which mono_500Hz leaves empty: the
+    ladders at TOP_RUNG_MULTIPLIER route rows there (symbolic 262,144 and
+    1,048,576 by n_prod, numeric 524,288 by nnz)."""
+    from repro_torch.core import (bin_rows_for_ladder, nprod_into_rpt,
+                                  numeric_ladder, symbolic_ladder)
+    sym = symbolic_ladder(TOP_RUNG_MULTIPLIER, vmem_extended=True)
+    num = numeric_ladder(TOP_RUNG_MULTIPLIER, vmem_extended=True)
+    sym_bins = bin_rows_for_ladder(nprod_into_rpt(A, A)[:A.nrows], sym)
+    num_bins = bin_rows_for_ladder(C_default.nnz_per_row(), num)
+    top = 8
+
+    def buckets(binning, ladder, first):
+        sizes = binning.bin_size.tolist()
+        require(all(sizes[first:len(ladder.table_sizes)]),
+                f"a top rung is empty at multiplier {TOP_RUNG_MULTIPLIER}: "
+                f"{sizes}")
+        return [top if b >= first else 0
+                for b in range(len(ladder.table_sizes))]
+
+    sym_buckets = buckets(sym_bins, sym, len(sym.table_sizes) - 2)
+    num_buckets = buckets(num_bins, num, len(num.table_sizes) - 1)
+    e = check_bins(sh, A, A, sym_bins, sym, ("symbolic_bin", "fused_bin"),
+                   buckets=sym_buckets, limit=top - 2, packs=(False,),
+                   label="extended top ")
+    for k, v in e.items():
+        errs[k + "_global"] = max(errs[k + "_global"], v)
+    e = check_bins(sh, A, A, num_bins, num, ("numeric_bin",),
+                   buckets=num_buckets, limit=top - 2, packs=(False,),
+                   label="extended top ")
+    errs["numeric_bin_global"] = max(errs["numeric_bin_global"],
+                                     e["numeric_bin"])
+    log(f"phase extended top rungs: symbolic and fused t="
+        f"{sym.table_sizes[-2:]}, numeric t={num.table_sizes[-1:]}, "
+        f"6 of 8 rows valid, both disciplines: ok")
+
+
+def phase_esc(S):
+    """The default method, ESC (SpgemmConfig()), through an engine on the
+    scircuit analog: a cold call and two steady ones against scipy."""
+    from repro_torch import SpgemmConfig
+    from repro_torch.engine import SpgemmEngine, plan_key
+    cfg = SpgemmConfig()
+    engine = SpgemmEngine(cfg)
+    reset_launches()
+    times, checks = [], []
+    for _ in range(3):
+        res, ms = time_host(lambda: engine.execute(S, S))
+        times.append(ms)
+        checks.append(scipy_check(S, res.C))
+        del res
+    launches = read_launches()
+    entry = engine.cache.get(plan_key(S, S, cfg))
+    require(entry.stats.steps_calls == 1 and entry.stats.hot_calls == 2,
+            f"ESC: expected 1 cold + 2 steady calls: {entry.stats}")
+    require(not any(launches[k] for k in (*HASH_KERNELS, *GLOBAL_KERNELS)),
+            f"ESC launched a hash kernel: {launches}")
+    log(f"phase ESC (SpgemmConfig()) on scircuit through the engine: cold "
+        f"{times[0]:.1f} ms, steady {times[1]:.1f} / {times[2]:.1f} ms, nnz "
+        f"{checks[-1]['nnz']}, max |C - A·A| "
+        f"{max(c['max_abs_err'] for c in checks):.3e}, each call equal to "
+        f"scipy: ok")
+    torch.cuda.empty_cache()
+    return dict(matrix=SCIRCUIT["name"], cold_ms=times[0],
+                steady_ms=times[1:], scipy=checks[-1])
 
 
 def phase_binning(A, res, errs):
@@ -1093,13 +1347,12 @@ def phase_bsr(errs):
                 block=(bm, bk), edge_max_abs_err=err, sass=sass, **stats)
 
 
-def phase_request_path(A, C_mono):
+def phase_request_path(A, C_mono, S):
     """submit/drain with plan_mode="estimate", prewarm and dump/load."""
     import tempfile
     from repro_torch import SpgemmConfig
     from repro_torch.engine import SpgemmEngine, plan_key
     cfg = SpgemmConfig(method="hash", plan_mode="estimate")
-    S = table3_matrix(SCIRCUIT)
     engine = SpgemmEngine(cfg, telemetry=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1228,9 +1481,23 @@ def run():
     for name in HASH_KERNELS:
         stats[name].update(launches=launches[name], library_ms=None,
                            bound_by="bytes")
+    t_ext = time.perf_counter()
+    ext_res, ext_plan, ext_launches, ext_stats = phase_extended(A, res.C)
+    stats.update(phase_main_shapes(sh, A, ext_plan, ext_res, errs,
+                                   global_rungs=True))
+    del ext_res
+    torch.cuda.empty_cache()
+    phase_extended_top(sh, A, res.C, errs)
+    for name in GLOBAL_KERNELS:
+        stats[name].update(launches=ext_launches[name], library_ms=None,
+                           bound_by="bytes")
+    S = table3_matrix(SCIRCUIT)
+    esc_stats = phase_esc(S)
+    log(f"phases extended, extended top rungs and ESC: "
+        f"{time.perf_counter() - t_ext:.1f} s")
     stats["binning_histogram"] = phase_binning(A, res, errs)
     stats["bsr_spmm"] = phase_bsr(errs)
-    request = phase_request_path(A, res.C)
+    request = phase_request_path(A, res.C, S)
 
     kernels = []
     for name in REPLACES:
@@ -1242,6 +1509,8 @@ def run():
         top = s["float32"] if name == "bsr_spmm" else s
         entry.update({k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")})
+        if name in GLOBAL_KERNELS:
+            entry.update(bound_share=s["bound_share"])
         if name == "binning_histogram":
             entry.update(library_calls=s["library_calls"],
                          kernel_ms=s["kernel_ms"], host_us=s["host_us"],
@@ -1255,7 +1524,7 @@ def run():
         kernels.append(entry)
     return dict(
         card=card, kernels=kernels, build_s=secs, ptxas=ptxas,
-        slice=slice_stats,
+        slice=slice_stats, extended=ext_stats, esc=esc_stats,
         main_shapes=stats, request_path=request,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)

@@ -31,6 +31,14 @@ subset of ``PARTS``):
   first, at 2 and 3 stages (``BSR_F32_VARIANTS``), in turns; what
   building that order costs per call; the SM clock and power draw while
   the product build runs.
+- ``global``: the global-memory kernel as the default ladders' fallback
+  rung, a measurement only (the product keeps ESC there, as the reference
+  does): mono_500Hz's fallback rows (the 864 rows past 20,480 products,
+  in the engine's cold bucket) through ``fused_bin`` at t_size 65,536,
+  alone and with ``numeric_epilogue`` after it, in turns with the ESC
+  fallback rung on the same rows as ``fused_scheduled`` runs it (gather,
+  ``esc.spgemm_fused`` at the plan's product bucket, scatter into C).
+  The two write equal rows of C.
 - ``baseline`` (with ``--baseline DIR``, another checkout's root): the
   float32 ``bsr_spmm`` on that layer and ``binning_histogram`` on
   delaunay_n24's 16,777,216 sizes and on the first 169,410 of them
@@ -526,15 +534,16 @@ def f32_launcher(lib, ptr, cols, blocks, dense, out, nb, blk, n):
 
 
 def in_turns(launchers: Dict[str, Callable[[], None]], rounds: int,
-             what: str, after: Callable[[str], None] = lambda label: None
-             ) -> Dict[str, Dict]:
-    """time_ms of every launcher, ``rounds`` times in turns (forward, then
-    backward); ``after(label)`` runs after each timing."""
+             what: str, after: Callable[[str], None] = lambda label: None,
+             reps: int = 20) -> Dict[str, Dict]:
+    """time_ms of every launcher (``reps`` launches), ``rounds`` times in
+    turns (forward, then backward); ``after(label)`` runs after each
+    timing."""
     labels = list(launchers)
     times: Dict[str, list] = {label: [] for label in labels}
     for turn in range(rounds):
         for label in labels if turn % 2 == 0 else labels[::-1]:
-            times[label].append(time_ms(launchers[label], 20))
+            times[label].append(time_ms(launchers[label], reps))
             after(label)
     result = {}
     for label, ts in times.items():
@@ -670,7 +679,81 @@ def ablate_baseline(root: Path, rounds: int = 4) -> Dict[str, Dict]:
     return result
 
 
-PARTS = ("cold", "fused", "two_pass", "pack", "bsr", "bsr_f32",
+def ablate_global(A, rounds: int = 3) -> Dict[str, Dict]:
+    """The global fused kernel at t_size 65,536 against the ESC fallback
+    rung on the default symbolic ladder's fallback rows of A·A (part
+    ``global``)."""
+    from repro_torch import SpgemmConfig
+    from repro_torch.core import (bin_rows_for_ladder, esc, gather_rows,
+                                  nprod_into_rpt)
+    from repro_torch.engine import SpgemmEngine, plan_key
+    from . import spgemm_hash as sh
+    cfg = SpgemmConfig(method="hash")
+    engine = SpgemmEngine(cfg)
+    C = engine.execute(A, A).C
+    plan = engine.cache.get(plan_key(A, A, cfg)).plan
+    sched = plan.hash_schedule
+    lad = plan.sym_ladder
+    binning = bin_rows_for_ladder(nprod_into_rpt(A, A)[:A.nrows], lad)
+    cap, fall_cap = sched.sym_row_buckets[-1], sched.fall_prod_bucket
+    rows, count = binning.rows_of_bin(len(lad.table_sizes), cap)
+    count = count.reshape(1)
+    m, rpt, nnz_cap = A.nrows, C.rpt, int(C.rpt[-1])
+    t_size = 65536
+    assert sh.is_global(t_size, 1, True)
+    out = {label: (torch.zeros(nnz_cap + 1, dtype=torch.int32,
+                               device=A.device),
+                   torch.zeros(nnz_cap + 1, dtype=torch.float32,
+                               device=A.device))
+           for label in ("global", "esc")}
+
+    def global_kernel():
+        return sh.fused_bin_call(rows, count, A.rpt, A.col, A.val, A.rpt,
+                                 A.col, A.val, t_size=t_size, rows_cap=cap)
+
+    def global_rung():     # as fused_scheduled runs a table rung
+        nnz, col_tabs, val_tabs, _ = global_kernel()
+        nnz_buf = torch.zeros(m + 2, dtype=torch.int32, device=A.device)
+        valid = torch.arange(cap, device=A.device) < count
+        sh._scatter_nnz(nnz_buf, rows, valid, nnz, m)
+        sh.numeric_epilogue(col_tabs, val_tabs, rows, count, rpt,
+                            *out["global"], nnz_capacity=nnz_cap)
+
+    def esc_rung():      # as fused_scheduled runs its fallback rung
+        f_rows, valid = sh._fallback_rows(binning, lad, cap, m)
+        sub = gather_rows(A, f_rows, valid)
+        sh._fallback_sub_prod(A, A, f_rows, valid)
+        subC = esc.spgemm_fused(sub, A, prod_capacity=fall_cap,
+                                nnz_capacity=fall_cap)
+        nnz_buf = torch.zeros(m + 2, dtype=torch.int32, device=A.device)
+        sh._scatter_nnz(nnz_buf, f_rows, valid, subC.nnz_per_row(), m)
+        sh.scatter_sub_rows(subC, f_rows, valid, rpt, *out["esc"],
+                            nnz_capacity=nnz_cap)
+
+    global_rung()
+    esc_rung()
+    torch.cuda.synchronize()
+    (gc, gv), (ec, ev) = (out[k] for k in ("global", "esc"))
+    # (the last entry is the dump slot of both scatters)
+    assert torch.equal(gc[:nnz_cap], ec[:nnz_cap]), "columns differ"
+    assert torch.allclose(gv[:nnz_cap], ev[:nnz_cap], rtol=1e-5,
+                          atol=1e-5), "values differ"
+    n = int(count[0])
+    print(f"global: {n} fallback rows in a bucket of {cap}, ESC product "
+          f"bucket {fall_cap}; the global rung and ESC write equal rows",
+          flush=True)
+    del C
+    torch.cuda.empty_cache()
+    result = in_turns({"fused_bin global kernel (t=65536)": global_kernel,
+                       "global kernel + numeric_epilogue": global_rung,
+                       "ESC fallback rung": esc_rung}, rounds,
+                      "fallback rows", reps=3,
+                      after=lambda label: torch.cuda.empty_cache())
+    result.update(rows=n, rows_cap=cap, fall_prod_bucket=fall_cap)
+    return result
+
+
+PARTS = ("cold", "fused", "two_pass", "pack", "bsr", "bsr_f32", "global",
          "baseline")
 
 
@@ -726,6 +809,9 @@ def main() -> int:
         if "pack" in parts:
             report["pack"] = ablate_pack(libs)
             torch.cuda.empty_cache()
+    if "global" in parts:
+        report["global"] = ablate_global(table3_matrix("mono_500Hz"))
+        torch.cuda.empty_cache()
     if "bsr" in parts:
         report["bsr_spmm_bf16"] = ablate_bsr()
     if "bsr_f32" in parts:

@@ -42,6 +42,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                         _U, _I, _U, _P, _P, _P, _P),
         "fused_bin": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                       _P, _P, _P, _P),
+        "hash_global_ctas_per_sm": (_I, _I, _I, _P),
+        "hash_bin_global": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _P, _P, _P, _P, _P),
     },
     "binning_histogram": {
         "binning_histogram": (_P, _L, _I, _P, _I, _I, _P, _P, _P),

@@ -9,17 +9,19 @@
 //                    table build per row: nnz, raw tables and accesses)
 //
 // What each computes is the TPU kernel's function, not its block layout.
-// Two kernel bodies: hash_rows_kernel runs fused_bin and symbolic_bin,
-// slot_rows_kernel runs numeric_bin.  Common to both:
+// Three kernel bodies: hash_rows_kernel runs fused_bin and symbolic_bin,
+// slot_rows_kernel runs numeric_bin, both with tables in shared memory, and
+// global_rows_kernel runs all three on the rungs whose tables do not fit a
+// block's shared memory (the vmem_extended ladders).  Common to all:
 //   * Row mapping.  A group of `threads_per_row` threads owns one output row
 //     and its table; a CTA holds `rows_per_cta` such groups (a warp each
 //     when there are several).  Inside a row, warp w takes A entries
 //     a_lo+w, a_lo+w+W, ..., fetched 32 at a time (column, value, B row
 //     bounds), one per lane, so the dependent global loads are paid once
 //     per 32 entries.
-//   * Tables live in (dynamic) shared memory, one `t_size` slice per row.
-//     The fused top rung (24576 entries x 8 B = 196,608 B) needs the
-//     opt-in above 48 KB.
+//   * Tables live in (dynamic) shared memory, one `t_size` slice per row,
+//     but for global_rows_kernel's.  The fused top rung of the default
+//     ladder (24576 entries x 8 B = 196,608 B) needs the opt-in above 48 KB.
 //   * Hash: key*107 as a uint32 product (no signed overflow), reduced with
 //     AND for a power-of-two table and with a floor mod of the int32 value
 //     otherwise: the reference's slot for every key, never a negative one.
@@ -80,9 +82,24 @@
 //   The lost CAS races do not count against the probe guard, which counts
 //   slots.
 //
+// global_rows_kernel (the tables of 32,768 to 1,048,576 entries, 256 KB to
+// 8 MB a row): one row to a 1024-thread CTA, which fills its own output row
+// of col_tabs / val_tabs (a scratch table for symbolic_bin) with -1 / 0,
+// waits at a barrier, and inserts there with the same `insert` as
+// hash_rows_kernel, now on device memory: a 32-bit atomicCAS on the key and
+// a native float atomicAdd on the value, the reference's hash (AND on these
+// power-of-two sizes), linear probing and the 2*t_size guard.  Nothing is
+// dumped: the table is the output.  Row offsets are 64-bit (a bucket of
+// 4,096 rows of 524,288 entries holds 2^31 of them).  Padding rows write
+// nnz 0 and accesses 0 and leave their tables unwritten, as above.  At most
+// 32 registers a thread (__launch_bounds__(1024, 2)).  The tables of the
+// CTAs in flight (up to 264 x 512 KB on the fused 65,536 rung) exceed the
+// 50 MB L2, so part of the atomics reach HBM.
+//
 // What bounds them on the card: device-memory bytes for the valid rows (B
 // reads, the raw table dump), and, inside a row, the latency of the chain
-// A entry -> B row pointers -> B entries -> shared atomics.
+// A entry -> B row pointers -> B entries -> shared (or, on the global rungs,
+// L2) atomics.
 //
 // Every entry point returns cudaGetLastError() right after its launch (or
 // the error of the shared-memory opt-in); the Python wrapper raises on
@@ -560,6 +577,121 @@ int slot_dispatch(HashMod mod, int single_access, const int* rows,
                             threads_per_row, col_out, val_out, acc_out, s);
 }
 
+// ---------------------------------------------------------------------------
+// global_rows_kernel: the vmem_extended rungs of all three (see the header).
+// ---------------------------------------------------------------------------
+
+// Sets n words of a table in device memory to `value`: 16-byte stores when
+// the table starts on a 16-byte boundary and n is a multiple of 4 (every
+// power-of-two table of the extended ladders), else word by word.
+__device__ __forceinline__ void fill_words(int* dst, int value, int n) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (n & 3) == 0) {
+    const int4 v = make_int4(value, value, value, value);
+    int4* quads = reinterpret_cast<int4*>(dst);
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) quads[i] = v;
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = value;
+  }
+}
+
+// One row a CTA; the row's table is its own output row in device memory
+// (col_tabs / val_tabs at row * t_size, 64-bit offsets), filled empty and
+// then built there with `insert`, so nothing is dumped.  val_tabs ==
+// nullptr with WITH_VALUES false (symbolic_bin: the keys go to a scratch
+// table the wrapper allocates); nnz_out may be nullptr (numeric_bin).
+template <bool SINGLE_ACCESS, bool WITH_VALUES>
+__global__ void __launch_bounds__(1024, 2) global_rows_kernel(
+    const int* __restrict__ rows, const int* __restrict__ count,
+    const int* __restrict__ a_rpt, const int* __restrict__ a_col,
+    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
+    const int* __restrict__ b_col, const float* __restrict__ b_val,
+    int t_size, int* __restrict__ nnz_out, int* __restrict__ col_tabs,
+    float* __restrict__ val_tabs, int* __restrict__ acc_out) {
+  const long long row = blockIdx.x;
+  if (row >= *count) {
+    // Padding row: counts only; its table stays unwritten.
+    if (threadIdx.x == 0) {
+      if (nnz_out) nnz_out[row] = 0;
+      acc_out[row] = 0;
+    }
+    return;
+  }
+
+  __shared__ int row_nnz, row_acc;
+  int* table_keys = col_tabs + row * t_size;
+  float* table_vals = WITH_VALUES ? val_tabs + row * t_size : nullptr;
+  fill_words(table_keys, kEmpty, t_size);
+  if (WITH_VALUES) fill_words(reinterpret_cast<int*>(table_vals), 0, t_size);
+  if (threadIdx.x == 0) {
+    row_nnz = 0;
+    row_acc = 0;
+  }
+  __syncthreads();   // the fill is seen by every thread of the block
+
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const bool pow2 = (t_size & (t_size - 1)) == 0;
+  const int guard = kGuardFactor * t_size;
+  const int r = rows[row];
+  const int a_lo = a_rpt[r], a_hi = a_rpt[r + 1];
+  int inserted = 0, accesses = 0;
+  // As in hash_rows_kernel: warp w takes entries a_lo + w + warps*s, lane
+  // l fetches entry s0 + l of each batch of 32, and the warp's lanes
+  // stride each entry's B row.
+  for (int base = a_lo + warp; base < a_hi; base += 32 * warps) {
+    const int e = base + lane * warps;
+    int b_lo = 0, b_hi = 0;
+    float av = 0.0f;
+    if (e < a_hi) {
+      const int k = a_col[e];
+      if (WITH_VALUES) av = a_val[e];
+      b_lo = b_rpt[k];
+      b_hi = b_rpt[k + 1];
+    }
+    const int batch = min(32, (a_hi - base + warps - 1) / warps);
+    for (int s = 0; s < batch; ++s) {
+      const int lo = __shfl_sync(0xffffffffu, b_lo, s);
+      const int hi = __shfl_sync(0xffffffffu, b_hi, s);
+      const float a = WITH_VALUES ? __shfl_sync(0xffffffffu, av, s) : 0.0f;
+      for (int j = lo + lane; j < hi; j += 32) {
+        const float prod = WITH_VALUES ? a * b_val[j] : 0.0f;
+        accesses += insert<SINGLE_ACCESS, WITH_VALUES>(
+            table_keys, table_vals, b_col[j], prod, t_size, pow2, guard,
+            &inserted);
+      }
+    }
+  }
+  if (inserted) atomicAdd(&row_nnz, inserted);
+  if (accesses) atomicAdd(&row_acc, accesses);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (nnz_out) nnz_out[row] = row_nnz;
+    acc_out[row] = row_acc;
+  }
+}
+
+template <bool SINGLE_ACCESS, bool WITH_VALUES>
+int launch_global(const int* rows, const int* count, const int* a_rpt,
+                  const int* a_col, const float* a_val, const int* b_rpt,
+                  const int* b_col, const float* b_val, int t_size,
+                  int rows_cap, int threads, int* nnz_out, int* col_tabs,
+                  float* val_tabs, int* acc_out, cudaStream_t stream) {
+  if (rows_cap == 0) return 0;
+  global_rows_kernel<SINGLE_ACCESS, WITH_VALUES>
+      <<<rows_cap, threads, 0, stream>>>(rows, count, a_rpt, a_col, a_val,
+                                         b_rpt, b_col, b_val, t_size,
+                                         nnz_out, col_tabs, val_tabs,
+                                         acc_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SINGLE_ACCESS, bool WITH_VALUES>
+const void* global_rows_fn() {
+  return reinterpret_cast<const void*>(
+      global_rows_kernel<SINGLE_ACCESS, WITH_VALUES>);
+}
+
 template <bool SINGLE_ACCESS, bool WITH_VALUES>
 const void* hash_rows_fn() {
   return reinterpret_cast<const void*>(
@@ -604,6 +736,38 @@ int hash_ctas_per_sm(int kernel, int single_access, int t_size,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, fn, rows_per_cta * threads_per_row, smem));
+}
+
+// CTAs of one global_rows_kernel launch that fit on one SM at once.
+int hash_global_ctas_per_sm(int with_values, int single_access, int threads,
+                            int* out) {
+  const void* fn =
+      with_values ? (single_access ? global_rows_fn<true, true>()
+                                   : global_rows_fn<false, true>())
+                  : (single_access ? global_rows_fn<true, false>()
+                                   : global_rows_fn<false, false>());
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads, 0));
+}
+
+// The three kernels' tables above shared memory (the vmem_extended rungs):
+// one row a CTA of `threads` threads, its table built in col_tabs /
+// val_tabs (rows_cap x t_size).  val_tabs == nullptr builds keys only
+// (symbolic_bin, col_tabs then a scratch table); nnz_out == nullptr skips
+// the nnz (numeric_bin).
+int hash_bin_global(int single_access, const int* rows, const int* count,
+                    const int* a_rpt, const int* a_col, const float* a_val,
+                    const int* b_rpt, const int* b_col, const float* b_val,
+                    int t_size, int rows_cap, int threads, int* nnz_out,
+                    int* col_tabs, float* val_tabs, int* acc_out,
+                    void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto fn = val_tabs ? (single_access ? &launch_global<true, true>
+                                      : &launch_global<false, true>)
+                     : (single_access ? &launch_global<true, false>
+                                      : &launch_global<false, false>);
+  return fn(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
+            rows_cap, threads, nnz_out, col_tabs, val_tabs, acc_out, s);
 }
 
 int symbolic_bin(const int* rows, const int* count, const int* a_rpt,

@@ -40,9 +40,14 @@ drivers mark the fallback rung and the epilogue with profiler ranges
 (``hash_fallback``, ``hash_epilogue``) so a trace splits their time.
 
 Rows too large for the top rung go to the ESC accumulator (``core/esc``),
-the analog of the paper's global-memory kernels.  The reference's
-``vmem_extended`` ladders (tables up to 1,048,576 entries) do not fit a
-block's shared memory; the wrappers refuse them on the card.
+as in the reference.  The reference's ``vmem_extended`` ladders add rungs
+whose tables (32,768 to 1,048,576 entries) do not fit a block's shared
+memory.  On the card each wrapper launches those on the global-memory
+kernel (``global_rows_kernel``, the paper's kernel8 / kernel7: one row a
+block, its table built in its own output row, or for ``symbolic_bin`` in a
+scratch table), chosen by the table's size alone, once per launch; the
+shared-memory rungs keep their kernels.  Each wrapper counts its launches
+(``launches``) and, of those, the global ones (``launches_global``).
 """
 from __future__ import annotations
 
@@ -294,31 +299,70 @@ def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
                 single_access: bool = True,
                 device: Optional[torch.device] = None) -> int:
     """CTAs of one rung's launch of ``kernel`` (symbolic_bin, numeric_bin
-    or fused_bin, in the geometry its wrapper launches) that fit on one SM
-    of the card at once, by the CUDA occupancy calculator."""
+    or fused_bin, in the geometry and on the kernel its wrapper launches:
+    the global-memory one where :func:`is_global`) that fit on one SM of
+    the card at once, by the CUDA occupancy calculator."""
     rows_per_cta, threads = (numeric_launch_geometry(t_size)
                              if kernel == "numeric_bin"
                              else launch_geometry(t_size, pack))
     out = torch.zeros(1, dtype=torch.int32)
+    lib = build.library("spgemm_hash")
+    with_values = kernel != "symbolic_bin"
     with torch.cuda.device(device):
-        build.check(build.library("spgemm_hash").hash_ctas_per_sm(
-            _KERNEL_IDS[kernel], int(single_access), t_size, rows_per_cta,
-            threads, out.data_ptr()), "hash_ctas_per_sm")
+        if is_global(t_size, rows_per_cta, with_values, device):
+            build.check(lib.hash_global_ctas_per_sm(
+                int(with_values), int(single_access), threads,
+                out.data_ptr()), "hash_global_ctas_per_sm")
+        else:
+            build.check(lib.hash_ctas_per_sm(
+                _KERNEL_IDS[kernel], int(single_access), t_size,
+                rows_per_cta, threads, out.data_ptr()), "hash_ctas_per_sm")
     return int(out[0])
 
 
-def _check_smem(device: torch.device, t_size: int, rows_per_cta: int,
-                with_values: bool) -> None:
+GLOBAL_MAX_T_SIZE = 2 ** 30   # the probe guard, 2*t_size, is an int32
+
+
+def is_global(t_size: int, rows_per_cta: int, with_values: bool,
+              device: Optional[torch.device] = None) -> bool:
+    """Whether a rung's tables (``rows_per_cta`` of ``t_size`` entries, 8 B
+    an entry with values, 4 without, and 8 B of counters a row) exceed the
+    card's shared memory per block, so that its launch takes the
+    global-memory kernel.  Raises where that kernel cannot take the rung:
+    several rows to a block, or a table past ``GLOBAL_MAX_T_SIZE``."""
     need = rows_per_cta * t_size * (8 if with_values else 4) \
         + 8 * rows_per_cta
-    limit = _max_smem_bytes(device.index if device.index is not None
+    dev = torch.device("cuda") if device is None else device
+    limit = _max_smem_bytes(dev.index if dev.index is not None
                             else torch.cuda.current_device())
-    if need > limit:
+    if need <= limit:
+        return False
+    if rows_per_cta != 1:
         raise ValueError(
-            f"a hash table of {t_size} entries x {rows_per_cta} rows needs "
-            f"{need} B of shared memory; this card allows {limit} B per "
-            "block.  The vmem_extended ladders need a global-memory rung, "
-            "which is not ported yet.")
+            f"{rows_per_cta} tables of {t_size} entries to a block need "
+            f"{need} B of shared memory (this card allows {limit} B), and "
+            "the global-memory kernel takes one row a block: pack=1")
+    if t_size > GLOBAL_MAX_T_SIZE:
+        raise ValueError(f"a table of {t_size} entries is past the global-"
+                         f"memory kernel's {GLOBAL_MAX_T_SIZE}")
+    return True
+
+
+def _launch_global(dev, rows, count, a_rpt, a_col, a_val, b_rpt, b_col,
+                   b_val, *, t_size, rows_cap, threads, single_access, nnz,
+                   col_tabs, val_tabs, acc) -> None:
+    """One launch of the global-memory kernel (``hash_bin_global``):
+    ``val_tabs`` None builds keys only, ``nnz`` None skips the nnz."""
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    with torch.cuda.device(dev):
+        err = build.library("spgemm_hash").hash_bin_global(
+            int(single_access), rows.data_ptr(), count.data_ptr(),
+            a_rpt.data_ptr(), a_col.data_ptr(), ptr(a_val), b_rpt.data_ptr(),
+            b_col.data_ptr(), ptr(b_val), t_size, rows_cap, threads,
+            ptr(nnz), col_tabs.data_ptr(), ptr(val_tabs), acc.data_ptr(),
+            _stream(dev))
+    build.check(err, "hash_bin_global")
 
 
 def _check_cuda_inputs(rows, count, ints, floats, rows_cap: int) -> None:
@@ -365,10 +409,18 @@ def symbolic_bin_call(rows, count, a_rpt, a_col, b_rpt, b_col, *,
                        [], rows_cap)
     dev = rows.device
     rows_per_cta, threads = launch_geometry(t_size, pack)
-    _check_smem(dev, t_size, rows_per_cta, False)
     nnz = torch.empty(rows_cap, dtype=torch.int32, device=dev)
     acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
-    if rows_cap:
+    if rows_cap and is_global(t_size, rows_per_cta, False, dev):
+        scratch = torch.empty((rows_cap, t_size), dtype=torch.int32,
+                              device=dev)
+        _launch_global(dev, rows, count, a_rpt, a_col, None, b_rpt, b_col,
+                       None, t_size=t_size, rows_cap=rows_cap,
+                       threads=threads, single_access=single_access,
+                       nnz=nnz, col_tabs=scratch, val_tabs=None, acc=acc)
+        symbolic_bin_call.launches += 1
+        symbolic_bin_call.launches_global += 1
+    elif rows_cap:
         with torch.cuda.device(dev):
             err = build.library("spgemm_hash").symbolic_bin(
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
@@ -380,7 +432,7 @@ def symbolic_bin_call(rows, count, a_rpt, a_col, b_rpt, b_col, *,
     return nnz, acc
 
 
-symbolic_bin_call.launches = 0
+symbolic_bin_call.launches = symbolic_bin_call.launches_global = 0
 
 
 def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
@@ -402,7 +454,9 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     64-bit word in shared memory (the key and the float value's bits), so
     a single 64-bit CAS claims a slot and adds the value; the hash's mod
     by t_size (2^k - 1 on the numeric ladder) is a multiply-high by the
-    constants of :func:`hash_mod`, with the reference's slots.
+    constants of :func:`hash_mod`, with the reference's slots.  A rung
+    whose tables exceed shared memory (the extended ladder's 32,768 and
+    up, :func:`is_global`) runs on the global-memory kernel instead.
     """
     if not rows.is_cuda:
         return numeric_bin_plain(rows, count, a_rpt, a_col, a_val, b_rpt,
@@ -414,12 +468,19 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                        [("a_val", a_val), ("b_val", b_val)], rows_cap)
     dev = rows.device
     rows_per_cta, threads = numeric_launch_geometry(t_size)
-    _check_smem(dev, t_size, rows_per_cta, True)
     col_tabs = torch.empty((rows_cap, t_size), dtype=torch.int32, device=dev)
     val_tabs = torch.empty((rows_cap, t_size), dtype=torch.float32,
                            device=dev)
     acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
-    if rows_cap:
+    if rows_cap and is_global(t_size, rows_per_cta, True, dev):
+        _launch_global(dev, rows, count, a_rpt, a_col, a_val, b_rpt, b_col,
+                       b_val, t_size=t_size, rows_cap=rows_cap,
+                       threads=threads, single_access=single_access,
+                       nnz=None, col_tabs=col_tabs, val_tabs=val_tabs,
+                       acc=acc)
+        numeric_bin_call.launches += 1
+        numeric_bin_call.launches_global += 1
+    elif rows_cap:
         with torch.cuda.device(dev):
             err = build.library("spgemm_hash").numeric_bin(
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
@@ -433,7 +494,7 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     return col_tabs, val_tabs, acc
 
 
-numeric_bin_call.launches = 0
+numeric_bin_call.launches = numeric_bin_call.launches_global = 0
 
 
 def fused_outputs(rows_cap: int, t_size: int, device) -> Tuple:
@@ -472,10 +533,17 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                        [("a_val", a_val), ("b_val", b_val)], rows_cap)
     dev = rows.device
     rows_per_cta, threads = launch_geometry(t_size, pack)
-    _check_smem(dev, t_size, rows_per_cta, True)
     nnz, col_tabs, val_tabs, acc = (fused_outputs(rows_cap, t_size, dev)
                                     if out is None else out)
-    if rows_cap:
+    if rows_cap and is_global(t_size, rows_per_cta, True, dev):
+        _launch_global(dev, rows, count, a_rpt, a_col, a_val, b_rpt, b_col,
+                       b_val, t_size=t_size, rows_cap=rows_cap,
+                       threads=threads, single_access=single_access,
+                       nnz=nnz, col_tabs=col_tabs, val_tabs=val_tabs,
+                       acc=acc)
+        fused_bin_call.launches += 1
+        fused_bin_call.launches_global += 1
+    elif rows_cap:
         with torch.cuda.device(dev):
             err = build.library("spgemm_hash").fused_bin(
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
@@ -489,15 +557,15 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     return nnz, col_tabs, val_tabs, acc
 
 
-fused_bin_call.launches = 0
+fused_bin_call.launches = fused_bin_call.launches_global = 0
 
 KERNELS = (symbolic_bin_call, numeric_bin_call, fused_bin_call)
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts (all, global) to 0."""
     for fn in KERNELS:
-        fn.launches = 0
+        fn.launches = fn.launches_global = 0
 
 
 # ---------------------------------------------------------------------------

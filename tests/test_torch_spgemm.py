@@ -22,6 +22,7 @@ from repro_torch.core.spgemm import (SpgemmConfig, spgemm,
                                      spgemm_reference)
 from repro_torch.engine import (MatrixSig, SpgemmEngine, default_engine,
                                 plan_key, reset_default_engine)
+from repro_torch.kernels import spgemm_hash as tsh
 
 VAL_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels_spgemm_hash.py:56
 
@@ -51,10 +52,12 @@ def _assert_same_result(t, j):
                                       np.asarray(jb.bin_size))
 
 
-def _pair(seed=5, m=96, k=96, n=96, da=6.0, db=5.0, dist="powerlaw"):
-    A = jcsr.random_csr(seed, m, k, avg_nnz_per_row=da, distribution=dist)
+def _pair(seed=5, m=96, k=96, n=96, da=6.0, db=5.0, dist="powerlaw",
+          max_nnz=None):
+    A = jcsr.random_csr(seed, m, k, avg_nnz_per_row=da,
+                        max_nnz_per_row=max_nnz, distribution=dist)
     B = jcsr.random_csr(seed + 100, k, n, avg_nnz_per_row=db,
-                        distribution=dist)
+                        max_nnz_per_row=max_nnz, distribution=dist)
     return A, B
 
 
@@ -67,6 +70,13 @@ def fresh_engines():
     reset_default_engine()
 
 
+# The vmem_extended ladders at multipliers that put 3, 1 and 1 rows of
+# EXT_PAIR in the symbolic rungs of 65,536, 262,144 and 1,048,576 entries
+# and 32, 3 and 1 in the numeric rungs of 32,768, 131,072 and 524,288
+# (none in either fallback): every rung past a block's shared memory.
+EXT = dict(method="hash", vmem_extended=True, sym_multiplier=1400.0,
+           num_multiplier=1550.0)
+EXT_PAIR = dict(seed=29, da=2.0, db=4.0, max_nnz=48)
 CASES = {
     "hash-fused": dict(method="hash"),
     "hash-fused-cas": dict(method="hash", hash_single_access=False),
@@ -74,13 +84,39 @@ CASES = {
     "hash-two-pass": dict(method="hash", fuse_numeric=False),
     "esc": dict(),
     "esc-fused": dict(fuse_esc=True),
+    "hash-ext-fused": EXT,
+    "hash-ext-two-pass": dict(EXT, fuse_numeric=False),
+    # most rows past the default ladders' top rungs: the ESC fallback rung
+    "hash-fallback": dict(method="hash", sym_multiplier=1000.0,
+                          num_multiplier=1000.0),
 }
+CASE_PAIRS = {"hash-ext-fused": EXT_PAIR, "hash-ext-two-pass": EXT_PAIR}
+
+
+def _assert_rungs_populated(case, result, tcfg):
+    """The extended cases hold rows in every extended rung of both
+    ladders, the fallback case in both fallback rungs, so neither can
+    pass without running them."""
+    if case not in ("hash-ext-fused", "hash-ext-two-pass", "hash-fallback"):
+        return
+    sym, num = tcfg.ladders()
+    default = SpgemmConfig(method="hash").ladders()
+    for binning, ext, base in ((result.sym_binning, sym, default[0]),
+                               (result.num_binning, num, default[1])):
+        sizes = _np(binning.bin_size)
+        if case == "hash-fallback":
+            assert sizes[-1] > 0, sizes
+        else:
+            first = len(base.table_sizes)
+            assert len(ext.table_sizes) == first + 3
+            assert (sizes[first:len(ext.table_sizes)] > 0).all(), sizes
+            assert sizes[-1] == 0, sizes
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_cold_then_steady_matches_reference(fresh_engines, case):
     kw = CASES[case]
-    A, B = _pair()
+    A, B = _pair(**CASE_PAIRS.get(case, {}))
     TA, TB = _port(A), _port(B)
     jcfg, tcfg = JConfig(**kw), SpgemmConfig(**kw)
     results = []
@@ -89,6 +125,7 @@ def test_cold_then_steady_matches_reference(fresh_engines, case):
         t = spgemm(TA, TB, tcfg)
         _assert_same_result(t, j)
         results.append(t)
+    _assert_rungs_populated(case, results[0], tcfg)
     entry = default_engine().cache.get(plan_key(TA, TB, tcfg))
     assert (entry.stats.calls, entry.stats.steps_calls,
             entry.stats.hot_calls) == (3, 1, 2)
@@ -118,13 +155,18 @@ def _overflow_pair():
     return A1, A2, B
 
 
+@pytest.mark.parametrize("ladders", ["default", "extended"])
 @pytest.mark.parametrize("fuse_numeric", [True, False])
 def test_overflow_grows_and_redoes_like_reference(fresh_engines,
-                                                  fuse_numeric):
+                                                  fuse_numeric, ladders):
+    """On the extended ladders (EXT's multipliers) A2's dense row lands in
+    an extended rung that A1's schedule left empty, so the grown bucket is
+    one of the global-memory rungs'."""
     A1, A2, B = _overflow_pair()
     TA1, TA2, TB = _port(A1), _port(A2), _port(B)
     assert MatrixSig.of(TA1) == MatrixSig.of(TA2)
-    kw = dict(method="hash", fuse_numeric=fuse_numeric)
+    kw = dict(EXT if ladders == "extended" else dict(method="hash"),
+              fuse_numeric=fuse_numeric)
     jcfg, tcfg = JConfig(**kw), SpgemmConfig(**kw)
     for JA, TA in ((A1, TA1), (A2, TA2), (A2, TA2), (A1, TA1)):
         _assert_same_result(spgemm(TA, TB, tcfg), jspgemm(JA, B, jcfg))
@@ -136,6 +178,9 @@ def test_overflow_grows_and_redoes_like_reference(fresh_engines,
     jplan = next(e.plan for _, e in jdefault().cache.items())
     assert dataclasses.astuple(entry.plan.hash_schedule) == \
         dataclasses.astuple(jplan.hash_schedule)
+    if ladders == "extended":
+        first = len(SpgemmConfig(method="hash").ladders()[0].table_sizes)
+        assert any(entry.plan.hash_schedule.sym_row_buckets[first:-1])
 
 
 def test_nnz_bucket_overflow_redo():
@@ -222,12 +267,16 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-def test_hash_spgemm_on_card_matches_cpu(cuda_device):
-    A, B = _pair()
-    cfg = SpgemmConfig(method="hash")
+@pytest.mark.parametrize("case", list(CASES))
+def test_hash_spgemm_on_card_matches_cpu(cuda_device, case):
+    """Every CASES entry through the engine, card against CPU, cold then
+    steady: the kernels and the torch ops of each method and option."""
+    A, B = _pair(**CASE_PAIRS.get(case, {}))
+    cfg = SpgemmConfig(**CASES[case])
     eng_gpu, eng_cpu = SpgemmEngine(), SpgemmEngine()
     GA, GB = _port(A, cuda_device), _port(B, cuda_device)
     CA, CB = _port(A), _port(B)
+    tsh.reset_launches()
     for _ in range(3):
         g = eng_gpu.execute(GA, GB, cfg)
         c = eng_cpu.execute(CA, CB, cfg)
@@ -237,3 +286,10 @@ def test_hash_spgemm_on_card_matches_cpu(cuda_device):
         assert torch.equal(g.C.col[:nz].cpu(), c.C.col[:nz])
         torch.testing.assert_close(g.C.val[:nz].cpu(), c.C.val[:nz],
                                    **VAL_TOL)
+    _assert_rungs_populated(case, c, cfg)
+    # The extended rungs ran on the global-memory kernel: the cold call's
+    # symbolic and numeric, the steady calls' fused or two-pass kernels.
+    if cfg.vmem_extended:
+        assert tsh.symbolic_bin_call.launches_global >= 1
+        assert tsh.numeric_bin_call.launches_global >= 1
+        assert (tsh.fused_bin_call.launches_global >= 2) == cfg.fuse_numeric

@@ -32,6 +32,12 @@ from repro_torch.kernels import spgemm_hash as tsh
 VAL_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels_spgemm_hash.py:56
 SYM = ((32, 64, 128), 1.2, (32, 64, 128))      # every rung + fallback
 NUM = ((16, 32, 64), 2.0, (15, 31, 63))        # mod-path tables
+# The vmem_extended rungs (binning_ranges.py), past a block's shared memory
+# on the card: their tables at a multiplier that spreads the pair's rows
+# over every rung plus the fallback, 8 rows a bin.
+EXT_SYM = ((65536, 262144, 1048576), 8192.0, (65536, 262144, 1048576))
+EXT_NUM = ((32768, 131072, 524288), 8192.0, (32768, 131072, 524288))
+LADDERS = {"tiny": (SYM, NUM, 128, 64), "extended": (EXT_SYM, EXT_NUM, 8, 8)}
 
 
 def _np(x):
@@ -90,19 +96,20 @@ def _populated(jb, lad):
 
 
 @pytest.mark.parametrize("single_access", [True, False])
-@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("ladder,packed", [("tiny", False), ("tiny", True),
+                                           ("extended", False)])
 @pytest.mark.parametrize("kind", ["symbolic", "fused"])
-def test_sym_ladder_kernels_match_reference_exactly(kind, packed,
+def test_sym_ladder_kernels_match_reference_exactly(kind, ladder, packed,
                                                     single_access):
     A, B = _pair()
     TA, TB = _port(A), _port(B)
-    jb, tb = _bins(A, B, SYM)
-    rungs, sizes = _populated(jb, SYM)
+    sym, _, rows_cap, _ = LADDERS[ladder]
+    jb, tb = _bins(A, B, sym)
+    rungs, sizes = _populated(jb, sym)
     assert rungs == [0, 1, 2] and sizes[-1] > 0
-    lad = make_ladder(*SYM)
+    lad = make_ladder(*sym)
     for b in rungs:
-        t = SYM[2][b]
-        rows_cap = 128
+        t = sym[2][b]
         pack = lad.rows_per_block[b] if packed else 1
         jr, jc, tr, tc = _rung_inputs(jb, tb, b, rows_cap)
         if kind == "symbolic":
@@ -133,24 +140,26 @@ def test_sym_ladder_kernels_match_reference_exactly(kind, packed,
         np.testing.assert_array_equal(_np(ta), np.asarray(ja))
 
 
+@pytest.mark.parametrize("ladder", ["tiny", "extended"])
 @pytest.mark.parametrize("single_access", [True, False])
-def test_numeric_kernel_matches_reference_exactly(single_access):
+def test_numeric_kernel_matches_reference_exactly(single_access, ladder):
     A, B = _pair()
     TA, TB = _port(A), _port(B)
+    _, num, _, rows_cap = LADDERS[ladder]
     nnz = jesc.symbolic(A, B, prod_capacity=1 << 15)[:A.nrows]
-    jb, tb = _bins(A, B, NUM, sizes=nnz)
-    rungs, sizes = _populated(jb, NUM)
+    jb, tb = _bins(A, B, num, sizes=nnz)
+    rungs, sizes = _populated(jb, num)
     assert rungs == [0, 1, 2] and sizes[-1] > 0
     for b in rungs:
-        t = NUM[2][b]
-        jr, jc, tr, tc = _rung_inputs(jb, tb, b, 64)
+        t = num[2][b]
+        jr, jc, tr, tc = _rung_inputs(jb, tb, b, rows_cap)
         jcol, jval, ja = jsh.numeric_bin_call(
             jr, jc, A.rpt, A.col, A.val, B.rpt, B.col, B.val, t_size=t,
-            rows_cap=64, single_access=single_access, interpret=True)
+            rows_cap=rows_cap, single_access=single_access, interpret=True)
         tcol, tval, ta = tsh.numeric_bin_call(
             tr, tc, TA.rpt, TA.col, TA.val, TB.rpt, TB.col, TB.val,
-            t_size=t, rows_cap=64, single_access=single_access)
-        assert tuple(tcol.shape) == (64, t)     # stride t_size, no padding
+            t_size=t, rows_cap=rows_cap, single_access=single_access)
+        assert tuple(tcol.shape) == (rows_cap, t)  # stride t_size, no pad
         np.testing.assert_array_equal(_np(tcol), np.asarray(jcol)[:, :t])
         np.testing.assert_allclose(_np(tval), np.asarray(jval)[:, :t],
                                    **VAL_TOL)
@@ -793,3 +802,133 @@ def test_cuda_slot_kernels_count_zero(cuda_device, kind, t_size, rows_cap,
         nnz = torch.zeros_like(acc)
     torch.cuda.synchronize()
     assert not bool(nnz.any()) and not bool(acc.any())
+
+
+# ---------------------------------------------------------------------------
+# On the card: the global-memory kernel of the vmem_extended rungs.
+# ---------------------------------------------------------------------------
+
+EXT_SIZES = {"symbolic": EXT_SYM[2], "fused": EXT_SYM[2],
+             "numeric": EXT_NUM[2]}
+
+
+def _poison_allocator(device, nbytes: int) -> None:
+    """Leave ``nbytes`` of 0x5A bytes in the caching allocator's free
+    blocks, so a table the kernel fails to fill reads as garbage, not as
+    the zeros of fresh device memory."""
+    junk = torch.full((nbytes // 4,), 0x5A5A5A5A, dtype=torch.int32,
+                      device=device)
+    del junk
+
+
+def _global_bin(kind, A, B, rows, count, t_size, rows_cap, single_access):
+    """One bin through the wrapper (a global launch at these sizes) ->
+    (nnz or None, col_tabs or None, val_tabs or None, accesses)."""
+    if kind == "symbolic":
+        nnz, acc = tsh.symbolic_bin_call(
+            rows, count, A.rpt, A.col, B.rpt, B.col, t_size=t_size,
+            rows_cap=rows_cap, single_access=single_access)
+        return nnz, None, None, acc
+    args = (rows, count, A.rpt, A.col, A.val, B.rpt, B.col, B.val)
+    if kind == "numeric":
+        cols, vals, acc = tsh.numeric_bin_call(
+            *args, t_size=t_size, rows_cap=rows_cap,
+            single_access=single_access)
+        return None, cols, vals, acc
+    return tsh.fused_bin_call(*args, t_size=t_size, rows_cap=rows_cap,
+                              single_access=single_access)
+
+
+def _check_global_against_plain(kind, A, B, rows, count, t_size, rows_cap,
+                                single_access, *, check_rows=None):
+    """The card's global kernel against the plain version: nnz on every
+    row, each valid row's sorted columns exactly and values within
+    VAL_TOL, accesses by the invariants (>= n_prod on valid rows, 0 on
+    padding).  ``check_rows`` (a slice) compares those rows only, against
+    the plain version run on them alone.  Returns the card's accesses."""
+    before = getattr(tsh, f"{kind}_bin_call").launches_global
+    k = _global_bin(kind, A, B, rows, count, t_size, rows_cap,
+                    single_access)
+    torch.cuda.synchronize()
+    assert getattr(tsh, f"{kind}_bin_call").launches_global == before + 1
+    n = int(count[0])
+    sel = slice(0, rows_cap) if check_rows is None else check_rows
+    p_rows = rows[sel].contiguous()
+    p_cap = p_rows.shape[0]
+    p_count = torch.tensor([max(0, min(n - (sel.start or 0), p_cap))],
+                           dtype=torch.int32, device=rows.device)
+    p = tsh.fused_bin_plain(p_rows, p_count, A.rpt, A.col, A.val, B.rpt,
+                            B.col, B.val, t_size=t_size, rows_cap=p_cap)
+    valid = torch.arange(p_cap, device=rows.device) < p_count
+    if k[0] is not None:
+        assert torch.equal(k[0][sel], p[0])        # 0 on padding rows
+    if k[1] is not None:
+        ks, ko = torch.sort(k[1][sel][valid], dim=1)
+        ps, po = torch.sort(p[1][valid], dim=1)
+        assert torch.equal(ks, ps)
+        torch.testing.assert_close(k[2][sel][valid].gather(1, ko),
+                                   p[2][valid].gather(1, po), **VAL_TOL)
+    nprod = tnprod(A, B).long()[p_rows.long()]
+    acc = k[3][sel].long()
+    assert bool((acc[valid] >= nprod[valid]).all())
+    assert not bool(acc[~valid].any())
+    return int(acc[valid].sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid_rows", [0, 1, 8])
+@pytest.mark.parametrize("size_rung", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["symbolic", "numeric", "fused"])
+def test_cuda_global_kernels_match_plain(cuda_device, kind, size_rung,
+                                         valid_rows):
+    """Every extended table size of each kernel, both disciplines, on the
+    pair's 8 rows with the most products, with 0, 1 and all 8 valid."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    t_size = EXT_SIZES[kind][size_rung]
+    with_values = kind != "symbolic"
+    assert tsh.is_global(t_size, 1, with_values, cuda_device)
+    nprod = tnprod(TA, TB)[:TA.nrows]
+    rows = torch.argsort(nprod, descending=True)[:8].to(torch.int32)
+    count = torch.tensor([valid_rows], dtype=torch.int32, device=cuda_device)
+    totals = {}
+    for sa in (True, False):
+        _poison_allocator(cuda_device, 8 * t_size * 8)
+        totals[sa] = _check_global_against_plain(kind, TA, TB, rows, count,
+                                                 t_size, 8, sa)
+    if valid_rows:
+        assert totals[True] < totals[False]
+    else:
+        assert totals == {True: 0, False: 0}
+
+
+@pytest.mark.gpu
+def test_cuda_global_kernel_past_2_31_table_entries(cuda_device):
+    """numeric_bin on the 524,288 rung with a bucket of 4,104 rows, every
+    row valid: the tables hold 2^31 + 2^22 entries, and the last 8 rows
+    start past entry 2^31.  Those rows and the first 8 must match the
+    plain version."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    t_size, rows_cap = EXT_NUM[2][2], 4104
+    assert (rows_cap - 8) * t_size >= 2 ** 31
+    rows = (torch.arange(rows_cap, dtype=torch.int32, device=cuda_device)
+            * 5) % TA.nrows
+    count = torch.tensor([rows_cap], dtype=torch.int32, device=cuda_device)
+    for sel in (slice(rows_cap - 8, rows_cap), slice(0, 8)):
+        _check_global_against_plain("numeric", TA, TB, rows, count, t_size,
+                                    rows_cap, True, check_rows=sel)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_cuda_global_rung_refuses_packing(cuda_device):
+    """A packed launch cannot take the global kernel: the wrapper raises
+    before launching."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    rows = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    count = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="one row a block"):
+        tsh.fused_bin_call(rows, count, TA.rpt, TA.col, TA.val, TB.rpt,
+                           TB.col, TB.val, t_size=65536, rows_cap=8, pack=2)
