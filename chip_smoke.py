@@ -7,8 +7,10 @@ Phases, in order; any failure exits non-zero:
   1. card and build: the card's name and power limit, then every kernel
      source in src/repro_torch/kernels/csrc built with nvcc (one process
      each, all started together) and each kernel's ptxas line
-     (registers, shared memory, spills); the float32 bsr_spmm kernel and
-     binning_histogram must spill nothing.
+     (registers, shared memory, spills); the float32 bsr_spmm kernel,
+     binning_histogram and cluster_rows_kernel must spill nothing, and
+     cluster_rows_kernel's SASS must reach its tables through
+     distributed-shared-memory atomics (no device-memory atomic).
   2. hash kernels against their plain PyTorch versions on the card, both
      probe disciplines, packed and unpacked, on a tiny ladder that
      populates every rung and the fallback rung, and on rows of the
@@ -30,20 +32,30 @@ Phases, in order; any failure exits non-zero:
      (one side stream each) against the sum of their times alone and
      against one stream, each rung's CTAs per SM, and rung 2's geometry
      with count = 0 against every row valid.
-  4b. the sixth slice: spgemm(method="hash", vmem_extended=True) on
-     mono_500Hz (one cold call, then steady calls), whose rows past the
-     default ladders take the extended rungs on the global-memory kernel:
-     the launch counters (launches_global of the three wrappers) read
-     around it, no ESC call, no fallback rung and no hash_fallback range,
-     C equal to the default slice's C, its cold and steady ms, peak
-     memory and a profiled steady call split into the global rung, the
-     default rungs and the epilogue; then each global rung of that path
-     timed alone against its plain version and its bound; then the
-     global kernels against their plain versions on rows that the
-     extended ladders at multiplier TOP_RUNG_MULTIPLIER route to their
-     top rungs (symbolic 262,144 and 1,048,576, numeric 524,288); then
-     the default method, ESC (SpgemmConfig()), through an engine on the
-     scircuit analog against scipy, cold and steady.
+  4b. spgemm(method="hash", vmem_extended=True) on mono_500Hz (one cold
+     call, then steady calls), whose rows past the default ladders take
+     the extended rungs (symbolic and fused 65,536, numeric 32,768 and
+     131,072), all on the cluster kernel (cluster_rows_kernel, each row's
+     table in a thread-block cluster's distributed shared memory): the
+     launch counters read around it (launches_cluster of the three
+     wrappers; no global-memory kernel launch), no ESC call, no fallback
+     rung and no hash_fallback range, C equal to the default slice's C,
+     its cold and steady ms, peak memory and a profiled steady call split
+     into the cluster rung, the default rungs and the epilogue; then each
+     cluster rung of that path timed alone against its plain version and
+     its bound, with its cluster size and clusters in flight; then the
+     extended ladders' top rungs, which mono_500Hz leaves empty, on rows
+     that the ladders at multiplier TOP_RUNG_MULTIPLIER route there
+     (symbolic 262,144 on the cluster kernel; symbolic and fused
+     1,048,576, fused 262,144 and numeric 524,288 on the global-memory
+     kernel): both kernels against their plain versions on a few rows;
+     then the top-rung path, spgemm at that multiplier through the
+     engine on TOP_RUNG_ROWS mono rows from each symbolic top rung times
+     A (cold and steady; the global kernel launched from each wrapper, no
+     ESC, C equal to those rows of the default C), the counts set to 0
+     just before it, and each global rung of it timed alone at its
+     buckets with its bound; then the default method, ESC (SpgemmConfig()), through an engine on
+     the scircuit analog against scipy, cold and steady.
   5. binning_histogram through its own entry point on mono_500Hz's n_prod
      (symbolic ladder) and C's nnz per row (numeric ladder), equal to its
      plain version and to the slice's Binning objects; then timed at the
@@ -70,9 +82,10 @@ Phases, in order; any failure exits non-zero:
      request hot, and a dumped plan cache loaded into a new engine must
      make that engine's first call hot; the engine's report, the drain's
      wall time and peak memory are printed.
-  8. output: a "kernels" JSON line (all five kernels, and the global
-     kernel once for each of the three hash wrappers, named
-     <kernel>_global, its launches those of the extended phase), the
+  8. output: a "kernels" JSON line (all five kernels; the cluster kernel
+     once for each of the three hash wrappers, named <kernel>_cluster,
+     its launches those of the extended phase; the global kernel once for
+     each, <kernel>_global, its launches those of the top-rung path), the
      card line, and the result line.
 
 Needs one card.  Exits 2 without printing a result when no card is visible
@@ -100,32 +113,41 @@ FP32_FLOPS = 67e12            # CUDA cores
 BF16_FLOPS = 989e12           # tensor cores
 CSRC = "src/repro_torch/kernels/csrc/"
 HASH_KERNELS = ("symbolic_bin", "numeric_bin", "fused_bin")
-# The global-memory kernel of the vmem_extended rungs, one entry each for
-# the three wrappers that launch it (their launches_global counts).
+# The kernels of the vmem_extended rungs, one entry each for the three
+# wrappers that launch them: the cluster kernel (their launches_cluster
+# counts) and the global-memory kernel (launches_global).
+CLUSTER_KERNELS = tuple(k + "_cluster" for k in HASH_KERNELS)
 GLOBAL_KERNELS = tuple(k + "_global" for k in HASH_KERNELS)
+ROUTE_SUFFIX = {"smem": "", "cluster": "_cluster", "global": "_global"}
 SOURCES = {
     "symbolic_bin": CSRC + "spgemm_hash.cu",
     "numeric_bin": CSRC + "spgemm_hash.cu",
     "fused_bin": CSRC + "spgemm_hash.cu",
     "binning_histogram": CSRC + "binning_histogram.cu",
     "bsr_spmm": CSRC + "bsr_spmm.cu",
-    **{k: CSRC + "spgemm_hash.cu" for k in GLOBAL_KERNELS},
+    **{k: CSRC + "spgemm_hash.cu" for k in CLUSTER_KERNELS + GLOBAL_KERNELS},
 }
+_HASH_TPU = {"symbolic_bin": "src/repro/kernels/spgemm_hash.py:191",
+             "numeric_bin": "src/repro/kernels/spgemm_hash.py:309",
+             "fused_bin": "src/repro/kernels/spgemm_hash.py:462"}
 REPLACES = {
-    "symbolic_bin": "src/repro/kernels/spgemm_hash.py:191",
-    "numeric_bin": "src/repro/kernels/spgemm_hash.py:309",
-    "fused_bin": "src/repro/kernels/spgemm_hash.py:462",
+    **_HASH_TPU,
     "binning_histogram": "src/repro/kernels/binning_pallas.py:61",
     "bsr_spmm": "src/repro/kernels/bsr_spmm.py:32",
-    "symbolic_bin_global": "src/repro/kernels/spgemm_hash.py:191",
-    "numeric_bin_global": "src/repro/kernels/spgemm_hash.py:309",
-    "fused_bin_global": "src/repro/kernels/spgemm_hash.py:462",
+    **{k + "_cluster": v for k, v in _HASH_TPU.items()},
+    **{k + "_global": v for k, v in _HASH_TPU.items()},
 }
 # Multiplier of the extended ladders that routes mono_500Hz rows to their
 # top rungs (symbolic 262,144 / 1,048,576 by n_prod 94-374 / 375-1,497,
 # numeric 524,288 by nnz 188-748), which the product's own ladders leave
 # empty; the rows checked there stay short for the plain version's loop.
 TOP_RUNG_MULTIPLIER = 700.0
+# Rows taken from each of the two symbolic top rungs for the top-rung path:
+# more than the 264 blocks the global-memory kernel keeps resident, and a
+# 1,024-row bucket (with the engine's headroom) whose fused 1,048,576 rung
+# writes 8 GiB of tables, twice that with the plain version beside it.
+TOP_RUNG_ROWS = 512
+TOP_STEADY_CALLS = 2
 # Paper Table 3 (benchmarks/matrices.py): rows, nnz/row, max nnz/row,
 # row-size shape.  Each analog is seeded with zlib.crc32 of its name.
 MONO = dict(name="mono_500Hz", rows=169410, avg=29.7, max=719,
@@ -146,7 +168,8 @@ BSR_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),
 STEADY_CALLS = 5
 # Kernels whose ptxas report must show no spill (source, kernel).
 NO_SPILLS = (("bsr_spmm", "bsr_spmm_f32_kernel"),
-             ("binning_histogram", "binning_histogram_kernel"))
+             ("binning_histogram", "binning_histogram_kernel"),
+             ("spgemm_hash", "cluster_rows_kernel"))
 
 
 class SmokeError(Exception):
@@ -278,13 +301,14 @@ def bin_inputs(binning, b, rows_cap, limit=None):
 
 
 def check_bins(sh, A, B, binning, ladder, kinds, *, buckets,
-               limit=None, packs=(False, True), label=""):
+               limit=None, packs=(False, True), label="", by_route=False):
     """Every populated table rung: each kernel kind, both disciplines,
     packed and unpacked (where the kernel packs), against the plain
-    version.  Returns {kind: max val err}."""
+    version.  Returns {kind: max val err}, or with ``by_route`` {kind +
+    the suffix of the rung's route (ROUTE_SUFFIX): max val err}."""
     from repro_torch.core import nprod_into_rpt
     nprod = nprod_into_rpt(A, B)
-    errs = {k: 0.0 for k in kinds}
+    errs = {}
     for b, t_size in enumerate(ladder.table_sizes):
         rows_cap = buckets[b]
         if not rows_cap:
@@ -306,7 +330,9 @@ def check_bins(sh, A, B, binning, ladder, kinds, *, buckets,
                     what = (f"{label}{kind} rung {b} (t={t_size}, "
                             f"rows={int(count)}/{rows_cap}, pack={pack}, "
                             f"single_access={sa})")
-                    errs[kind] = max(errs[kind], compare(
+                    key = (kind + ROUTE_SUFFIX[route_of(sh, kind, t_size)]
+                           if by_route else kind)
+                    errs[key] = max(errs.get(key, 0.0), compare(
                         what, k, plain, nprod_rows, valid))
                     totals[sa] = int(k["acc"].long().sum())
                 if int(plain["nnz"].long().sum()):
@@ -378,7 +404,8 @@ def phase_tiny(sh, errs):
             f"{num_buckets}")
     e = check_bins(sh, A, B, nbn, num, ("numeric_bin",),
                    buckets=num_buckets, label="tiny ")
-    errs["numeric_bin"] = max(errs["numeric_bin"], e["numeric_bin"])
+    errs["numeric_bin"] = max(errs["numeric_bin"],
+                              e.get("numeric_bin", 0.0))
 
     rpt0 = exclusive_sum_in_place(nnz0)
     cap = int(rpt0[-1]) + 16
@@ -435,16 +462,18 @@ def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
         if hasattr(fn, "launches_global"):
-            fn.launches_global = 0
+            fn.launches_cluster = fn.launches_global = 0
 
 
 def read_launches():
     """Launches of every wrapper (all its kernels), and of the hash
-    wrappers' global-memory kernel apart (``<name>_global``)."""
+    wrappers' cluster and global-memory kernels apart (``<name>_cluster``,
+    ``<name>_global``)."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
-    out.update({name + "_global": wrappers[name].launches_global
-                for name in HASH_KERNELS})
+    for name in HASH_KERNELS:
+        out[name + "_cluster"] = wrappers[name].launches_cluster
+        out[name + "_global"] = wrappers[name].launches_global
     return out
 
 
@@ -469,7 +498,8 @@ def phase_top_rungs(sh, A, sym_binning, num_binning, errs):
     e = check_bins(sh, A, A, num_binning, num, ("numeric_bin",),
                    buckets=num_buckets, limit=top - 2, packs=(False,),
                    label="top ")
-    errs["numeric_bin"] = max(errs["numeric_bin"], e["numeric_bin"])
+    errs["numeric_bin"] = max(errs["numeric_bin"],
+                              e.get("numeric_bin", 0.0))
     log(f"phase top rungs: sym rungs {[b for b, c in enumerate(sym_buckets) if c]}"
         f" num rungs {[b for b, c in enumerate(num_buckets) if c]}: ok")
 
@@ -524,23 +554,18 @@ def bound_bytes(kind, A, B, rows, count, t_size, rows_cap):
     return read + n * per_row, (rows_cap - n) * per_row
 
 
-def on_global(sh, kind, t_size):
-    """Whether the wrapper of ``kind`` launches the global-memory kernel
-    on a rung of ``t_size`` entries (in its own launch geometry)."""
+def route_of(sh, kind, t_size):
+    """The kernel the wrapper of ``kind`` launches on a rung of ``t_size``
+    entries (in its own launch geometry): "smem", "cluster" or "global"."""
     rows_per_cta = (sh.numeric_launch_geometry(t_size)[0]
                     if kind == "numeric_bin" else 1)
-    return sh.is_global(t_size, rows_per_cta, kind != "symbolic_bin")
+    return sh.rung_route(t_size, rows_per_cta, kind != "symbolic_bin")
 
 
-def phase_main_shapes(sh, A, plan, result, errs, *, global_rungs=False):
-    """Each kernel at the bins the main path ran: agreement with its plain
-    version, its time, the plain time, and the bound.  ``global_rungs``
-    takes the rungs that launch the global-memory kernel (their results go
-    under ``<kind>_global`` in ``stats`` and ``errs``), else the others."""
-    from repro_torch.core import nprod_into_rpt
+def main_path_jobs(plan, result):
+    """{kind: (binning, ladder, row buckets)} of the bins a call ran."""
     sched = plan.hash_schedule
-    nprod = nprod_into_rpt(A, A)
-    jobs = {
+    return {
         "symbolic_bin": (result.sym_binning, plan.sym_ladder,
                          sched.sym_row_buckets),
         "fused_bin": (result.sym_binning, plan.sym_ladder,
@@ -548,41 +573,66 @@ def phase_main_shapes(sh, A, plan, result, errs, *, global_rungs=False):
         "numeric_bin": (result.num_binning, plan.num_ladder,
                         sched.num_row_buckets),
     }
+
+
+def phase_main_shapes(sh, A, jobs, errs, *, B=None, route="smem",
+                      limit=None, label="main shape"):
+    """Each kernel at the given bins of A·B (B = A where not given;
+    ``jobs``, as :func:`main_path_jobs` gives them; ``limit`` caps each
+    bin's valid rows): agreement with its plain version, its time, the
+    plain time, and the bound.  It takes the
+    rungs of one ``route``; their results go under ``<kind>`` plus the
+    route's ``ROUTE_SUFFIX`` in ``stats`` and ``errs``.  A rung's
+    residency is its CTAs per SM, or on a cluster rung its clusters in
+    flight on the card."""
+    from repro_torch.core import nprod_into_rpt
+    B = A if B is None else B
+    nprod = nprod_into_rpt(A, B)
     stats = {}
     for kind, (binning, ladder, buckets) in jobs.items():
-        name = kind + "_global" if global_rungs else kind
+        name = kind + ROUTE_SUFFIX[route]
         ms = plain_ms = 0.0
         nbytes = pad_bytes = 0
         rungs = []
         for b, t_size in enumerate(ladder.table_sizes):
             rows_cap = buckets[b]
-            if not rows_cap or on_global(sh, kind, t_size) != global_rungs:
+            if not rows_cap or route_of(sh, kind, t_size) != route:
                 continue
-            rows, count, valid = bin_inputs(binning, b, rows_cap)
+            rows, count, valid = bin_inputs(binning, b, rows_cap, limit)
             nprod_rows = nprod[rows.long()].long().masked_fill(~valid, 0)
             p, pms = time_host(lambda: run_bin(
-                sh, kind, True, A, A, rows, count, t_size, rows_cap))
-            k = run_bin(sh, kind, False, A, A, rows, count, t_size, rows_cap)
+                sh, kind, True, A, B, rows, count, t_size, rows_cap))
+            k = run_bin(sh, kind, False, A, B, rows, count, t_size, rows_cap)
             torch.cuda.synchronize()
             errs[name] = max(errs[name], compare(
-                f"main-shape {name} rung {b} (t={t_size}, "
+                f"{label} {name} rung {b} (t={t_size}, "
                 f"rows={int(count)}/{rows_cap})", k, p, nprod_rows, valid))
             del p, k
             # The wrapper's launch alone: no reduction over its tables.
             kms = time_cuda(lambda: bin_call(
-                sh, kind, False, A, A, rows, count, t_size, rows_cap), 3)
-            rb, pb = bound_bytes(kind, A, A, rows, count, t_size, rows_cap)
-            ctas = sh.ctas_per_sm(t_size, kernel=kind)
+                sh, kind, False, A, B, rows, count, t_size, rows_cap), 3)
+            rb, pb = bound_bytes(kind, A, B, rows, count, t_size, rows_cap)
             ms += kms
             plain_ms += pms
             nbytes += rb
             pad_bytes += pb
-            rungs.append(dict(rung=b, t_size=t_size, rows=int(count),
-                              rows_cap=rows_cap, ms=kms, plain_ms=pms,
-                              bytes=rb, pad_bytes=pb, ctas_per_sm=ctas))
+            rung = dict(rung=b, t_size=t_size, rows=int(count),
+                        rows_cap=rows_cap, ms=kms, plain_ms=pms, bytes=rb,
+                        pad_bytes=pb)
+            if route == "cluster":
+                c = sh.cluster_size(t_size, kind != "symbolic_bin",
+                                    sh._smem_limit(A.device))
+                resident = sh.clusters_in_flight(t_size, kernel=kind)
+                rung.update(cluster=c, clusters_in_flight=resident)
+                where = f"C={c}, {resident} clusters in flight"
+            else:
+                resident = sh.ctas_per_sm(t_size, kernel=kind)
+                rung.update(ctas_per_sm=resident)
+                where = f"{resident} CTAs/SM"
+            rungs.append(rung)
             rb_ms = rb / HBM_BYTES_PER_S * 1e3
             log(f"  {name} rung {b} (t={t_size}, rows {int(count)}/"
-                f"{rows_cap}, {ctas} CTAs/SM): {kms:.3f} ms, bound "
+                f"{rows_cap}, {where}): {kms:.3f} ms, bound "
                 f"{rb_ms:.4f} ms ({rb_ms / kms:.1%} of it), plain "
                 f"{pms:.1f} ms")
             torch.cuda.empty_cache()
@@ -594,7 +644,7 @@ def phase_main_shapes(sh, A, plan, result, errs, *, global_rungs=False):
                            pad_ms=pad_bytes / HBM_BYTES_PER_S * 1e3,
                            rungs=rungs)
         stats[name]["bound_share"] = stats[name]["bound_ms"] / ms
-        log(f"phase main shapes {name}: {len(rungs)} rungs, kernel "
+        log(f"phase {label}s {name}: {len(rungs)} rungs, kernel "
             f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
             f"{stats[name]['bound_ms']:.3f} ms ({nbytes} B, "
             f"{stats[name]['bound_share']:.1%} of the kernel's time); "
@@ -729,8 +779,10 @@ def _device_us(evt, inclusive):
 
 RANGES = ("hash_fallback", "hash_epilogue")   # record_function ranges
 # The hash kernels' bodies in csrc/spgemm_hash.cu: the shared-memory rungs
-# (hash_rows_kernel, slot_rows_kernel) and the global-memory one.
-HASH_BODIES = ("hash_rows_kernel", "slot_rows_kernel", "global_rows_kernel")
+# (hash_rows_kernel, slot_rows_kernel), the cluster and the global-memory
+# ones.
+HASH_BODIES = ("hash_rows_kernel", "slot_rows_kernel", "cluster_rows_kernel",
+               "global_rows_kernel")
 
 
 def profile_steady(run_once):
@@ -817,8 +869,9 @@ def phase_slice(A):
             f"{cold_launches}")
     require(cold_launches["fused_bin"] == 0,
             f"cold call launched the fused kernel: {cold_launches}")
-    require(not any(cold_launches[k] for k in GLOBAL_KERNELS),
-            f"the default ladders launched the global kernel: "
+    require(not any(cold_launches[k]
+                    for k in CLUSTER_KERNELS + GLOBAL_KERNELS),
+            f"the default ladders launched an extended-rung kernel: "
             f"{cold_launches}")
     steady_ms = []
     syncs = []
@@ -912,10 +965,11 @@ class CountCalls:
 
 
 def phase_extended(A, C_default):
-    """The sixth slice: spgemm(method="hash", vmem_extended=True) on
-    mono_500Hz, one cold call and STEADY_CALLS steady ones.  Its rows past
-    the default ladders go to the extended rungs, whose tables (32,768 to
-    1,048,576 entries) run on the global-memory kernel, so the ESC
+    """spgemm(method="hash", vmem_extended=True) on mono_500Hz, one cold
+    call and STEADY_CALLS steady ones.  Its rows past the default ladders
+    go to the extended rungs (symbolic and fused 65,536, numeric 32,768
+    and 131,072), whose tables a thread-block cluster holds: they must run
+    on the cluster kernel, never on the global-memory kernel, and the ESC
     fallback must not run.  C must equal the default slice's C."""
     from repro_torch import SpgemmConfig, spgemm
     from repro_torch.core import esc
@@ -959,13 +1013,17 @@ def phase_extended(A, C_default):
             f"the extended ladders ran ESC: {esc_calls.calls}")
     require(not sched.sym_row_buckets[-1] and not sched.num_row_buckets[-1],
             f"the extended schedule holds a fallback rung: {sched}")
-    require(cold["symbolic_bin_global"] > 0 and cold["numeric_bin_global"] > 0
-            and cold["fused_bin"] == 0,
-            f"the cold call did not run the global two-pass kernels: {cold}")
-    require(steady["fused_bin_global"] >= STEADY_CALLS
+    require(cold["symbolic_bin_cluster"] > 0
+            and cold["numeric_bin_cluster"] > 0 and cold["fused_bin"] == 0,
+            f"the cold call did not run the two-pass cluster kernels: "
+            f"{cold}")
+    require(steady["fused_bin_cluster"] >= STEADY_CALLS
             and not steady["symbolic_bin"] and not steady["numeric_bin"],
-            f"the steady calls did not run the global fused kernel: "
-            f"{steady}")
+            f"the steady calls did not run the fused cluster kernel in "
+            f"each call: {steady}")
+    require(not any(launches[k] for k in GLOBAL_KERNELS),
+            f"mono_500Hz's extended path launched the global-memory "
+            f"kernel: {launches}")
     require(entry.stats.hot_calls == STEADY_CALLS
             and entry.stats.steps_calls == 1,
             f"expected 1 cold + {STEADY_CALLS} steady calls: {entry.stats}")
@@ -985,7 +1043,8 @@ def phase_extended(A, C_default):
     groups = prof["kernel_device_ms"]
     log(f"extended profile of one steady call: wall {prof['wall_ms']:.1f} "
         f"ms, device busy {prof['device_busy_ms']:.1f} ms, idle share "
-        f"{prof['device_idle_share']:.3f}; global rung "
+        f"{prof['device_idle_share']:.3f}; cluster rung "
+        f"{groups['cluster_rows_kernel']:.2f} ms, global kernel "
         f"{groups['global_rows_kernel']:.2f} ms, default rungs "
         f"{groups['hash_rows_kernel']:.2f} ms, epilogue "
         f"{prof['range_device_ms']['hash_epilogue']:.1f} ms (of it "
@@ -996,8 +1055,10 @@ def phase_extended(A, C_default):
             f"{e['calls']} calls")
     require("hash_fallback" not in prof["ranges_seen"],
             "the extended steady call entered the hash_fallback range")
-    require(groups["global_rows_kernel"] > 0,
-            "the profile shows no global_rows_kernel time")
+    require(groups["cluster_rows_kernel"] > 0
+            and groups["global_rows_kernel"] == 0,
+            f"the profile shows no cluster_rows_kernel time, or some "
+            f"global_rows_kernel time: {groups}")
     return res, entry.plan, launches, dict(
         cold_ms=cold_ms, cold_steps_ms=cold_steps_ms, steady_ms=steady_ms,
         steady_median_ms=statistics.median(steady_ms), peak_bytes=peak,
@@ -1007,13 +1068,42 @@ def phase_extended(A, C_default):
         profile=prof)
 
 
+def top_rung_rows(A, C_default, sym, num):
+    """Row ids of A (int32, ascending) for the extended ladders' top rungs
+    at TOP_RUNG_MULTIPLIER: the first TOP_RUNG_ROWS of the rows in each of
+    the symbolic ladder's top two rungs (by n_prod) whose nnz keeps them
+    off the numeric fallback; the numeric top rung takes those of them
+    past the rung below (by nnz)."""
+    from repro_torch.core import nprod_into_rpt
+    nprod = nprod_into_rpt(A, A)[:A.nrows].long()
+    keep = C_default.nnz_per_row().long() <= num.upper[-1]
+    up = sym.upper
+    ids = [torch.nonzero((nprod > lo) & (nprod <= hi) & keep).flatten()
+           [:TOP_RUNG_ROWS] for lo, hi in ((up[-3], up[-2]),
+                                            (up[-2], up[-1]))]
+    return torch.cat(ids).sort().values.to(torch.int32)
+
+
 def phase_extended_top(sh, A, C_default, errs):
-    """The global kernels against their plain versions on 6 of 8 rows of
-    the extended ladders' top rungs, which mono_500Hz leaves empty: the
-    ladders at TOP_RUNG_MULTIPLIER route rows there (symbolic 262,144 and
-    1,048,576 by n_prod, numeric 524,288 by nnz)."""
-    from repro_torch.core import (bin_rows_for_ladder, nprod_into_rpt,
-                                  numeric_ladder, symbolic_ladder)
+    """The extended ladders' top rungs, which mono_500Hz leaves empty, at
+    TOP_RUNG_MULTIPLIER (symbolic and fused 262,144 and 1,048,576 by
+    n_prod, numeric 524,288 by nnz).  First both bodies against their
+    plain versions on 6 of 8 rows of each rung, both disciplines (the
+    cluster kernel on symbolic 262,144, the global-memory kernel on the
+    rest).  Then the path: spgemm(method="hash", vmem_extended=True) at
+    that multiplier through the engine on the mono rows of
+    :func:`top_rung_rows` times A, one cold call and TOP_STEADY_CALLS
+    steady ones, the counts set to 0 just before; each wrapper must launch
+    the global-memory kernel, ESC must not run, and C must equal those
+    rows of the default slice's C.  Last, each rung of that run that stays
+    on the global-memory kernel timed alone at the run's buckets against
+    its plain version and its bound.  Returns the path's launches, the
+    global kernel's stats and the path's."""
+    from repro_torch import SpgemmConfig, spgemm
+    from repro_torch.core import (bin_rows_for_ladder, esc, gather_rows,
+                                  nprod_into_rpt, numeric_ladder,
+                                  symbolic_ladder)
+    from repro_torch.engine import default_engine, plan_key
     sym = symbolic_ladder(TOP_RUNG_MULTIPLIER, vmem_extended=True)
     num = numeric_ladder(TOP_RUNG_MULTIPLIER, vmem_extended=True)
     sym_bins = bin_rows_for_ladder(nprod_into_rpt(A, A)[:A.nrows], sym)
@@ -1032,17 +1122,70 @@ def phase_extended_top(sh, A, C_default, errs):
     num_buckets = buckets(num_bins, num, len(num.table_sizes) - 1)
     e = check_bins(sh, A, A, sym_bins, sym, ("symbolic_bin", "fused_bin"),
                    buckets=sym_buckets, limit=top - 2, packs=(False,),
-                   label="extended top ")
+                   label="extended top ", by_route=True)
+    e.update(check_bins(sh, A, A, num_bins, num, ("numeric_bin",),
+                        buckets=num_buckets, limit=top - 2, packs=(False,),
+                        label="extended top ", by_route=True))
     for k, v in e.items():
-        errs[k + "_global"] = max(errs[k + "_global"], v)
-    e = check_bins(sh, A, A, num_bins, num, ("numeric_bin",),
-                   buckets=num_buckets, limit=top - 2, packs=(False,),
-                   label="extended top ")
-    errs["numeric_bin_global"] = max(errs["numeric_bin_global"],
-                                     e["numeric_bin"])
+        errs[k] = max(errs[k], v)
     log(f"phase extended top rungs: symbolic and fused t="
         f"{sym.table_sizes[-2:]}, numeric t={num.table_sizes[-1:]}, "
-        f"6 of 8 rows valid, both disciplines: ok")
+        f"6 of 8 rows valid, both disciplines, against the plain "
+        f"versions: ok")
+
+    ids = top_rung_rows(A, C_default, sym, num)
+    every = torch.ones(ids.shape[0], dtype=torch.bool, device=ids.device)
+    A_top = gather_rows(A, ids, every,
+                        nnz_capacity=int(A.nnz_per_row()[ids.long()].sum()))
+    D = gather_rows(C_default, ids, every, nnz_capacity=int(
+        C_default.nnz_per_row()[ids.long()].sum()))
+    cfg = SpgemmConfig(method="hash", vmem_extended=True,
+                       sym_multiplier=TOP_RUNG_MULTIPLIER,
+                       num_multiplier=TOP_RUNG_MULTIPLIER)
+    engine = default_engine()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with CountCalls(esc, ("expand_products", "symbolic", "numeric",
+                          "spgemm_fused")) as esc_calls:
+        res_cold, cold_ms = time_host(lambda: spgemm(A_top, A, cfg))
+        cold = read_launches()
+        steady_ms = []
+        for _ in range(TOP_STEADY_CALLS):
+            res, ms = time_host(lambda: engine.finalize(
+                engine.dispatch(A_top, A, cfg)))
+            steady_ms.append(ms)
+        launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steady = {k: launches[k] - cold[k] for k in launches}
+    plan = engine.cache.get(plan_key(A_top, A, cfg)).plan
+    log(f"extended top-rung path: {A_top.nrows} mono rows x A at "
+        f"multiplier {TOP_RUNG_MULTIPLIER}, cold {cold_ms:.1f} ms, steady "
+        f"{['%.1f' % x for x in steady_ms]} ms, peak {peak / 2**30:.2f} "
+        f"GiB, launches cold {cold} steady {steady}, ESC calls "
+        f"{esc_calls.calls}; schedule {plan.hash_schedule}")
+    require(not any(esc_calls.calls.values()),
+            f"the top-rung path ran ESC: {esc_calls.calls}")
+    require(cold["symbolic_bin_global"] > 0 and cold["numeric_bin_global"] > 0
+            and steady["fused_bin_global"] >= TOP_STEADY_CALLS,
+            f"the top-rung path did not launch the global-memory kernel "
+            f"from each wrapper: cold {cold}, steady {steady}")
+    err = compare_csr("top-rung path C vs the default slice's rows", res.C,
+                      D)
+    cold_err = compare_csr("top-rung path cold C vs the default slice's "
+                           "rows", res_cold.C, D)
+    log(f"top-rung path C equals the default slice's C on its rows (max "
+        f"{err:.3e}, cold {cold_err:.3e}): ok")
+    del res_cold, D
+    torch.cuda.empty_cache()
+    stats = phase_main_shapes(sh, A_top, main_path_jobs(plan, res), errs,
+                              B=A, route="global",
+                              label="extended top rung")
+    path = dict(rows=A_top.nrows, cold_ms=cold_ms, steady_ms=steady_ms,
+                peak_bytes=peak, cold_launches=cold, steady_launches=steady,
+                schedule=str(plan.hash_schedule), max_abs_err=err)
+    return launches, stats, path
 
 
 def phase_esc(S):
@@ -1063,7 +1206,8 @@ def phase_esc(S):
     entry = engine.cache.get(plan_key(S, S, cfg))
     require(entry.stats.steps_calls == 1 and entry.stats.hot_calls == 2,
             f"ESC: expected 1 cold + 2 steady calls: {entry.stats}")
-    require(not any(launches[k] for k in (*HASH_KERNELS, *GLOBAL_KERNELS)),
+    require(not any(launches[k] for k in (*HASH_KERNELS, *CLUSTER_KERNELS,
+                                          *GLOBAL_KERNELS)),
             f"ESC launched a hash kernel: {launches}")
     log(f"phase ESC (SpgemmConfig()) on scircuit through the engine: cold "
         f"{times[0]:.1f} ms, steady {times[1]:.1f} / {times[2]:.1f} ms, nnz "
@@ -1220,6 +1364,35 @@ def sass_counts(name):
     return {kernel: {"HGMMA": count(ops, "HGMMA"), "HMMA": count(ops, "HMMA"),
                      "LDS.128": count(ops, "LDS", ".128")}
             for kernel, ops in build.sass_opcodes(name).items()}
+
+
+def phase_cluster_sass():
+    """The table atomics of cluster_rows_kernel in its SASS (cuobjdump):
+    each instance must reach its table through generic ATOM / LD
+    instructions on the shared window (distributed shared memory), with no
+    device-memory atomic (ATOMG, REDG) and no CAS spin loop; the global
+    kernel's are printed beside them."""
+    from repro_torch.kernels import build
+    ops = build.sass_opcodes("spgemm_hash")
+    picked = {}
+    for kernel, counts in ops.items():
+        if kernel.split("<")[0] not in ("cluster_rows_kernel",
+                                        "global_rows_kernel"):
+            continue
+        picked[kernel] = {op: n for op, n in sorted(counts.items())
+                          if op.split(".")[0] in ("ATOM", "ATOMG", "ATOMS",
+                                                  "RED", "REDG", "LD")}
+        if kernel.startswith("cluster_rows_kernel"):
+            require(any(op.startswith("ATOM.E.CAS") for op in counts)
+                    and not any(op.startswith(("ATOMG", "REDG"))
+                                or "SPIN" in op for op in counts),
+                    f"{kernel}'s SASS holds no distributed-shared-memory "
+                    f"CAS, or a device-memory atomic: {picked[kernel]}")
+    require(sum(k.startswith("cluster_rows_kernel") for k in picked) == 4,
+            f"the SASS lacks an instance of cluster_rows_kernel: "
+            f"{sorted(picked)}")
+    log(f"phase cluster SASS (cuobjdump): table atomics {picked}: ok")
+    return picked
 
 
 def phase_bsr(errs):
@@ -1472,24 +1645,30 @@ def run():
     log("ptxas: " + ", ".join(k for _, k in NO_SPILLS) + " spill nothing: ok")
 
     errs = {k: 0.0 for k in REPLACES}
+    cluster_sass = phase_cluster_sass()
     phase_tiny(sh, errs)
     A = table3_matrix(MONO)
     res, plan, launches, slice_stats = phase_slice(A)
     phase_top_rungs(sh, A, res.sym_binning, res.num_binning, errs)
-    stats = phase_main_shapes(sh, A, plan, res, errs)
+    stats = phase_main_shapes(sh, A, main_path_jobs(plan, res), errs)
     stats["fused_bin"]["streams"] = phase_fused_streams(sh, A, plan, res)
     for name in HASH_KERNELS:
         stats[name].update(launches=launches[name], library_ms=None,
                            bound_by="bytes")
     t_ext = time.perf_counter()
     ext_res, ext_plan, ext_launches, ext_stats = phase_extended(A, res.C)
-    stats.update(phase_main_shapes(sh, A, ext_plan, ext_res, errs,
-                                   global_rungs=True))
+    stats.update(phase_main_shapes(sh, A, main_path_jobs(ext_plan, ext_res),
+                                   errs, route="cluster"))
     del ext_res
     torch.cuda.empty_cache()
-    phase_extended_top(sh, A, res.C, errs)
-    for name in GLOBAL_KERNELS:
+    for name in CLUSTER_KERNELS:
         stats[name].update(launches=ext_launches[name], library_ms=None,
+                           bound_by="bytes")
+    top_launches, top_stats, top_path = phase_extended_top(sh, A, res.C,
+                                                           errs)
+    stats.update(top_stats)
+    for name in GLOBAL_KERNELS:
+        stats[name].update(launches=top_launches[name], library_ms=None,
                            bound_by="bytes")
     S = table3_matrix(SCIRCUIT)
     esc_stats = phase_esc(S)
@@ -1509,7 +1688,7 @@ def run():
         top = s["float32"] if name == "bsr_spmm" else s
         entry.update({k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")})
-        if name in GLOBAL_KERNELS:
+        if name in CLUSTER_KERNELS + GLOBAL_KERNELS:
             entry.update(bound_share=s["bound_share"])
         if name == "binning_histogram":
             entry.update(library_calls=s["library_calls"],
@@ -1524,7 +1703,9 @@ def run():
         kernels.append(entry)
     return dict(
         card=card, kernels=kernels, build_s=secs, ptxas=ptxas,
-        slice=slice_stats, extended=ext_stats, esc=esc_stats,
+        cluster_sass=cluster_sass,
+        slice=slice_stats, extended=ext_stats, extended_top=top_path,
+        esc=esc_stats,
         main_shapes=stats, request_path=request,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)

@@ -31,14 +31,23 @@ subset of ``PARTS``):
   first, at 2 and 3 stages (``BSR_F32_VARIANTS``), in turns; what
   building that order costs per call; the SM clock and power draw while
   the product build runs.
-- ``global``: the global-memory kernel as the default ladders' fallback
+- ``global``: the extended fused rung as the default ladders' fallback
   rung, a measurement only (the product keeps ESC there, as the reference
   does): mono_500Hz's fallback rows (the 864 rows past 20,480 products,
-  in the engine's cold bucket) through ``fused_bin`` at t_size 65,536,
-  alone and with ``numeric_epilogue`` after it, in turns with the ESC
-  fallback rung on the same rows as ``fused_scheduled`` runs it (gather,
-  ``esc.spgemm_fused`` at the plan's product bucket, scatter into C).
-  The two write equal rows of C.
+  in the engine's cold bucket) through ``fused_bin`` at t_size 65,536 on
+  the cluster kernel (the wrapper's route) and on the global-memory kernel
+  (its C entry point), and the cluster kernel with ``numeric_epilogue``
+  after it, in turns with the ESC fallback rung on the same rows as
+  ``fused_scheduled`` runs it (gather, ``esc.spgemm_fused`` at the plan's
+  product bucket, scatter into C).  The two write equal rows of C.
+- ``cluster``: each cluster rung of mono_500Hz's exact-mode cold call on
+  the ``vmem_extended`` ladders (symbolic and fused 65,536, numeric
+  32,768 and 131,072, in the engine's buckets) at every cluster size
+  from the smallest that holds its table to 8, on each
+  ``CLUSTER_VARIANTS`` build (no inserts, no dump, fill and dump only),
+  in turns, with the clusters in flight at each size: what fill, inserts
+  and dump cost, and the cluster size that ``spgemm_hash.CLUSTER_SIZES``
+  takes.
 - ``baseline`` (with ``--baseline DIR``, another checkout's root): the
   float32 ``bsr_spmm`` on that layer and ``binning_histogram`` on
   delaunay_n24's 16,777,216 sizes and on the first 169,410 of them
@@ -58,7 +67,7 @@ import sys
 import time
 import zlib
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -174,6 +183,30 @@ TWO_PASS_TIMED = {
 PACK_TIMED = (("slot", "base"), ("slot", "unpacked"),
               ("slot", "hash_rows_only"))
 
+_CLUSTER_INSERT = """\
+        accesses += cluster_insert<SINGLE_ACCESS, WITH_VALUES>(
+            table, rank_shift, b_col[j],
+            WITH_VALUES ? entry_av()[e] * b_val[j] : 0.0f, t_size, &inserted);
+"""
+_CLUSTER_CHUNKS = "         g < chunks; g += warps) {\n"
+
+
+# Edits of cluster_rows_kernel (the cluster rungs of all three wrappers).
+CLUSTER_VARIANTS: Dict[str, Callable[[str], str]] = {
+    "base": lambda src: src,
+    # every load of the insert loop stays, no table access
+    "no_inserts": _replace(_CLUSTER_INSERT, "        accesses += (b_col[j] ^ "
+                           "__float_as_int(WITH_VALUES ? entry_av()[e] * "
+                           "b_val[j] : 0.0f)) & 1;\n"),
+    # each block keeps its slice in shared memory: no dump
+    "no_dump": _replace("  if (WITH_VALUES) {\n    const long long off =",
+                        "  if (WITH_VALUES && t_size < 0) {\n"
+                        "    const long long off ="),
+    # fill, the entry lists, the two cluster barriers and the dump
+    "fill_dump_only": _replace(_CLUSTER_CHUNKS, _CLUSTER_CHUNKS.replace(
+        "g < chunks;", "g < chunks && t_size < 0;")),
+}
+
 BSR_VARIANTS: Dict[str, Callable[[str], str]] = {
     "3 stages, 2 CTAs/SM": lambda src: src,
     "2 stages, 2 CTAs/SM": _replace("constexpr int kStages = 3;",
@@ -264,7 +297,7 @@ def table3_matrix(name: str):
                       distribution="powerlaw", device="cuda")
 
 
-def cold_schedule(name: str, A):
+def cold_schedule(name: str, A, *, vmem_extended: bool = False):
     """The rungs of A·A's exact-mode cold call: the symbolic ladder's
     (which the steady call's fused kernel also runs) and the numeric
     ladder's, bucketed with the engine's initial headroom as
@@ -274,7 +307,8 @@ def cold_schedule(name: str, A):
     from repro_torch.engine.autotune import AdaptivePolicy
     from . import spgemm_hash as sh
     headroom = AdaptivePolicy().headroom_init
-    sym, num = symbolic_ladder(), numeric_ladder()
+    sym = symbolic_ladder(vmem_extended=vmem_extended)
+    num = numeric_ladder(vmem_extended=vmem_extended)
     sym_bins = bin_rows_for_ladder(nprod_into_rpt(A, A)[:A.nrows], sym)
     sym_buckets, sym_fall = sh.host_schedule(A, A, sym_bins, sym,
                                              headroom=headroom)
@@ -679,10 +713,119 @@ def ablate_baseline(root: Path, rounds: int = 4) -> Dict[str, Dict]:
     return result
 
 
+def extended_outputs(kind: str, route: str, rung, device):
+    """(nnz, accesses, col_tabs, val_tabs) of one extended rung's launch,
+    None where the route writes no such output."""
+    n, t = rung.rows_cap, rung.t_size
+    with_values = kind != "symbolic_bin"
+    nnz = (torch.empty(n, dtype=torch.int32, device=device)
+           if kind != "numeric_bin" else None)
+    acc = torch.empty(n, dtype=torch.int32, device=device)
+    cols = (torch.empty((n, t), dtype=torch.int32, device=device)
+            if with_values or route == "global" else None)
+    vals = (torch.empty((n, t), dtype=torch.float32, device=device)
+            if with_values else None)
+    return nnz, acc, cols, vals
+
+
+def extended_launcher(lib, kind: str, route: str, A, rung, outs, *,
+                      cluster: Optional[int] = None) -> Callable[[], None]:
+    """A launch of one extended rung of A·A through ``lib``'s C entry point
+    for ``route`` (``hash_bin_cluster`` at ``cluster`` blocks a row, or
+    ``hash_bin_global``) into ``outs`` (:func:`extended_outputs`), in the
+    wrapper's geometry (one row a cluster or a block of its
+    launch_geometry threads), single access."""
+    from . import spgemm_hash as sh
+    nnz, acc, cols, vals = outs
+    with_values = kind != "symbolic_bin"
+    threads = sh.launch_geometry(rung.t_size, 1)[1]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    inputs = (rung.rows.data_ptr(), rung.count.data_ptr(), A.rpt.data_ptr(),
+              A.col.data_ptr(), ptr(A.val if with_values else None),
+              A.rpt.data_ptr(), A.col.data_ptr(),
+              ptr(A.val if with_values else None), rung.t_size,
+              rung.rows_cap)
+
+    def launch():
+        if route == "cluster":
+            err = lib.hash_bin_cluster(
+                int(with_values), 1, *inputs, cluster,
+                threads, ptr(nnz), ptr(cols), ptr(vals), acc.data_ptr(),
+                stream)
+        else:
+            err = lib.hash_bin_global(
+                1, *inputs, threads, ptr(nnz),
+                cols.data_ptr(), ptr(vals), acc.data_ptr(), stream)
+        build.check(err, f"{kind} {route} launch")
+    return launch
+
+
+def extended_cluster_rungs(A):
+    """The cluster rungs of A·A's exact-mode cold call on the
+    ``vmem_extended`` ladders, by kernel: symbolic_bin and fused_bin take
+    the symbolic ladder's, numeric_bin the numeric ladder's."""
+    from . import spgemm_hash as sh
+    sym_rungs, num_rungs = cold_schedule(
+        "mono_500Hz (vmem_extended)", A, vmem_extended=True)
+    out = {}
+    for kind, rungs in (("symbolic_bin", sym_rungs),
+                        ("fused_bin", sym_rungs),
+                        ("numeric_bin", num_rungs)):
+        out[kind] = [r for r in rungs if sh.rung_route(
+            r.t_size, 1, kind != "symbolic_bin") == "cluster"]
+    return out
+
+
+def ablate_cluster(A, rounds: int = 2) -> Dict[str, Dict]:
+    """Each cluster rung of A·A on the vmem_extended ladders (part
+    ``cluster``) at every cluster size from the smallest that holds its
+    table to 8, on the ``CLUSTER_VARIANTS`` builds, in turns; with the
+    clusters in flight at each size."""
+    from . import spgemm_hash as sh
+    libs = build_variants("spgemm_hash", CLUSTER_VARIANTS)
+    limit = sh._smem_limit(A.device)
+    result = {}
+    for kind, rungs in extended_cluster_rungs(A).items():
+        with_values = kind != "symbolic_bin"
+        for r in rungs:
+            least = sh.smallest_cluster(r.t_size, with_values, limit)
+            sizes = [c for c in (2, 4, 8) if c >= least]
+            labels = [v for v in CLUSTER_VARIANTS
+                      if with_values or v != "no_dump"]
+            outs = extended_outputs(kind, "cluster", r, A.device)
+            launchers = {
+                f"C={c} {v}": extended_launcher(
+                    libs[v], kind, "cluster", A, r, outs, cluster=c)
+                for c in sizes for v in labels}
+            what = (f"{kind} cluster rung t={r.t_size} "
+                    f"({int(r.count)}/{r.rows_cap} rows)")
+            timed = in_turns(launchers, rounds, what, reps=3)
+            in_flight = {}
+            for c in sizes:
+                out = torch.zeros(1, dtype=torch.int32)
+                build.check(libs["base"].hash_cluster_occupancy(
+                    int(with_values), 1, r.t_size, c,
+                    sh.launch_geometry(r.t_size, 1)[1], out.data_ptr()),
+                    "hash_cluster_occupancy")
+                in_flight[c] = int(out[0])
+            print(f"{what}: clusters in flight by C {in_flight}",
+                  flush=True)
+            result[f"{kind} t={r.t_size}"] = dict(
+                rows=int(r.count), rows_cap=r.rows_cap, smallest=least,
+                chosen=sh.cluster_size(r.t_size, with_values, limit),
+                clusters_in_flight=in_flight, times=timed)
+            del launchers, outs
+            torch.cuda.empty_cache()
+    return result
+
+
 def ablate_global(A, rounds: int = 3) -> Dict[str, Dict]:
-    """The global fused kernel at t_size 65,536 against the ESC fallback
-    rung on the default symbolic ladder's fallback rows of A·A (part
-    ``global``)."""
+    """The fused_bin rung at t_size 65,536 on the cluster kernel and on the
+    global-memory kernel, against the ESC fallback rung, on the default
+    symbolic ladder's fallback rows of A·A (part ``global``)."""
     from repro_torch import SpgemmConfig
     from repro_torch.core import (bin_rows_for_ladder, esc, gather_rows,
                                   nprod_into_rpt)
@@ -700,24 +843,29 @@ def ablate_global(A, rounds: int = 3) -> Dict[str, Dict]:
     count = count.reshape(1)
     m, rpt, nnz_cap = A.nrows, C.rpt, int(C.rpt[-1])
     t_size = 65536
-    assert sh.is_global(t_size, 1, True)
+    assert sh.rung_route(t_size, 1, True) == "cluster"
+    rung = sh.FusedRung(len(lad.table_sizes), t_size, cap, 1, rows, count)
+    lib = build.library("spgemm_hash")
+    global_kernel = extended_launcher(
+        lib, "fused_bin", "global", A, rung,
+        extended_outputs("fused_bin", "global", rung, A.device))
     out = {label: (torch.zeros(nnz_cap + 1, dtype=torch.int32,
                                device=A.device),
                    torch.zeros(nnz_cap + 1, dtype=torch.float32,
                                device=A.device))
-           for label in ("global", "esc")}
+           for label in ("cluster", "esc")}
 
-    def global_kernel():
+    def cluster_kernel():
         return sh.fused_bin_call(rows, count, A.rpt, A.col, A.val, A.rpt,
                                  A.col, A.val, t_size=t_size, rows_cap=cap)
 
-    def global_rung():     # as fused_scheduled runs a table rung
-        nnz, col_tabs, val_tabs, _ = global_kernel()
+    def cluster_rung():     # as fused_scheduled runs a table rung
+        nnz, col_tabs, val_tabs, _ = cluster_kernel()
         nnz_buf = torch.zeros(m + 2, dtype=torch.int32, device=A.device)
         valid = torch.arange(cap, device=A.device) < count
         sh._scatter_nnz(nnz_buf, rows, valid, nnz, m)
         sh.numeric_epilogue(col_tabs, val_tabs, rows, count, rpt,
-                            *out["global"], nnz_capacity=nnz_cap)
+                            *out["cluster"], nnz_capacity=nnz_cap)
 
     def esc_rung():      # as fused_scheduled runs its fallback rung
         f_rows, valid = sh._fallback_rows(binning, lad, cap, m)
@@ -730,22 +878,23 @@ def ablate_global(A, rounds: int = 3) -> Dict[str, Dict]:
         sh.scatter_sub_rows(subC, f_rows, valid, rpt, *out["esc"],
                             nnz_capacity=nnz_cap)
 
-    global_rung()
+    cluster_rung()
     esc_rung()
     torch.cuda.synchronize()
-    (gc, gv), (ec, ev) = (out[k] for k in ("global", "esc"))
+    (gc, gv), (ec, ev) = (out[k] for k in ("cluster", "esc"))
     # (the last entry is the dump slot of both scatters)
     assert torch.equal(gc[:nnz_cap], ec[:nnz_cap]), "columns differ"
     assert torch.allclose(gv[:nnz_cap], ev[:nnz_cap], rtol=1e-5,
                           atol=1e-5), "values differ"
     n = int(count[0])
     print(f"global: {n} fallback rows in a bucket of {cap}, ESC product "
-          f"bucket {fall_cap}; the global rung and ESC write equal rows",
+          f"bucket {fall_cap}; the cluster rung and ESC write equal rows",
           flush=True)
     del C
     torch.cuda.empty_cache()
-    result = in_turns({"fused_bin global kernel (t=65536)": global_kernel,
-                       "global kernel + numeric_epilogue": global_rung,
+    result = in_turns({"fused_bin cluster kernel (t=65536)": cluster_kernel,
+                       "fused_bin global kernel (t=65536)": global_kernel,
+                       "cluster kernel + numeric_epilogue": cluster_rung,
                        "ESC fallback rung": esc_rung}, rounds,
                       "fallback rows", reps=3,
                       after=lambda label: torch.cuda.empty_cache())
@@ -754,7 +903,7 @@ def ablate_global(A, rounds: int = 3) -> Dict[str, Dict]:
 
 
 PARTS = ("cold", "fused", "two_pass", "pack", "bsr", "bsr_f32", "global",
-         "baseline")
+         "cluster", "baseline")
 
 
 def main() -> int:
@@ -811,6 +960,9 @@ def main() -> int:
             torch.cuda.empty_cache()
     if "global" in parts:
         report["global"] = ablate_global(table3_matrix("mono_500Hz"))
+        torch.cuda.empty_cache()
+    if "cluster" in parts:
+        report["cluster"] = ablate_cluster(table3_matrix("mono_500Hz"))
         torch.cuda.empty_cache()
     if "bsr" in parts:
         report["bsr_spmm_bf16"] = ablate_bsr()

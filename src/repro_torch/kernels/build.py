@@ -45,6 +45,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hash_global_ctas_per_sm": (_I, _I, _I, _P),
         "hash_bin_global": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _P, _P, _P, _P, _P),
+        "hash_cluster_occupancy": (_I, _I, _I, _I, _I, _P),
+        "hash_bin_cluster": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _P, _P, _P, _P, _P),
     },
     "binning_histogram": {
         "binning_histogram": (_P, _L, _I, _P, _I, _I, _P, _P, _P),

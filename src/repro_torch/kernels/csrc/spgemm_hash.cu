@@ -9,18 +9,21 @@
 //                    table build per row: nnz, raw tables and accesses)
 //
 // What each computes is the TPU kernel's function, not its block layout.
-// Three kernel bodies: hash_rows_kernel runs fused_bin and symbolic_bin,
-// slot_rows_kernel runs numeric_bin, both with tables in shared memory, and
-// global_rows_kernel runs all three on the rungs whose tables do not fit a
-// block's shared memory (the vmem_extended ladders).  Common to all:
+// Four kernel bodies: hash_rows_kernel runs fused_bin and symbolic_bin,
+// slot_rows_kernel runs numeric_bin, both with tables in shared memory;
+// on the rungs whose tables do not fit a block's shared memory (the
+// vmem_extended ladders) cluster_rows_kernel runs all three where the
+// table fits the shared memory of a thread-block cluster of up to 8
+// blocks, and global_rows_kernel where it does not.  Common to all:
 //   * Row mapping.  A group of `threads_per_row` threads owns one output row
 //     and its table; a CTA holds `rows_per_cta` such groups (a warp each
 //     when there are several).  Inside a row, warp w takes A entries
 //     a_lo+w, a_lo+w+W, ..., fetched 32 at a time (column, value, B row
 //     bounds), one per lane, so the dependent global loads are paid once
 //     per 32 entries.
-//   * Tables live in (dynamic) shared memory, one `t_size` slice per row,
-//     but for global_rows_kernel's.  The fused top rung of the default
+//   * Tables live in (dynamic) shared memory, one `t_size` slice per row
+//     (split over a cluster's blocks in cluster_rows_kernel), but for
+//     global_rows_kernel's.  The fused top rung of the default
 //     ladder (24576 entries x 8 B = 196,608 B) needs the opt-in above 48 KB.
 //   * Hash: key*107 as a uint32 product (no signed overflow), reduced with
 //     AND for a power-of-two table and with a floor mod of the int32 value
@@ -82,7 +85,8 @@
 //   The lost CAS races do not count against the probe guard, which counts
 //   slots.
 //
-// global_rows_kernel (the tables of 32,768 to 1,048,576 entries, 256 KB to
+// global_rows_kernel (the tables no cluster holds: on the extended ladders
+// symbolic 1,048,576, fused 262,144 and 1,048,576, numeric 524,288, 2 to
 // 8 MB a row): one row to a 1024-thread CTA, which fills its own output row
 // of col_tabs / val_tabs (a scratch table for symbolic_bin) with -1 / 0,
 // waits at a barrier, and inserts there with the same `insert` as
@@ -93,8 +97,43 @@
 // 4,096 rows of 524,288 entries holds 2^31 of them).  Padding rows write
 // nnz 0 and accesses 0 and leave their tables unwritten, as above.  At most
 // 32 registers a thread (__launch_bounds__(1024, 2)).  The tables of the
-// CTAs in flight (up to 264 x 512 KB on the fused 65,536 rung) exceed the
-// 50 MB L2, so part of the atomics reach HBM.
+// CTAs in flight (264 x 2 MB and up) exceed the 50 MB L2, so part of the
+// atomics reach HBM.
+//
+// cluster_rows_kernel (tables of 32,768 to 262,144 entries that a cluster
+// holds: 8 B a slot with values, 4 B without, t_size / C slots a block,
+// C <= 8, each block's share within its shared memory; the wrapper picks C,
+// spgemm_hash.py: hash_route and CLUSTER_SIZES): one row a cluster, the
+// way the reference keeps each row's table in its core's VMEM.
+//   * Slot h lives in rank h / (t_size / C) at offset h % (t_size / C);
+//     every probe goes to the slot's block through distributed shared
+//     memory (mapa to a shared::cluster address, then atom / ld / red
+//     .shared::cluster; the SASS shows generic ATOM.E / LD.E on the shared
+//     window, no ATOMG), its own block's slots too, with the reference's
+//     hash (AND on these power-of-two sizes), linear probing that wraps
+//     across ranks and the 2*t_size guard.  With values a slot is 64 bits
+//     as in slot_rows_kernel (one CAS claims and adds, no float atomic on
+//     remote shared memory), keys only a 32-bit CAS as in hash_rows_kernel.
+//   * Work split by chunks, not by A entries: each block loads the row's A
+//     entries (a window of up to blockDim.x at a time) into shared memory
+//     with each B row's bounds and an exclusive scan of its chunk counts
+//     (32 products a chunk), and chunk g goes to warp g mod (C x warps a
+//     block) of the cluster, its lanes on the chunk's 32 B entries.  On
+//     mono_500Hz the first split (warp w of the cluster took entries w, w +
+//     W, ... and strode each whole B row) left the warp with the longest B
+//     rows 3-5 times the chunks of the mean warp, and the row waited for it.
+//   * Each block fills its slice empty, then cluster.sync() (every block of
+//     the cluster has started and filled before the first remote access);
+//     each warp adds its nnz and accesses to rank 0's counters; a second
+//     cluster.sync() ends the inserts, after which no block touches a
+//     peer's memory: rank 0 writes the row's counts and each block dumps
+//     its own slice to col_tabs / val_tabs at row * t_size + rank * slice
+//     (64-bit offsets, 16-byte stores; symbolic_bin dumps nothing).  A
+//     padding row's blocks all leave before the first barrier.
+//   * At most 32 registers a thread (__launch_bounds__(1024, 2)), so that
+//     two blocks fit an SM where the slices are 64 KB or less; the row,
+//     rank and thread indices are read again from their special registers
+//     after the loops rather than held across them.
 //
 // What bounds them on the card: device-memory bytes for the valid rows (B
 // reads, the raw table dump), and, inside a row, the latency of the chain
@@ -105,8 +144,11 @@
 // the error of the shared-memory opt-in); the Python wrapper raises on
 // anything but 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -686,6 +728,441 @@ int launch_global(const int* rows, const int* count, const int* a_rpt,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// cluster_rows_kernel: the vmem_extended rungs whose table fits the shared
+// memory of a thread-block cluster (see the header).
+// ---------------------------------------------------------------------------
+
+// The shared::cluster address of the byte at `local` (a shared::cta address
+// of this block) in the block of rank `rank` of the cluster: PTX `mapa`,
+// which cooperative_groups' map_shared_rank wraps for generic pointers.
+// The 32-bit shared::cluster form keeps every table access a
+// distributed-shared-memory instruction.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t local,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(out) : "r"(local), "r"(rank));
+  return out;
+}
+
+// The table accesses, at .cluster scope (the slot's block and its peers
+// are the only threads that touch it).
+__device__ __forceinline__ int dsmem_cas32(uint32_t addr, int expected,
+                                           int desired) {
+  int old;
+  asm volatile(
+      "atom.relaxed.cluster.shared::cluster.cas.b32 %0, [%1], %2, %3;"
+      : "=r"(old) : "r"(addr), "r"(expected), "r"(desired) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned long long dsmem_cas64(
+    uint32_t addr, unsigned long long expected,
+    unsigned long long desired) {
+  unsigned long long old;
+  asm volatile(
+      "atom.relaxed.cluster.shared::cluster.cas.b64 %0, [%1], %2, %3;"
+      : "=l"(old) : "r"(addr), "l"(expected), "l"(desired) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ int dsmem_load32(uint32_t addr) {
+  int v;
+  asm volatile("ld.relaxed.cluster.shared::cluster.b32 %0, [%1];"
+               : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long dsmem_load64(uint32_t addr) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.cluster.shared::cluster.b64 %0, [%1];"
+               : "=l"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void dsmem_add32(uint32_t addr, int v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.add.u32 [%0], %1;"
+               :: "r"(addr), "r"(v) : "memory");
+}
+
+// This block's rank in its cluster, the cluster's size and the block's
+// index, read from their special registers anew at each call (asm
+// volatile), so that they need no register across the insert loop.
+__device__ __forceinline__ unsigned cluster_rank_now() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ unsigned cluster_blocks_now() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ unsigned block_index_now() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int thread_index_now() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int block_threads_now() {
+  int v;
+  asm volatile("mov.u32 %0, %%ntid.x;" : "=r"(v));
+  return v;
+}
+
+// Inserts one product into a row's table spread over the cluster: slot h
+// lives in rank h >> rank_shift at offset h & (2^rank_shift - 1) (t_size
+// and the slice are powers of two), reached through distributed shared
+// memory, its own block's slots too (plain shared-memory atomics on them
+// lost on the card: the warp then splits in two).  With values a slot is
+// 64 bits and the probe follows insert_slot (one CAS claims a slot and
+// adds, a hit adds by CAS on the value it saw); keys only, it follows
+// insert's single access and check-then-CAS.  Accesses are counted by
+// insert_slot's rules in both, and the guard (2 * t_size) counts slots.
+// Returns the accesses; sets *inserted when it claimed an empty slot.
+template <bool SINGLE_ACCESS, bool WITH_VALUES>
+__device__ __forceinline__ int cluster_insert(uint32_t table, int rank_shift,
+                                              int key, float prod,
+                                              int t_size, int* inserted) {
+  constexpr int kSlotShift = WITH_VALUES ? 3 : 2;
+  int h = static_cast<int>(static_cast<unsigned>(key) * kHashScale) &
+          (t_size - 1);
+  int txn = 0;
+  unsigned long long seen = kEmptySlot;  // single access: the slot as seen
+  for (int probed = 0; probed < kGuardFactor * t_size;) {
+    const uint32_t at = cluster_addr(
+        table + (static_cast<uint32_t>(h & ((1 << rank_shift) - 1))
+                 << kSlotShift),
+        static_cast<uint32_t>(h >> rank_shift));
+    if (WITH_VALUES && SINGLE_ACCESS) {
+      const unsigned long long old =
+          dsmem_cas64(at, seen, pack_slot(key, slot_val(seen) + prod));
+      txn += 1;
+      if (old == seen) {
+        if (slot_key(seen) == kEmpty) *inserted += 1;
+        break;
+      }
+      if (slot_key(old) == key) {  // its own key: add to what it holds
+        seen = old;
+        continue;
+      }
+      seen = kEmptySlot;
+    } else if (WITH_VALUES) {
+      const unsigned long long cur = dsmem_load64(at);
+      txn += 1;
+      if (slot_key(cur) == key || slot_key(cur) == kEmpty) {
+        const unsigned long long old =
+            dsmem_cas64(at, cur, pack_slot(key, slot_val(cur) + prod));
+        txn += 1;
+        if (old == cur) {
+          if (slot_key(cur) == kEmpty) *inserted += 1;
+          break;
+        }
+        continue;  // lost a race here: read the slot again
+      }
+    } else if (SINGLE_ACCESS) {
+      const int old = dsmem_cas32(at, kEmpty, key);
+      txn += 1;
+      if (old == kEmpty || old == key) {
+        if (old == kEmpty) *inserted += 1;
+        break;
+      }
+    } else {
+      const int cur = dsmem_load32(at);
+      txn += 1;
+      if (cur == key) break;
+      if (cur == kEmpty) {
+        const int old = dsmem_cas32(at, kEmpty, key);
+        txn += 1;
+        if (old == kEmpty || old == key) {
+          if (old == kEmpty) *inserted += 1;
+          break;
+        }
+      }
+    }
+    probed += 1;
+    h = (h + 1) & (t_size - 1);
+  }
+  return txn;
+}
+
+// Each block of a cluster holds, in its dynamic shared memory, a window of
+// the row's A entries first (one entry a thread, so a window holds
+// blockDim.x <= 1024 entries): per entry its B row's bounds, its first
+// chunk (32 products a chunk: the B row's entries [lo + 32c, lo + 32c +
+// 32)) and its A value, then the scan's per-warp sums; then the row's two
+// counters (nnz, accesses; only rank 0's are used), padded to 16 B; then
+// its slice of the table.  At fixed offsets, so no address of theirs takes
+// a register.
+constexpr int kEntryWindow = 1024;
+constexpr int kCountersOffset = (4 * kEntryWindow + 32) * sizeof(int);
+constexpr int kSliceOffset = kCountersOffset + 16;
+
+extern __shared__ __align__(16) unsigned char cluster_smem[];
+
+__device__ __forceinline__ int* entry_lo() {
+  return reinterpret_cast<int*>(cluster_smem);
+}
+__device__ __forceinline__ int* entry_hi() { return entry_lo() + kEntryWindow; }
+__device__ __forceinline__ int* entry_chunk() {
+  return entry_lo() + 2 * kEntryWindow;
+}
+__device__ __forceinline__ float* entry_av() {
+  return reinterpret_cast<float*>(entry_lo() + 3 * kEntryWindow);
+}
+__device__ __forceinline__ int* entry_sums() {
+  return entry_lo() + 4 * kEntryWindow;
+}
+__device__ __forceinline__ int* row_counters() {
+  return reinterpret_cast<int*>(cluster_smem + kCountersOffset);
+}
+
+// Loads A entries [first, first + n) of the row (n <= blockDim.x) into the
+// list, with each entry's first chunk: an exclusive scan of the entries'
+// chunk counts over the block.  Returns the window's chunks.  Every thread
+// of the block calls it (two barriers inside); the first chunks are read
+// by other threads only after the caller's next barrier.  The thread's
+// index and the block's size come from their special registers here, so
+// that nothing of this function is held across the insert loop that
+// brackets its second call.
+template <bool WITH_VALUES>
+__device__ __forceinline__ int load_entries(const int* __restrict__ a_col,
+                                            const float* __restrict__ a_val,
+                                            const int* __restrict__ b_rpt,
+                                            int first, int n) {
+  const int i = thread_index_now();
+  const int warps = block_threads_now() / 32;
+  const int lane = i % 32, w = i / 32;
+  int chunks = 0;
+  if (i < n) {
+    const int k = a_col[first + i];
+    const int lo = b_rpt[k], hi = b_rpt[k + 1];
+    entry_lo()[i] = lo;
+    entry_hi()[i] = hi;
+    if (WITH_VALUES) entry_av()[i] = a_val[first + i];
+    chunks = (hi - lo + 31) / 32;
+  }
+  int incl = chunks;
+  for (int o = 1; o < 32; o *= 2) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) entry_sums()[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    int v = lane < warps ? entry_sums()[lane] : 0;
+    for (int o = 1; o < 32; o *= 2) {
+      const int t = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += t;
+    }
+    entry_sums()[lane] = v;
+  }
+  __syncthreads();
+  if (i < n) entry_chunk()[i] = (w ? entry_sums()[w - 1] : 0) + incl - chunks;
+  return entry_sums()[block_threads_now() / 32 - 1];
+}
+
+// The entry (< n) that holds chunk g: the last one whose first chunk is at
+// most g (entries without products share their successor's first chunk).
+// Warp-uniform g; two rounds of 32 compares and a ballot.
+__device__ __forceinline__ int entry_of_chunk(const int* chunk, int n, int g,
+                                              int lane) {
+  const int p1 = lane * 32;
+  const unsigned seg =
+      __ballot_sync(0xffffffffu, p1 < n && chunk[p1] <= g);
+  const int s0 = (31 - __clz(seg)) * 32;
+  const int p2 = s0 + lane;
+  const unsigned in = __ballot_sync(0xffffffffu, p2 < n && chunk[p2] <= g);
+  return s0 + 31 - __clz(in);
+}
+
+// One row a cluster of C blocks (C = the launch's cluster size, a power of
+// two dividing t_size); each block holds its copy of the row's entry list,
+// the row's counters and t_size / C slots of the row's table in its shared
+// memory (kSliceOffset above).  The
+// row's products go out in chunks of 32 (one B row's entries, a lane
+// each), chunk g to warp g mod (C x warps a block) of the cluster, so a
+// long B row is spread over many warps instead of serialising one.
+// nnz_out may be nullptr (numeric_bin); without values nothing is dumped
+// (symbolic_bin), with values col_tabs / val_tabs get the table at
+// row * t_size.
+template <bool SINGLE_ACCESS, bool WITH_VALUES>
+__global__ void __launch_bounds__(1024, 2) cluster_rows_kernel(
+    const int* __restrict__ rows, const int* __restrict__ count,
+    const int* __restrict__ a_rpt, const int* __restrict__ a_col,
+    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
+    const int* __restrict__ b_col, const float* __restrict__ b_val,
+    int t_size, int* __restrict__ nnz_out, int* __restrict__ col_tabs,
+    float* __restrict__ val_tabs, int* __restrict__ acc_out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const long long first_row = block_index_now() / cluster_blocks_now();
+  if (first_row >= *count) {
+    // Padding row: every block of the cluster leaves before any barrier
+    // or remote access; rank 0 writes the counts, the table stays
+    // unwritten.
+    if (cluster_rank_now() == 0 && threadIdx.x == 0) {
+      if (nnz_out) nnz_out[first_row] = 0;
+      acc_out[first_row] = 0;
+    }
+    return;
+  }
+  const int slice = t_size / static_cast<int>(cluster_blocks_now());
+  if (WITH_VALUES) {
+    const ulonglong2 empty = make_ulonglong2(kEmptySlot, kEmptySlot);
+    ulonglong2* pairs =
+        reinterpret_cast<ulonglong2*>(cluster_smem + kSliceOffset);
+    for (int i = threadIdx.x; i < slice / 2; i += blockDim.x)
+      pairs[i] = empty;
+  } else {
+    const int4 empty = make_int4(kEmpty, kEmpty, kEmpty, kEmpty);
+    int4* quads = reinterpret_cast<int4*>(cluster_smem + kSliceOffset);
+    for (int i = threadIdx.x; i < slice / 4; i += blockDim.x)
+      quads[i] = empty;
+  }
+  if (threadIdx.x < 2) row_counters()[threadIdx.x] = 0;
+  const int r = rows[first_row];
+  const int a_hi = a_rpt[r + 1];
+  int first = a_rpt[r];
+  int n = min(a_hi - first, static_cast<int>(blockDim.x));
+  int chunks = load_entries<WITH_VALUES>(a_col, a_val, b_rpt, first, n);
+  // Every slice is filled, and every block of the cluster is running,
+  // before the first remote access; the entry list is in place.
+  cluster.sync();
+
+  const uint32_t table = static_cast<uint32_t>(
+      __cvta_generic_to_shared(cluster_smem + kSliceOffset));
+  const int rank_shift = __ffs(slice) - 1;
+  const int lane = threadIdx.x % 32;
+  int inserted = 0, accesses = 0;
+  while (true) {
+    const int warps = static_cast<int>(cluster_blocks_now() * blockDim.x) / 32;
+    for (int g = static_cast<int>(cluster_rank_now() * blockDim.x +
+                                  threadIdx.x) / 32;
+         g < chunks; g += warps) {
+      const int e = entry_of_chunk(entry_chunk(), n, g, lane);
+      const int j = entry_lo()[e] + (g - entry_chunk()[e]) * 32 + lane;
+      if (j < entry_hi()[e]) {
+        accesses += cluster_insert<SINGLE_ACCESS, WITH_VALUES>(
+            table, rank_shift, b_col[j],
+            WITH_VALUES ? entry_av()[e] * b_val[j] : 0.0f, t_size, &inserted);
+      }
+    }
+    first += n;
+    if (first >= a_hi) break;
+    // The next window of a row of more than blockDim.x entries: this
+    // block's list only, so a block barrier does.
+    __syncthreads();
+    n = min(a_hi - first, static_cast<int>(blockDim.x));
+    chunks = load_entries<WITH_VALUES>(a_col, a_val, b_rpt, first, n);
+    __syncthreads();
+  }
+  inserted = __reduce_add_sync(0xffffffffu, inserted);
+  accesses = __reduce_add_sync(0xffffffffu, accesses);
+  // The row, the rank and the slice are read again here rather than held
+  // across the loop.
+  const unsigned rank = cluster_rank_now();
+  const long long row = block_index_now() / cluster_blocks_now();
+  const int slice_now = t_size / static_cast<int>(cluster_blocks_now());
+  const uint32_t counters =
+      static_cast<uint32_t>(__cvta_generic_to_shared(row_counters()));
+  if (lane == 0) {   // to rank 0's counters
+    if (inserted) dsmem_add32(cluster_addr(counters, 0), inserted);
+    if (accesses) dsmem_add32(cluster_addr(counters + 4, 0), accesses);
+  }
+  // Every insert and count has landed; after this no block touches a
+  // peer's shared memory, so each may dump its own slice and leave.
+  cluster.sync();
+
+  if (rank == 0 && threadIdx.x == 0) {
+    if (nnz_out) nnz_out[row] = row_counters()[0];
+    acc_out[row] = row_counters()[1];
+  }
+  if (WITH_VALUES) {
+    const long long off =
+        row * t_size + static_cast<long long>(rank) * slice_now;
+    dump_slots(col_tabs + off, val_tabs + off,
+               reinterpret_cast<const unsigned long long*>(cluster_smem +
+                                                           kSliceOffset),
+               slice_now);
+  }
+}
+
+size_t cluster_smem_bytes(int t_size, int cluster, bool with_values) {
+  return kSliceOffset +
+         static_cast<size_t>(t_size / cluster) * (with_values ? 8 : 4);
+}
+
+template <bool SINGLE_ACCESS, bool WITH_VALUES>
+const void* cluster_rows_fn() {
+  return reinterpret_cast<const void*>(
+      cluster_rows_kernel<SINGLE_ACCESS, WITH_VALUES>);
+}
+
+// A cluster launch of `threads` threads a block, `cluster` blocks a row:
+// the grid, the cluster dimension and the slice's dynamic shared memory.
+cudaLaunchConfig_t cluster_config(int t_size, int rows_cap, int cluster,
+                                  int threads, bool with_values,
+                                  cudaLaunchAttribute* attr,
+                                  cudaStream_t stream) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(rows_cap) * cluster);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = cluster_smem_bytes(t_size, cluster, with_values);
+  config.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+// The kernel's own limits: a power-of-two table and cluster, a slice of at
+// least 4 slots, and whole warps, one entry of the list a thread.  The
+// cluster's size is the runtime's to refuse (past the portable 8, which
+// the launch does not opt out of).
+bool cluster_shape_ok(int t_size, int cluster, int threads) {
+  const bool pow2 = t_size > 0 && (t_size & (t_size - 1)) == 0;
+  return pow2 && cluster >= 1 && (cluster & (cluster - 1)) == 0 &&
+         t_size / cluster >= 4 && threads >= 32 && threads % 32 == 0 &&
+         threads <= kEntryWindow;
+}
+
+template <bool SINGLE_ACCESS, bool WITH_VALUES>
+int launch_cluster(const int* rows, const int* count, const int* a_rpt,
+                   const int* a_col, const float* a_val, const int* b_rpt,
+                   const int* b_col, const float* b_val, int t_size,
+                   int rows_cap, int cluster, int threads, int* nnz_out,
+                   int* col_tabs, float* val_tabs, int* acc_out,
+                   cudaStream_t stream) {
+  if (!cluster_shape_ok(t_size, cluster, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows_cap == 0) return 0;
+  auto kernel = cluster_rows_kernel<SINGLE_ACCESS, WITH_VALUES>;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cluster_config(
+      t_size, rows_cap, cluster, threads, WITH_VALUES, &attr, stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(config.dynamicSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&config, kernel, rows, count, a_rpt, a_col, a_val,
+                           b_rpt, b_col, b_val, t_size, nnz_out, col_tabs,
+                           val_tabs, acc_out);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
 template <bool SINGLE_ACCESS, bool WITH_VALUES>
 const void* global_rows_fn() {
   return reinterpret_cast<const void*>(
@@ -748,6 +1225,48 @@ int hash_global_ctas_per_sm(int with_values, int single_access, int threads,
                                    : global_rows_fn<false, false>());
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads, 0));
+}
+
+// Clusters of one cluster_rows_kernel launch (`cluster` blocks of
+// `threads` threads a row) that can be resident on the card at once.
+int hash_cluster_occupancy(int with_values, int single_access, int t_size,
+                           int cluster, int threads, int* out) {
+  if (!cluster_shape_ok(t_size, cluster, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn =
+      with_values ? (single_access ? cluster_rows_fn<true, true>()
+                                   : cluster_rows_fn<false, true>())
+                  : (single_access ? cluster_rows_fn<true, false>()
+                                   : cluster_rows_fn<false, false>());
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cluster_config(
+      t_size, 1, cluster, threads, with_values != 0, &attr, nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(config.dynamicSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, fn, &config));
+}
+
+// The three kernels' rungs whose table fits a cluster's shared memory: one
+// row a cluster of `cluster` blocks of `threads` threads (t_size a power of
+// two, cluster a power of two up to 8).  with_values == 0 builds keys only
+// and dumps nothing (symbolic_bin: col_tabs and val_tabs nullptr);
+// nnz_out == nullptr skips the nnz (numeric_bin).
+int hash_bin_cluster(int with_values, int single_access, const int* rows,
+                     const int* count, const int* a_rpt, const int* a_col,
+                     const float* a_val, const int* b_rpt, const int* b_col,
+                     const float* b_val, int t_size, int rows_cap,
+                     int cluster, int threads, int* nnz_out, int* col_tabs,
+                     float* val_tabs, int* acc_out, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto fn = with_values ? (single_access ? &launch_cluster<true, true>
+                                         : &launch_cluster<false, true>)
+                        : (single_access ? &launch_cluster<true, false>
+                                         : &launch_cluster<false, false>);
+  return fn(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
+            rows_cap, cluster, threads, nnz_out, col_tabs, val_tabs, acc_out,
+            s);
 }
 
 // The three kernels' tables above shared memory (the vmem_extended rungs):

@@ -42,12 +42,18 @@ drivers mark the fallback rung and the epilogue with profiler ranges
 Rows too large for the top rung go to the ESC accumulator (``core/esc``),
 as in the reference.  The reference's ``vmem_extended`` ladders add rungs
 whose tables (32,768 to 1,048,576 entries) do not fit a block's shared
-memory.  On the card each wrapper launches those on the global-memory
-kernel (``global_rows_kernel``, the paper's kernel8 / kernel7: one row a
-block, its table built in its own output row, or for ``symbolic_bin`` in a
-scratch table), chosen by the table's size alone, once per launch; the
-shared-memory rungs keep their kernels.  Each wrapper counts its launches
-(``launches``) and, of those, the global ones (``launches_global``).
+memory; its TPU kernels keep them in VMEM all the same.  On the card
+:func:`hash_route` picks each launch's kernel from the table's size and
+the card's shared memory per block alone: a table that a thread-block
+cluster of at most 8 blocks holds in its shared memory runs on
+``cluster_rows_kernel`` (one row a cluster, the table split over the
+blocks' shared memory and probed through distributed shared memory;
+``CLUSTER_SIZES`` gives each rung's cluster), a larger one on
+``global_rows_kernel`` (the paper's kernel8 / kernel7: one row a block,
+its table built in its own output row, or for ``symbolic_bin`` in a
+scratch table).  The shared-memory rungs keep their kernels.  Each
+wrapper counts its launches (``launches``) and, of those, the cluster
+ones (``launches_cluster``) and the global ones (``launches_global``).
 """
 from __future__ import annotations
 
@@ -292,6 +298,12 @@ def _max_smem_bytes(device_index: int) -> int:
     return int(out[0])
 
 
+def _smem_limit(device: Optional[torch.device]) -> int:
+    dev = torch.device("cuda") if device is None else device
+    return _max_smem_bytes(dev.index if dev.index is not None
+                           else torch.cuda.current_device())
+
+
 _KERNEL_IDS = {"symbolic_bin": 0, "numeric_bin": 1, "fused_bin": 2}
 
 
@@ -299,9 +311,10 @@ def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
                 single_access: bool = True,
                 device: Optional[torch.device] = None) -> int:
     """CTAs of one rung's launch of ``kernel`` (symbolic_bin, numeric_bin
-    or fused_bin, in the geometry and on the kernel its wrapper launches:
-    the global-memory one where :func:`is_global`) that fit on one SM of
-    the card at once, by the CUDA occupancy calculator."""
+    or fused_bin, in the geometry and on the kernel its wrapper launches,
+    :func:`hash_route`) that fit on one SM at once, by the CUDA occupancy
+    calculator.  A ``"cluster"`` rung raises: its residency is
+    :func:`clusters_in_flight`."""
     rows_per_cta, threads = (numeric_launch_geometry(t_size)
                              if kernel == "numeric_bin"
                              else launch_geometry(t_size, pack))
@@ -309,7 +322,12 @@ def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
     lib = build.library("spgemm_hash")
     with_values = kernel != "symbolic_bin"
     with torch.cuda.device(device):
-        if is_global(t_size, rows_per_cta, with_values, device):
+        route = hash_route(t_size, rows_per_cta, with_values,
+                           _smem_limit(device))
+        if route == "cluster":
+            raise ValueError(f"{kernel} t_size={t_size} runs in clusters: "
+                             f"see clusters_in_flight")
+        if route == "global":
             build.check(lib.hash_global_ctas_per_sm(
                 int(with_values), int(single_access), threads,
                 out.data_ptr()), "hash_global_ctas_per_sm")
@@ -320,49 +338,170 @@ def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
     return int(out[0])
 
 
+def clusters_in_flight(t_size: int, *, kernel: str,
+                       single_access: bool = True,
+                       device: Optional[torch.device] = None) -> int:
+    """Clusters of one ``"cluster"`` rung's launch of ``kernel`` (at the
+    rung's :func:`cluster_size`) that fit on the whole card at once, by
+    the CUDA occupancy calculator.  Any other rung raises: its residency
+    is :func:`ctas_per_sm`."""
+    threads = launch_geometry(t_size, 1)[1]
+    with_values = kernel != "symbolic_bin"
+    out = torch.zeros(1, dtype=torch.int32)
+    lib = build.library("spgemm_hash")
+    with torch.cuda.device(device):
+        limit = _smem_limit(device)
+        route = hash_route(t_size, 1, with_values, limit)
+        if route != "cluster":
+            raise ValueError(f"{kernel} t_size={t_size} runs on the "
+                             f"{route} route: see ctas_per_sm")
+        build.check(lib.hash_cluster_occupancy(
+            int(with_values), int(single_access), t_size,
+            cluster_size(t_size, with_values, limit), threads,
+            out.data_ptr()), "hash_cluster_occupancy")
+    return int(out[0])
+
+
 GLOBAL_MAX_T_SIZE = 2 ** 30   # the probe guard, 2*t_size, is an int32
+CLUSTER_MAX = 8               # the portable thread-block cluster size
+ROW_COUNTER_BYTES = 8         # a row's nnz and accesses counters
+# What each block of a cluster holds besides its share of the table: the
+# row's counters (16 B, padded) and its copy of the row's entry list
+# (1,024 entries of 16 B, and 32 scan sums): csrc/spgemm_hash.cu,
+# cluster_smem_bytes.
+CLUSTER_ROW_BYTES = 16 + (4 * 1024 + 32) * 4
+# Blocks of the cluster of each cluster rung, by (with values, t_size),
+# chosen by `python -m repro_torch.kernels.ablate --parts cluster` on
+# mono_500Hz's rungs (PERF.md, section 6); a rung not listed takes the
+# smallest cluster that holds its table (:func:`smallest_cluster`).  A
+# larger cluster spreads a row over more warps and, with slices of 64 KB
+# or less, fits two blocks an SM, until the per-row fixed costs (fill,
+# entry list, barriers) of rows of few products take over.
+CLUSTER_SIZES = {
+    (False, 65536): 4,     # symbolic_bin: 2 close behind, 8 far behind
+    (True, 65536): 8,      # fused_bin: ahead of 4
+    (True, 32768): 4,      # numeric_bin: 2 close behind, 8 far behind
+    (True, 131072): 8,     # numeric_bin: the only cluster that holds it
+}
 
 
-def is_global(t_size: int, rows_per_cta: int, with_values: bool,
-              device: Optional[torch.device] = None) -> bool:
-    """Whether a rung's tables (``rows_per_cta`` of ``t_size`` entries, 8 B
-    an entry with values, 4 without, and 8 B of counters a row) exceed the
-    card's shared memory per block, so that its launch takes the
-    global-memory kernel.  Raises where that kernel cannot take the rung:
-    several rows to a block, or a table past ``GLOBAL_MAX_T_SIZE``."""
-    need = rows_per_cta * t_size * (8 if with_values else 4) \
-        + 8 * rows_per_cta
-    dev = torch.device("cuda") if device is None else device
-    limit = _max_smem_bytes(dev.index if dev.index is not None
-                            else torch.cuda.current_device())
-    if need <= limit:
-        return False
+def _slot_bytes(with_values: bool) -> int:
+    return 8 if with_values else 4
+
+
+def table_bytes(t_size: int, rows_per_cta: int, with_values: bool) -> int:
+    """Shared memory of a block of ``rows_per_cta`` tables of ``t_size``
+    entries (8 B an entry with values, 4 without) and their counters."""
+    return rows_per_cta * (t_size * _slot_bytes(with_values)
+                           + ROW_COUNTER_BYTES)
+
+
+def cluster_slice_bytes(t_size: int, cluster: int, with_values: bool) -> int:
+    """Shared memory of each block of a cluster of ``cluster`` blocks that
+    holds one ``t_size`` table: its even share of the slots, the row's
+    counters and the row's entry list (``CLUSTER_ROW_BYTES``)."""
+    return t_size // cluster * _slot_bytes(with_values) + CLUSTER_ROW_BYTES
+
+
+def smallest_cluster(t_size: int, with_values: bool,
+                     smem_limit: int) -> Optional[int]:
+    """The fewest blocks (a power of two, 2 to ``CLUSTER_MAX``) whose
+    shared memory holds a power-of-two ``t_size`` table split evenly, each
+    slice within ``smem_limit`` bytes; None if no cluster does."""
+    if not _is_pow2(t_size):
+        return None
+    cluster = 2
+    while cluster <= min(CLUSTER_MAX, t_size // 4):
+        if cluster_slice_bytes(t_size, cluster, with_values) <= smem_limit:
+            return cluster
+        cluster *= 2
+    return None
+
+
+def cluster_size(t_size: int, with_values: bool, smem_limit: int) -> int:
+    """Blocks of the cluster a ``"cluster"`` rung launches:
+    ``CLUSTER_SIZES`` where it lists the rung, never fewer than
+    :func:`smallest_cluster`."""
+    least = smallest_cluster(t_size, with_values, smem_limit)
+    if least is None:
+        raise ValueError(f"no cluster of at most {CLUSTER_MAX} blocks holds "
+                         f"a table of {t_size} entries")
+    return max(least, CLUSTER_SIZES.get((with_values, t_size), least))
+
+
+def hash_route(t_size: int, rows_per_cta: int, with_values: bool,
+               smem_limit: int) -> str:
+    """Which kernel a rung's launch takes, from its tables and a block's
+    shared-memory limit (232,448 B on the H100) alone:
+
+      ``"smem"``     the block's ``rows_per_cta`` tables fit its shared
+                     memory (:func:`table_bytes`): the shared-memory kernels;
+      ``"cluster"``  one table fits the shared memory of a cluster of at
+                     most ``CLUSTER_MAX`` blocks (:func:`smallest_cluster`):
+                     ``cluster_rows_kernel``;
+      ``"global"``   neither: ``global_rows_kernel``, the table in device
+                     memory.
+
+    Raises where no kernel takes the rung: several rows to a block past
+    shared memory, or a table past ``GLOBAL_MAX_T_SIZE``."""
+    need = table_bytes(t_size, rows_per_cta, with_values)
+    if need <= smem_limit:
+        return "smem"
     if rows_per_cta != 1:
         raise ValueError(
             f"{rows_per_cta} tables of {t_size} entries to a block need "
-            f"{need} B of shared memory (this card allows {limit} B), and "
-            "the global-memory kernel takes one row a block: pack=1")
+            f"{need} B of shared memory (this card allows {smem_limit} B), "
+            "and the cluster and global-memory kernels take one row a "
+            "block: pack=1")
+    if smallest_cluster(t_size, with_values, smem_limit) is not None:
+        return "cluster"
     if t_size > GLOBAL_MAX_T_SIZE:
         raise ValueError(f"a table of {t_size} entries is past the global-"
                          f"memory kernel's {GLOBAL_MAX_T_SIZE}")
-    return True
+    return "global"
 
 
-def _launch_global(dev, rows, count, a_rpt, a_col, a_val, b_rpt, b_col,
-                   b_val, *, t_size, rows_cap, threads, single_access, nnz,
-                   col_tabs, val_tabs, acc) -> None:
-    """One launch of the global-memory kernel (``hash_bin_global``):
-    ``val_tabs`` None builds keys only, ``nnz`` None skips the nnz."""
+def rung_route(t_size: int, rows_per_cta: int, with_values: bool,
+               device: Optional[torch.device] = None) -> str:
+    """:func:`hash_route` at the shared-memory limit of ``device``'s card."""
+    return hash_route(t_size, rows_per_cta, with_values,
+                      _smem_limit(device))
+
+
+def _launch_extended(fn, route, dev, rows, count, a_rpt, a_col, a_val,
+                     b_rpt, b_col, b_val, *, t_size, rows_cap, threads,
+                     single_access, nnz, col_tabs, val_tabs, acc) -> None:
+    """One launch of a rung past a block's shared memory, counted on the
+    wrapper ``fn``: ``route`` ``"cluster"`` takes ``hash_bin_cluster``
+    (``val_tabs`` None: keys only, nothing dumped), ``"global"``
+    ``hash_bin_global`` (``val_tabs`` None: keys only, built in
+    ``col_tabs``, a scratch table).  ``nnz`` None skips the nnz.  A
+    refused launch raises; nothing falls back."""
     def ptr(x):
         return None if x is None else x.data_ptr()
+    with_values = val_tabs is not None
+    lib = build.library("spgemm_hash")
+    inputs = (rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
+              a_col.data_ptr(), ptr(a_val), b_rpt.data_ptr(),
+              b_col.data_ptr(), ptr(b_val), t_size, rows_cap)
     with torch.cuda.device(dev):
-        err = build.library("spgemm_hash").hash_bin_global(
-            int(single_access), rows.data_ptr(), count.data_ptr(),
-            a_rpt.data_ptr(), a_col.data_ptr(), ptr(a_val), b_rpt.data_ptr(),
-            b_col.data_ptr(), ptr(b_val), t_size, rows_cap, threads,
-            ptr(nnz), col_tabs.data_ptr(), ptr(val_tabs), acc.data_ptr(),
-            _stream(dev))
-    build.check(err, "hash_bin_global")
+        if route == "cluster":
+            err = lib.hash_bin_cluster(
+                int(with_values), int(single_access), *inputs,
+                cluster_size(t_size, with_values, _smem_limit(dev)),
+                threads, ptr(nnz), ptr(col_tabs), ptr(val_tabs),
+                acc.data_ptr(), _stream(dev))
+        else:
+            err = lib.hash_bin_global(
+                int(single_access), *inputs, threads, ptr(nnz),
+                col_tabs.data_ptr(), ptr(val_tabs), acc.data_ptr(),
+                _stream(dev))
+    build.check(err, f"hash_bin_{route}")
+    fn.launches += 1
+    if route == "cluster":
+        fn.launches_cluster += 1
+    else:
+        fn.launches_global += 1
 
 
 def _check_cuda_inputs(rows, count, ints, floats, rows_cap: int) -> None:
@@ -411,15 +550,17 @@ def symbolic_bin_call(rows, count, a_rpt, a_col, b_rpt, b_col, *,
     rows_per_cta, threads = launch_geometry(t_size, pack)
     nnz = torch.empty(rows_cap, dtype=torch.int32, device=dev)
     acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
-    if rows_cap and is_global(t_size, rows_per_cta, False, dev):
-        scratch = torch.empty((rows_cap, t_size), dtype=torch.int32,
-                              device=dev)
-        _launch_global(dev, rows, count, a_rpt, a_col, None, b_rpt, b_col,
-                       None, t_size=t_size, rows_cap=rows_cap,
-                       threads=threads, single_access=single_access,
-                       nnz=nnz, col_tabs=scratch, val_tabs=None, acc=acc)
-        symbolic_bin_call.launches += 1
-        symbolic_bin_call.launches_global += 1
+    route = rung_route(t_size, rows_per_cta, False, dev) if rows_cap \
+        else "smem"
+    if route != "smem":
+        # The cluster kernel keeps the table on chip: no scratch table.
+        scratch = (torch.empty((rows_cap, t_size), dtype=torch.int32,
+                               device=dev) if route == "global" else None)
+        _launch_extended(symbolic_bin_call, route, dev, rows, count, a_rpt,
+                         a_col, None, b_rpt, b_col, None, t_size=t_size,
+                         rows_cap=rows_cap, threads=threads,
+                         single_access=single_access, nnz=nnz,
+                         col_tabs=scratch, val_tabs=None, acc=acc)
     elif rows_cap:
         with torch.cuda.device(dev):
             err = build.library("spgemm_hash").symbolic_bin(
@@ -433,6 +574,7 @@ def symbolic_bin_call(rows, count, a_rpt, a_col, b_rpt, b_col, *,
 
 
 symbolic_bin_call.launches = symbolic_bin_call.launches_global = 0
+symbolic_bin_call.launches_cluster = 0
 
 
 def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
@@ -456,7 +598,8 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     by t_size (2^k - 1 on the numeric ladder) is a multiply-high by the
     constants of :func:`hash_mod`, with the reference's slots.  A rung
     whose tables exceed shared memory (the extended ladder's 32,768 and
-    up, :func:`is_global`) runs on the global-memory kernel instead.
+    up) runs on the cluster or the global-memory kernel instead
+    (:func:`hash_route`).
     """
     if not rows.is_cuda:
         return numeric_bin_plain(rows, count, a_rpt, a_col, a_val, b_rpt,
@@ -472,14 +615,14 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     val_tabs = torch.empty((rows_cap, t_size), dtype=torch.float32,
                            device=dev)
     acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
-    if rows_cap and is_global(t_size, rows_per_cta, True, dev):
-        _launch_global(dev, rows, count, a_rpt, a_col, a_val, b_rpt, b_col,
-                       b_val, t_size=t_size, rows_cap=rows_cap,
-                       threads=threads, single_access=single_access,
-                       nnz=None, col_tabs=col_tabs, val_tabs=val_tabs,
-                       acc=acc)
-        numeric_bin_call.launches += 1
-        numeric_bin_call.launches_global += 1
+    route = rung_route(t_size, rows_per_cta, True, dev) if rows_cap \
+        else "smem"
+    if route != "smem":
+        _launch_extended(numeric_bin_call, route, dev, rows, count, a_rpt,
+                         a_col, a_val, b_rpt, b_col, b_val, t_size=t_size,
+                         rows_cap=rows_cap, threads=threads,
+                         single_access=single_access, nnz=None,
+                         col_tabs=col_tabs, val_tabs=val_tabs, acc=acc)
     elif rows_cap:
         with torch.cuda.device(dev):
             err = build.library("spgemm_hash").numeric_bin(
@@ -495,6 +638,7 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
 
 
 numeric_bin_call.launches = numeric_bin_call.launches_global = 0
+numeric_bin_call.launches_cluster = 0
 
 
 def fused_outputs(rows_cap: int, t_size: int, device) -> Tuple:
@@ -535,14 +679,14 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     rows_per_cta, threads = launch_geometry(t_size, pack)
     nnz, col_tabs, val_tabs, acc = (fused_outputs(rows_cap, t_size, dev)
                                     if out is None else out)
-    if rows_cap and is_global(t_size, rows_per_cta, True, dev):
-        _launch_global(dev, rows, count, a_rpt, a_col, a_val, b_rpt, b_col,
-                       b_val, t_size=t_size, rows_cap=rows_cap,
-                       threads=threads, single_access=single_access,
-                       nnz=nnz, col_tabs=col_tabs, val_tabs=val_tabs,
-                       acc=acc)
-        fused_bin_call.launches += 1
-        fused_bin_call.launches_global += 1
+    route = rung_route(t_size, rows_per_cta, True, dev) if rows_cap \
+        else "smem"
+    if route != "smem":
+        _launch_extended(fused_bin_call, route, dev, rows, count, a_rpt,
+                         a_col, a_val, b_rpt, b_col, b_val, t_size=t_size,
+                         rows_cap=rows_cap, threads=threads,
+                         single_access=single_access, nnz=nnz,
+                         col_tabs=col_tabs, val_tabs=val_tabs, acc=acc)
     elif rows_cap:
         with torch.cuda.device(dev):
             err = build.library("spgemm_hash").fused_bin(
@@ -558,14 +702,16 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
 
 
 fused_bin_call.launches = fused_bin_call.launches_global = 0
+fused_bin_call.launches_cluster = 0
 
 KERNELS = (symbolic_bin_call, numeric_bin_call, fused_bin_call)
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch counts (all, global) to 0."""
+    """Set every kernel wrapper's launch counts (all, cluster, global) to
+    0."""
     for fn in KERNELS:
-        fn.launches = fn.launches_global = 0
+        fn.launches = fn.launches_cluster = fn.launches_global = 0
 
 
 # ---------------------------------------------------------------------------

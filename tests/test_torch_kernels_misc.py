@@ -358,7 +358,8 @@ def test_kernel_name_reads_template_arguments(args, name):
 
 
 @pytest.mark.parametrize("source", ["spgemm_hash", "bsr_spmm",
-                                    "spgemm_hash slot", "bsr_spmm f32"])
+                                    "spgemm_hash slot", "bsr_spmm f32",
+                                    "spgemm_hash cluster"])
 def test_ablation_variants_edit_the_current_sources(source):
     """Every ablation build of ``repro_torch.kernels.ablate`` finds its
     anchor in today's source, and all but the baseline change it."""
@@ -366,7 +367,8 @@ def test_ablation_variants_edit_the_current_sources(source):
     variants = {"spgemm_hash": ablate.HASH_VARIANTS,
                 "bsr_spmm": ablate.BSR_VARIANTS,
                 "spgemm_hash slot": ablate.SLOT_VARIANTS,
-                "bsr_spmm f32": ablate.BSR_F32_VARIANTS}[source]
+                "bsr_spmm f32": ablate.BSR_F32_VARIANTS,
+                "spgemm_hash cluster": ablate.CLUSTER_VARIANTS}[source]
     src = (build.CSRC / f"{source.split()[0]}.cu").read_text()
     edited = [edit(src) for edit in variants.values()]
     assert edited[0] == src
@@ -398,3 +400,21 @@ def test_hash_ablations_keep_to_their_kernel():
         ("slot", "base"), ("slot", "hash_rows_only"))
     for group, label in timed:
         assert label in tables[group] or label == "unpacked", label
+
+
+def test_cluster_ablations_keep_to_their_kernel():
+    """The CLUSTER_VARIANTS edit cluster_rows_kernel's section only, and
+    the hash and slot variants leave that section as it is."""
+    from repro_torch.kernels import ablate, build
+    src = (build.CSRC / "spgemm_hash.cu").read_text()
+    marker = "// cluster_rows_kernel: the vmem_extended rungs"
+    start = src.index(marker)
+    end = src.index("const void* global_rows_fn()")
+    for label, edit in ablate.CLUSTER_VARIANTS.items():
+        out = edit(src)
+        assert out[:start] == src[:start], label
+        assert out.endswith(src[end:]), label
+    for table in (ablate.HASH_VARIANTS, ablate.SLOT_VARIANTS):
+        for label, edit in table.items():
+            out = edit(src)
+            assert src[start:end] in out, label

@@ -287,9 +287,13 @@ def test_hash_spgemm_on_card_matches_cpu(cuda_device, case):
         torch.testing.assert_close(g.C.val[:nz].cpu(), c.C.val[:nz],
                                    **VAL_TOL)
     _assert_rungs_populated(case, c, cfg)
-    # The extended rungs ran on the global-memory kernel: the cold call's
+    # The extended rungs ran on the cluster kernel where a cluster holds
+    # the table and on the global-memory kernel past it: the cold call's
     # symbolic and numeric, the steady calls' fused or two-pass kernels.
     if cfg.vmem_extended:
         assert tsh.symbolic_bin_call.launches_global >= 1
         assert tsh.numeric_bin_call.launches_global >= 1
         assert (tsh.fused_bin_call.launches_global >= 2) == cfg.fuse_numeric
+        assert tsh.symbolic_bin_call.launches_cluster >= 1
+        assert tsh.numeric_bin_call.launches_cluster >= 1
+        assert (tsh.fused_bin_call.launches_cluster >= 2) == cfg.fuse_numeric

@@ -405,6 +405,142 @@ def test_numeric_launch_geometry_packs_the_one_warp_rungs(t_size):
     assert smem <= 48 * 1024 or t_size >= 8191
 
 
+H100_SMEM = 232_448    # shared memory a block may opt into on the H100
+# Every extended rung of both ladders, with and without values: the route
+# at the H100's limit, and for a cluster the smallest cluster that holds
+# the table and its slice (t_size / C slots of 8 or 4 B, plus the row's
+# 16 B of counters and its 16,512 B entry list).  The ladders' own rungs are symbolic (keys only) and
+# fused (values) on EXT_SYM, numeric (values) on EXT_NUM.
+EXT_ROUTES = {
+    (65536, False): ("cluster", 2, 147_600),
+    (262144, False): ("cluster", 8, 147_600),
+    (1048576, False): ("global", None, None),
+    (65536, True): ("cluster", 4, 147_600),
+    (262144, True): ("global", None, None),
+    (1048576, True): ("global", None, None),
+    (32768, True): ("cluster", 2, 147_600),
+    (131072, True): ("cluster", 8, 147_600),
+    (524288, True): ("global", None, None),
+    (32768, False): ("smem", None, None),       # 131,080 B: one block
+    (131072, False): ("cluster", 4, 147_600),
+    (524288, False): ("global", None, None),
+}
+
+
+@pytest.mark.parametrize("t_size,with_values", sorted(EXT_ROUTES))
+def test_hash_route_of_every_extended_rung(t_size, with_values):
+    route, least, slice_bytes = EXT_ROUTES[(t_size, with_values)]
+    assert t_size in EXT_SYM[2] + EXT_NUM[2]
+    assert tsh.hash_route(t_size, 1, with_values, H100_SMEM) == route
+    assert tsh.smallest_cluster(t_size, with_values, H100_SMEM) == (
+        least if route == "cluster" else
+        None if route == "global" else 2)
+    if route != "cluster":
+        return
+    assert tsh.cluster_slice_bytes(t_size, least, with_values) \
+        == slice_bytes <= H100_SMEM
+    assert tsh.cluster_slice_bytes(t_size, least // 2, with_values) \
+        > H100_SMEM
+    c = tsh.cluster_size(t_size, with_values, H100_SMEM)
+    assert least <= c <= tsh.CLUSTER_MAX == 8 and c & (c - 1) == 0
+    assert tsh.cluster_slice_bytes(t_size, c, with_values) <= H100_SMEM
+
+
+def test_hash_route_default_rungs_packing_and_limits():
+    """Tables that fit a block stay on the shared-memory kernels, packed
+    or not; several rows to a block past shared memory raise; a table
+    that no cluster holds (or that is not a power of two) goes to device
+    memory, up to GLOBAL_MAX_T_SIZE."""
+    for t in (24576, 12288, 8192, 512, 32):
+        assert tsh.hash_route(t, 1, True, H100_SMEM) == "smem"
+    assert tsh.hash_route(8191, 1, True, H100_SMEM) == "smem"
+    assert tsh.hash_route(4096, 4, True, H100_SMEM) == "smem"
+    assert tsh.table_bytes(4096, 4, True) == 4 * (4096 * 8 + 8)
+    for pack, t in ((2, 65536), (2, 16384), (4, 8192)):
+        with pytest.raises(ValueError, match="one row a block"):
+            tsh.hash_route(t, pack, True, H100_SMEM)
+    assert tsh.hash_route(40000, 1, True, H100_SMEM) == "global"
+    assert tsh.smallest_cluster(40000, True, H100_SMEM) is None
+    with pytest.raises(ValueError, match="past the global"):
+        tsh.hash_route(2 ** 31, 1, False, H100_SMEM)
+    # A smaller card: the same rung takes a larger cluster, or none.
+    assert tsh.smallest_cluster(65536, True, 99 * 1024) == 8
+    assert tsh.hash_route(131072, 1, True, 99 * 1024) == "global"
+    assert tsh.cluster_size(65536, True, 99 * 1024) == 8
+    for (with_values, t), c in tsh.CLUSTER_SIZES.items():
+        assert tsh.hash_route(t, 1, with_values, H100_SMEM) == "cluster"
+        assert c & (c - 1) == 0 and (
+            tsh.smallest_cluster(t, with_values, H100_SMEM) <= c <= 8)
+        assert tsh.cluster_size(t, with_values, H100_SMEM) == c
+
+
+def _wrapping_keys(t_size: int, cluster: int, n: int) -> np.ndarray:
+    """Keys whose hash slots crowd the end of each rank's slice and the end
+    of the table, so their probes cross from rank to rank and wrap from
+    the last rank to rank 0; some repeat (a hit adds)."""
+    s = t_size // cluster
+    cand = np.arange(1, 4_000_000, dtype=np.int64)
+    slot = ((cand * 107) & 0xFFFFFFFF) & (t_size - 1)
+    hot = np.concatenate([np.arange(r * s + s - 3, r * s + s)
+                          for r in range(cluster)])
+    keys = cand[np.isin(slot, hot)][:n]
+    return np.concatenate([keys, keys[::5]])
+
+
+def _cluster_emulation(keys, vals, t_size: int, cluster: int):
+    """The cluster kernel's table for one row, inserted in the given order
+    with its addressing: slot h in rank h >> log2(t_size / C) at offset
+    h & (t_size / C - 1) of that rank's shared memory, probes wrapping
+    across ranks; then the dump, rank r's slice to row entries
+    [r * t_size / C, (r + 1) * t_size / C)."""
+    s = t_size // cluster
+    shift = s.bit_length() - 1
+    smem_k = np.full((cluster, s), -1, np.int64)
+    smem_v = np.zeros((cluster, s), np.float32)
+    for key, v in zip(keys, vals):
+        h = int((key * 107) & 0xFFFFFFFF) & (t_size - 1)
+        for _ in range(2 * t_size):
+            rank, off = h >> shift, h & (s - 1)
+            if smem_k[rank, off] in (-1, key):
+                smem_k[rank, off] = key
+                smem_v[rank, off] += v
+                break
+            h = (h + 1) & (t_size - 1)
+    cols = np.empty(t_size, np.int64)
+    vals_out = np.empty(t_size, np.float32)
+    for rank in range(cluster):
+        cols[rank * s:(rank + 1) * s] = smem_k[rank]
+        vals_out[rank * s:(rank + 1) * s] = smem_v[rank]
+    return cols, vals_out
+
+
+@pytest.mark.parametrize("t_size,cluster", [(32768, 2), (65536, 4),
+                                            (131072, 8), (65536, 2)])
+def test_cluster_layout_reproduces_the_row_major_table(t_size, cluster):
+    """A row whose probes cross ranks and wrap, through a numpy emulation
+    of the cluster kernel's slot split and dump: the plain version's
+    row-major t_size table, slot for slot (values in the same order)."""
+    keys = _wrapping_keys(t_size, cluster, 12 * cluster)
+    m = len(keys)
+    vals = np.random.default_rng(t_size + cluster).standard_normal(
+        m).astype(np.float32)
+    B = _csr(np.arange(m + 1), keys, vals, (m, 2 ** 31 - 1), "cpu")
+    A = _csr([0, m], np.arange(m), np.ones(m), (1, m), "cpu")
+    rows = torch.zeros(1, dtype=torch.int32)
+    count = torch.ones(1, dtype=torch.int32)
+    nnz, cols, tvals, _ = tsh.fused_bin_plain(
+        rows, count, A.rpt, A.col, A.val, B.rpt, B.col, B.val,
+        t_size=t_size, rows_cap=1)
+    want_cols, want_vals = _cluster_emulation(keys, vals, t_size, cluster)
+    np.testing.assert_array_equal(_np(cols[0]), want_cols)
+    np.testing.assert_array_equal(_np(tvals[0]), want_vals)
+    assert int(nnz[0]) == len(set(keys.tolist()))
+    s = t_size // cluster
+    assert (want_cols[0:3] >= 0).all()           # wrapped past the end
+    assert all((want_cols[r * s:r * s + 2] >= 0).all()
+               for r in range(1, cluster))       # crossed into rank r
+
+
 def test_numeric_epilogue_ignores_padding_row_tables():
     """On the card the tables of rows >= count are left unwritten; the
     epilogue must give the same C whatever they hold."""
@@ -805,7 +941,8 @@ def test_cuda_slot_kernels_count_zero(cuda_device, kind, t_size, rows_cap,
 
 
 # ---------------------------------------------------------------------------
-# On the card: the global-memory kernel of the vmem_extended rungs.
+# On the card: the cluster and global-memory kernels of the vmem_extended
+# rungs.
 # ---------------------------------------------------------------------------
 
 EXT_SIZES = {"symbolic": EXT_SYM[2], "fused": EXT_SYM[2],
@@ -821,9 +958,15 @@ def _poison_allocator(device, nbytes: int) -> None:
     del junk
 
 
-def _global_bin(kind, A, B, rows, count, t_size, rows_cap, single_access):
-    """One bin through the wrapper (a global launch at these sizes) ->
-    (nnz or None, col_tabs or None, val_tabs or None, accesses)."""
+def _extended_bin(kind, A, B, rows, count, t_size, rows_cap, single_access,
+                  cluster=None):
+    """One bin through the wrapper (a cluster or global launch at these
+    sizes), or with ``cluster`` the cluster kernel's C entry point at that
+    cluster size -> (nnz or None, col_tabs or None, val_tabs or None,
+    accesses)."""
+    if cluster is not None:
+        return _cluster_entry(kind, A, B, rows, count, t_size, rows_cap,
+                              single_access, cluster)
     if kind == "symbolic":
         nnz, acc = tsh.symbolic_bin_call(
             rows, count, A.rpt, A.col, B.rpt, B.col, t_size=t_size,
@@ -839,18 +982,55 @@ def _global_bin(kind, A, B, rows, count, t_size, rows_cap, single_access):
                               single_access=single_access)
 
 
-def _check_global_against_plain(kind, A, B, rows, count, t_size, rows_cap,
-                                single_access, *, check_rows=None):
-    """The card's global kernel against the plain version: nnz on every
-    row, each valid row's sorted columns exactly and values within
-    VAL_TOL, accesses by the invariants (>= n_prod on valid rows, 0 on
-    padding).  ``check_rows`` (a slice) compares those rows only, against
-    the plain version run on them alone.  Returns the card's accesses."""
-    before = getattr(tsh, f"{kind}_bin_call").launches_global
-    k = _global_bin(kind, A, B, rows, count, t_size, rows_cap,
-                    single_access)
+def _cluster_entry(kind, A, B, rows, count, t_size, rows_cap, single_access,
+                   cluster):
+    """``hash_bin_cluster`` at a given cluster size, with the wrapper's
+    outputs (as ``repro_torch.kernels.ablate`` launches it)."""
+    from repro_torch.kernels import build
+    dev = rows.device
+    with_values = kind != "symbolic"
+    nnz = (torch.empty(rows_cap, dtype=torch.int32, device=dev)
+           if kind != "numeric" else None)
+    acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
+    cols = vals = None
+    if with_values:
+        cols = torch.empty((rows_cap, t_size), dtype=torch.int32, device=dev)
+        vals = torch.empty((rows_cap, t_size), dtype=torch.float32,
+                           device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    build.check(build.library("spgemm_hash").hash_bin_cluster(
+        int(with_values), int(single_access), rows.data_ptr(),
+        count.data_ptr(), A.rpt.data_ptr(), A.col.data_ptr(),
+        ptr(A.val if with_values else None), B.rpt.data_ptr(),
+        B.col.data_ptr(), ptr(B.val if with_values else None), t_size,
+        rows_cap, cluster, tsh.launch_geometry(t_size, 1)[1], ptr(nnz),
+        ptr(cols), ptr(vals), acc.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "hash_bin_cluster")
+    return nnz, cols, vals, acc
+
+
+def _check_extended_against_plain(kind, A, B, rows, count, t_size,
+                                  rows_cap, single_access, *,
+                                  check_rows=None, cluster=None):
+    """The card's kernel for an extended rung (the one the wrapper routes
+    to, counted on its ``launches_cluster`` or ``launches_global``; or,
+    with ``cluster``, the cluster kernel at that size) against the plain
+    version: nnz on every row, each valid row's sorted columns exactly and
+    values within VAL_TOL, accesses by the invariants (>= n_prod on valid
+    rows, 0 on padding).  ``check_rows`` (a slice) compares those rows
+    only, against the plain version run on them alone.  Returns the card's
+    accesses."""
+    fn = getattr(tsh, f"{kind}_bin_call")
+    route = tsh.rung_route(t_size, 1, kind != "symbolic", rows.device)
+    before = (fn.launches_cluster, fn.launches_global)
+    k = _extended_bin(kind, A, B, rows, count, t_size, rows_cap,
+                      single_access, cluster)
     torch.cuda.synchronize()
-    assert getattr(tsh, f"{kind}_bin_call").launches_global == before + 1
+    if cluster is None:
+        assert (fn.launches_cluster, fn.launches_global) == (
+            before[0] + (route == "cluster"), before[1] + (route == "global"))
     n = int(count[0])
     sel = slice(0, rows_cap) if check_rows is None else check_rows
     p_rows = rows[sel].contiguous()
@@ -875,31 +1055,177 @@ def _check_global_against_plain(kind, A, B, rows, count, t_size, rows_cap,
     return int(acc[valid].sum())
 
 
+def _heavy_rows(TA, TB, device):
+    """The pair's 8 rows with the most products."""
+    nprod = tnprod(TA, TB)[:TA.nrows]
+    return torch.argsort(nprod, descending=True)[:8].to(torch.int32)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("valid_rows", [0, 1, 8])
 @pytest.mark.parametrize("size_rung", [0, 1, 2])
 @pytest.mark.parametrize("kind", ["symbolic", "numeric", "fused"])
 def test_cuda_global_kernels_match_plain(cuda_device, kind, size_rung,
                                          valid_rows):
-    """Every extended table size of each kernel, both disciplines, on the
+    """Every extended table size of each kernel, on the kernel the wrapper
+    routes it to (cluster or global-memory), both disciplines, on the
     pair's 8 rows with the most products, with 0, 1 and all 8 valid."""
     A, B = _pair()
     TA, TB = _port(A, cuda_device), _port(B, cuda_device)
     t_size = EXT_SIZES[kind][size_rung]
     with_values = kind != "symbolic"
-    assert tsh.is_global(t_size, 1, with_values, cuda_device)
-    nprod = tnprod(TA, TB)[:TA.nrows]
-    rows = torch.argsort(nprod, descending=True)[:8].to(torch.int32)
+    assert tsh.rung_route(t_size, 1, with_values, cuda_device) == \
+        EXT_ROUTES[(t_size, with_values)][0]
+    rows = _heavy_rows(TA, TB, cuda_device)
     count = torch.tensor([valid_rows], dtype=torch.int32, device=cuda_device)
     totals = {}
     for sa in (True, False):
         _poison_allocator(cuda_device, 8 * t_size * 8)
-        totals[sa] = _check_global_against_plain(kind, TA, TB, rows, count,
-                                                 t_size, 8, sa)
+        totals[sa] = _check_extended_against_plain(kind, TA, TB, rows, count,
+                                                   t_size, 8, sa)
     if valid_rows:
         assert totals[True] < totals[False]
     else:
         assert totals == {True: 0, False: 0}
+
+
+# Every cluster rung of the extended ladders and every cluster size from
+# the smallest that holds its table to 8 (the sizes the ablation sweeps).
+CLUSTER_CASES = [(kind, t, c) for kind, sizes in EXT_SIZES.items()
+                 for t in sizes
+                 if EXT_ROUTES[(t, kind != "symbolic")][0] == "cluster"
+                 for c in (2, 4, 8)
+                 if c >= EXT_ROUTES[(t, kind != "symbolic")][1]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid_rows", [0, 1, 8])
+@pytest.mark.parametrize("kind,t_size,cluster", CLUSTER_CASES)
+def test_cuda_cluster_kernels_match_plain(cuda_device, kind, t_size,
+                                          cluster, valid_rows):
+    """The cluster kernel at every cluster size a cluster rung may take,
+    both disciplines, 0x5A-poisoned tables, 0, 1 and 8 valid rows."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    rows = _heavy_rows(TA, TB, cuda_device)
+    count = torch.tensor([valid_rows], dtype=torch.int32, device=cuda_device)
+    totals = {}
+    for sa in (True, False):
+        _poison_allocator(cuda_device, 8 * t_size * 8)
+        totals[sa] = _check_extended_against_plain(
+            kind, TA, TB, rows, count, t_size, 8, sa, cluster=cluster)
+    if valid_rows:
+        assert totals[True] < totals[False]
+    else:
+        assert totals == {True: 0, False: 0}
+
+
+@pytest.mark.gpu
+def test_cuda_cluster_kernel_past_2_31_table_entries(cuda_device):
+    """fused_bin on the 65,536 rung (a cluster rung) with a bucket of
+    32,776 rows, every row valid: the tables hold 2^31 + 2^19 entries, and
+    the last 8 rows start past entry 2^31.  Those rows and the first 8
+    must match the plain version."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    t_size, rows_cap = EXT_SYM[2][0], 32776
+    assert (rows_cap - 8) * t_size >= 2 ** 31
+    assert tsh.rung_route(t_size, 1, True, cuda_device) == "cluster"
+    rows = (torch.arange(rows_cap, dtype=torch.int32, device=cuda_device)
+            * 5) % TA.nrows
+    count = torch.tensor([rows_cap], dtype=torch.int32, device=cuda_device)
+    for sel in (slice(rows_cap - 8, rows_cap), slice(0, 8)):
+        _check_extended_against_plain("fused", TA, TB, rows, count, t_size,
+                                      rows_cap, True, check_rows=sel)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_cuda_symbolic_cluster_rung_allocates_no_table(cuda_device):
+    """symbolic_bin on a cluster rung keeps its tables in the clusters'
+    shared memory: the call allocates its two (rows_cap,) outputs and no
+    rows_cap x t_size scratch table, which the global rung still takes."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    rows_cap = 1024
+    rows = (torch.arange(rows_cap, dtype=torch.int32, device=cuda_device)
+            * 7) % TA.nrows
+    count = torch.tensor([rows_cap], dtype=torch.int32, device=cuda_device)
+    args = (rows, count, TA.rpt, TA.col, TB.rpt, TB.col)
+    grown = {}
+    for t_size in (EXT_SYM[2][0], EXT_SYM[2][2]):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda_device)
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        nnz, acc = tsh.symbolic_bin_call(*args, t_size=t_size,
+                                         rows_cap=rows_cap)
+        torch.cuda.synchronize()
+        grown[t_size] = torch.cuda.max_memory_allocated(cuda_device) - before
+        del nnz, acc
+    assert grown[EXT_SYM[2][0]] <= 2 * 4 * rows_cap + 2 * 512
+    assert grown[EXT_SYM[2][2]] >= 4 * rows_cap * EXT_SYM[2][2]
+
+
+@pytest.mark.gpu
+def test_cuda_extended_launch_counters(cuda_device):
+    """Each wrapper counts a cluster rung's launch in launches and
+    launches_cluster, a global rung's in launches and launches_global."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    rows = _heavy_rows(TA, TB, cuda_device)
+    count = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    cases = {"symbolic": (EXT_SYM[2][0], EXT_SYM[2][2]),
+             "fused": (EXT_SYM[2][0], EXT_SYM[2][1]),
+             "numeric": (EXT_NUM[2][1], EXT_NUM[2][2])}
+    for kind, (on_cluster, on_global) in cases.items():
+        fn = getattr(tsh, f"{kind}_bin_call")
+        tsh.reset_launches()
+        _extended_bin(kind, TA, TB, rows, count, on_cluster, 8, True)
+        assert (fn.launches, fn.launches_cluster, fn.launches_global) == \
+            (1, 1, 0)
+        _extended_bin(kind, TA, TB, rows, count, on_global, 8, True)
+        assert (fn.launches, fn.launches_cluster, fn.launches_global) == \
+            (2, 1, 1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_cuda_residency_of_cluster_and_global_rungs(cuda_device):
+    """A cluster rung's residency is its clusters in flight on the card,
+    any other rung's its CTAs per SM; each function refuses the other's
+    rungs."""
+    cases = {"symbolic_bin": (EXT_SYM[2][0], EXT_SYM[2][2]),
+             "fused_bin": (EXT_SYM[2][0], EXT_SYM[2][1]),
+             "numeric_bin": (EXT_NUM[2][1], EXT_NUM[2][2])}
+    for kind, (on_cluster, on_global) in cases.items():
+        assert tsh.clusters_in_flight(on_cluster, kernel=kind,
+                                      device=cuda_device) > 0
+        assert tsh.ctas_per_sm(on_global, kernel=kind,
+                               device=cuda_device) > 0
+        with pytest.raises(ValueError, match="clusters_in_flight"):
+            tsh.ctas_per_sm(on_cluster, kernel=kind, device=cuda_device)
+        with pytest.raises(ValueError, match="ctas_per_sm"):
+            tsh.clusters_in_flight(on_global, kernel=kind,
+                                   device=cuda_device)
+
+
+@pytest.mark.gpu
+def test_cuda_refused_cluster_launch_raises(cuda_device, monkeypatch):
+    """A cluster launch the card refuses (here a cluster of 16 blocks,
+    past the portable 8, which the launch does not opt out of) raises, and
+    nothing else runs in its place."""
+    A, B = _pair()
+    TA, TB = _port(A, cuda_device), _port(B, cuda_device)
+    rows = _heavy_rows(TA, TB, cuda_device)
+    count = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    monkeypatch.setitem(tsh.CLUSTER_SIZES, (True, 65536), 16)
+    tsh.reset_launches()
+    with pytest.raises(RuntimeError, match="hash_bin_cluster"):
+        tsh.fused_bin_call(rows, count, TA.rpt, TA.col, TA.val, TB.rpt,
+                           TB.col, TB.val, t_size=65536, rows_cap=8)
+    assert [(f.launches, f.launches_cluster, f.launches_global)
+            for f in tsh.KERNELS] == [(0, 0, 0)] * 3
 
 
 @pytest.mark.gpu
@@ -912,19 +1238,20 @@ def test_cuda_global_kernel_past_2_31_table_entries(cuda_device):
     TA, TB = _port(A, cuda_device), _port(B, cuda_device)
     t_size, rows_cap = EXT_NUM[2][2], 4104
     assert (rows_cap - 8) * t_size >= 2 ** 31
+    assert tsh.rung_route(t_size, 1, True, cuda_device) == "global"
     rows = (torch.arange(rows_cap, dtype=torch.int32, device=cuda_device)
             * 5) % TA.nrows
     count = torch.tensor([rows_cap], dtype=torch.int32, device=cuda_device)
     for sel in (slice(rows_cap - 8, rows_cap), slice(0, 8)):
-        _check_global_against_plain("numeric", TA, TB, rows, count, t_size,
-                                    rows_cap, True, check_rows=sel)
+        _check_extended_against_plain("numeric", TA, TB, rows, count,
+                                      t_size, rows_cap, True, check_rows=sel)
         torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu
 def test_cuda_global_rung_refuses_packing(cuda_device):
-    """A packed launch cannot take the global kernel: the wrapper raises
-    before launching."""
+    """A packed launch cannot take the cluster or the global kernel: the
+    wrapper raises before launching."""
     A, B = _pair()
     TA, TB = _port(A, cuda_device), _port(B, cuda_device)
     rows = torch.arange(8, dtype=torch.int32, device=cuda_device)
