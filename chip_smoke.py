@@ -82,6 +82,23 @@ Phases, in order; any failure exits non-zero:
      request hot, and a dumped plan cache loaded into a new engine must
      make that engine's first call hot; the engine's report, the drain's
      wall time and peak memory are printed.
+  7b. the governed request path (workspace arena, memory governor, fault
+     injection), with its own launch counts: bin_rows_into on
+     mono_500Hz's n_prod (pass 1 on binning_histogram) equal to bin_rows;
+     SpgemmEngine(SpgemmConfig(method="hash"), arena=Arena()) on
+     mono_500Hz, one cold and STEADY_CALLS steady calls, each leasing the
+     fallback expansion's storage from the arena (2 misses, then hits
+     only; reserved bytes = the plan's lease; 0 B in use after each
+     finalize; no host sync in a dispatch; C equal to the slice's), the
+     steady pipeline with and without its lease in turns (time, peak);
+     MemoryGovernor(cap_bytes=0): pressure, one forced trim of
+     fall_prod_bucket, a spill to the two-pass steps path (symbolic_bin
+     and numeric_bin launched, fused_bin not), then the trimmed plan's
+     steady calls unbounded; a drain (window 2, then ordered) of 3 x
+     mono_500Hz + 2 x scircuit under a one-lease cap with trim and spill
+     off (arena peak <= cap, pressure met, every C checked); injected
+     faults on scircuit (lease_denial in a drain, verify_overflow,
+     executor_raise): ESC recovers bitwise, hash within tolerance.
   8. output: a "kernels" JSON line (all five kernels; the cluster kernel
      once for each of the three hash wrappers, named <kernel>_cluster,
      its launches those of the extended phase; the global kernel once for
@@ -927,6 +944,12 @@ def phase_slice(A):
         f"max |C - A·A| {ref['max_abs_err']:.3e}, cold-vs-steady max "
         f"{cold_ref:.3e}: ok")
     del res_cold
+    # The default engine's lease stays parked in the process-wide arena;
+    # giving it back keeps later phases' peaks comparable with older runs.
+    from repro_torch.engine import default_arena
+    lease_bytes = default_arena().reclaim()
+    log(f"slice: the default arena gave back its parked lease, "
+        f"{lease_bytes} B")
     torch.cuda.empty_cache()
     sparse_ms = torch_sparse_ms(A)
     log(f"torch.sparse A@A: {sparse_ms:.1f} ms")
@@ -935,7 +958,8 @@ def phase_slice(A):
         total_nprod=res.total_nprod, total_nnz=res.total_nnz,
         cold_ms=cold_ms, cold_steps_ms=cold_steps_ms, steady_ms=steady_ms,
         steady_median_ms=statistics.median(steady_ms), peak_bytes=peak,
-        torch_sparse_ms=sparse_ms, cold_launches=cold_launches,
+        torch_sparse_ms=sparse_ms, lease_bytes=lease_bytes,
+        cold_launches=cold_launches,
         steady_launches=steady_launches,
         schedule=str(entry.plan.hash_schedule),
         nnz_bucket=entry.plan.nnz_bucket, scipy=ref, profile=prof)
@@ -1618,6 +1642,356 @@ def phase_request_path(A, C_mono, S):
                 scircuit=s_ref, patents=p_ref, report=report)
 
 
+def _csr_bitwise(C, D):
+    """Whether C and D carry the same CSR payload, bit for bit."""
+    nz = int(D.rpt[-1])
+    return (torch.equal(C.rpt, D.rpt) and torch.equal(C.col[:nz], D.col[:nz])
+            and torch.equal(C.val[:nz], D.val[:nz]))
+
+
+def phase_governor(A, C_mono, S, slice_stats):
+    """The workspace arena, the memory governor and fault injection on the
+    request path: mono_500Hz's leased steady calls, the governor's ladder
+    under a cap, the drain's backpressure and injected faults on scircuit."""
+    from repro_torch import SpgemmConfig
+    from repro_torch.core import bin_rows
+    from repro_torch.core.analysis import nprod_into_rpt
+    from repro_torch.core.faults import FaultPlan, FaultSpec, InjectedFault
+    from repro_torch.core.workspace import (WorkspacePlan, bin_rows_into,
+                                            default_arena)
+    from repro_torch.engine import (Arena, MatrixSig, MemoryGovernor,
+                                    SpgemmEngine, plan_key)
+    cfg = SpgemmConfig(method="hash")
+    default_arena().reclaim()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {}
+    reset_launches()          # this path's counts, read at its end
+
+    # -- 0. the fused metadata workspace at the slice's n_prod ----------------
+    m = A.nrows
+    lad = cfg.ladders()[0]
+    nprod = nprod_into_rpt(A, A)[:m]
+    wp = WorkspacePlan(m, lad.num_bins)
+    buf = wp.alloc(A.device)
+    before = read_launches()["binning_histogram"]
+    bin_rows_into(nprod, buf, upper=lad.upper, num_bins=lad.num_bins, m=m)
+    require(read_launches()["binning_histogram"] == before + 1,
+            "bin_rows_into on the card did not launch binning_histogram")
+    want = bin_rows(nprod, upper=lad.upper, num_bins=lad.num_bins)
+    got = wp.views(buf)
+    for name in ("bins", "bin_size", "bin_offset"):
+        require(torch.equal(getattr(got, name).long(),
+                            getattr(want, name).long()),
+                f"bin_rows_into {name} differs from bin_rows")
+    require(int(got.max_size) == int(want.max_size),
+            "bin_rows_into max differs from bin_rows")
+    log(f"governor: bin_rows_into on mono_500Hz's n_prod ({m} rows, one "
+        f"{wp.size}-cell int32 buffer) equal to bin_rows, pass 1 on "
+        f"binning_histogram: ok")
+    del nprod, buf, want, got
+
+    # -- 1. lease reuse -------------------------------------------------------
+    arena = Arena()
+    eng = SpgemmEngine(cfg, arena=arena)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _, cold_ms = time_host(lambda: eng.execute(A, A))
+    cold_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    entry = eng.cache.peek(plan_key(A, A, cfg))
+    spec = entry.plan.workspace_spec()
+    require(arena.bytes_reserved == 0 and spec is not None,
+            f"cold call leased, or the plan leases nothing: {spec}")
+    fall = entry.plan.hash_schedule.fall_prod_bucket
+    steady_ms, syncs = [], []
+    res = None
+    for i in range(STEADY_CALLS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec, caught = host_syncs(lambda: eng.dispatch(A, A))
+        syncs += caught
+        lease = rec.lease
+        require(lease is not None and lease.i32.device == A.device
+                and lease.val.device == A.device, f"steady call {i} holds "
+                f"no lease on the operands' card: {lease}")
+        res = eng.finalize(rec)
+        torch.cuda.synchronize()
+        steady_ms.append((time.perf_counter() - t1) * 1e3)
+        require(arena.bytes_in_use == 0,
+                f"{arena.bytes_in_use} B in use after finalize {i}")
+        if i == 0:
+            require((arena.lease_misses, arena.lease_hits) == (2, 0),
+                    f"first steady call: {arena.lease_misses} misses, "
+                    f"{arena.lease_hits} hits")
+            compare_csr("first leased steady call vs the slice's C", res.C,
+                        C_mono)
+    peak = torch.cuda.max_memory_allocated()
+    require((arena.lease_misses, arena.lease_hits)
+            == (2, 2 * (STEADY_CALLS - 1)),
+            f"lease reuse: {arena.lease_misses} misses, {arena.lease_hits} "
+            f"hits after {STEADY_CALLS} steady calls")
+    require(arena.bytes_reserved == spec.nbytes,
+            f"arena reserves {arena.bytes_reserved} B, the plan's lease is "
+            f"{spec.nbytes} B")
+    require(not syncs, f"leased steady dispatch synced the host "
+            f"{len(syncs)} times: {sorted(set(syncs))}")
+    err = compare_csr("last leased steady call vs the slice's C", res.C,
+                      C_mono)
+    del res
+    log(f"governor lease reuse (mono_500Hz, fall_prod_bucket {fall}): lease "
+        f"{spec.nbytes} B ({spec.nbytes / 2**30:.2f} GiB), reserved "
+        f"{arena.bytes_reserved} B, {arena.lease_misses} misses / "
+        f"{arena.lease_hits} hits, 0 B in use after each finalize, 0 host "
+        f"syncs; cold {cold_ms:.1f} ms, steady median "
+        f"{statistics.median(steady_ms):.1f} ms "
+        f"{['%.1f' % x for x in steady_ms]} (slice phase "
+        f"{slice_stats['steady_median_ms']:.1f}); peak cold "
+        f"{cold_peak / 2**30:.2f} GiB, steady {peak / 2**30:.2f} GiB (slice "
+        f"phase, cold and steady: {slice_stats['peak_bytes'] / 2**30:.2f}; "
+        f"{held / 2**30:.2f} held before, the slice's C among it); C equal, "
+        f"values within {err:.3e}: ok")
+
+    # The same steady pipeline with and without the lease as its storage,
+    # in turns, the arena emptied before each run: the lease held for the
+    # whole call against the expansion's arrays from torch's allocator for
+    # the fallback rung alone.
+    Ap = A.with_capacity(MatrixSig.of(A).cap_bucket)
+    pipe = entry.executable
+    ab = {"unleased": [], "leased": []}
+    ab_peak = {"unleased": 0, "leased": 0}
+    for order in (("unleased", "leased"), ("leased", "unleased"),
+                  ("unleased", "leased")):
+        for kind in order:
+            arena.reclaim()
+            lease = arena.acquire(spec, device=Ap.device) \
+                if kind == "leased" else None
+            ws = None if lease is None else (lease.i32, lease.val)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, ms = time_host(lambda: pipe(Ap, Ap, ws))
+            ab[kind].append(ms)
+            ab_peak[kind] = max(ab_peak[kind],
+                                torch.cuda.max_memory_allocated())
+            if lease is not None:
+                arena.release(lease)
+    log(f"governor pipeline with vs without the lease (in turns, the arena "
+        f"emptied before each run): "
+        f"leased median {statistics.median(ab['leased']):.1f} ms "
+        f"{['%.1f' % x for x in ab['leased']]}, peak "
+        f"{ab_peak['leased'] / 2**30:.2f} GiB; unleased median "
+        f"{statistics.median(ab['unleased']):.1f} ms "
+        f"{['%.1f' % x for x in ab['unleased']]}, peak "
+        f"{ab_peak['unleased'] / 2**30:.2f} GiB")
+    out["lease"] = dict(
+        fall_prod_bucket=fall, lease_bytes=spec.nbytes,
+        bytes_reserved=arena.bytes_reserved, lease_hits=arena.lease_hits,
+        lease_misses=arena.lease_misses, cold_ms=cold_ms,
+        steady_ms=steady_ms, steady_median_ms=statistics.median(steady_ms),
+        cold_peak_bytes=cold_peak, peak_bytes=peak, held_bytes=held,
+        host_syncs=0,
+        slice_steady_median_ms=slice_stats["steady_median_ms"],
+        slice_peak_bytes=slice_stats["peak_bytes"],
+        pipeline_leased_ms=ab["leased"], pipeline_unleased_ms=ab["unleased"],
+        pipeline_leased_peak_bytes=ab_peak["leased"],
+        pipeline_unleased_peak_bytes=ab_peak["unleased"])
+
+    # -- 2. the ladder under a cap --------------------------------------------
+    # A lease served from the free lists adds no bytes and passes any cap,
+    # so park nothing: the cap must bind.
+    arena.reclaim()
+    eng.governor = MemoryGovernor(cap_bytes=0)
+    before = read_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res, spill_ms = time_host(lambda: eng.execute(A, A))
+    spill_peak = torch.cuda.max_memory_allocated()
+    spill_launches = {k: v - before[k] for k, v in read_launches().items()}
+    st = eng.stats
+    trimmed = entry.plan.hash_schedule.fall_prod_bucket
+    tspec = entry.plan.workspace_spec()
+    require(st.arena_pressure >= 1 and st.arena_trims == 1,
+            f"cap 0: {st.arena_pressure} pressure events, "
+            f"{st.arena_trims} trims")
+    require(trimmed < fall, f"the forced trim kept fall_prod_bucket "
+            f"{trimmed} (was {fall})")
+    require(st.arena_spills >= 1, "the trimmed lease cannot fit under a cap "
+            f"of 0 B, yet the call did not spill: {st}")
+    require(spill_launches["symbolic_bin"] > 0
+            and spill_launches["numeric_bin"] > 0
+            and spill_launches["fused_bin"] == 0,
+            f"the spilled call did not run the two-pass kernels alone: "
+            f"{spill_launches}")
+    err_spill = compare_csr("spilled call vs the slice's C", res.C, C_mono)
+    del res
+    log(f"governor ladder at cap 0: {st.arena_pressure} pressure, "
+        f"{st.arena_trims} trim (fall_prod_bucket {fall} -> {trimmed}, "
+        f"lease {spec.nbytes} -> {tspec.nbytes} B), {st.arena_spills} "
+        f"spill to the two-pass steps path in {spill_ms:.1f} ms (peak "
+        f"{spill_peak / 2**30:.2f} GiB), launches symbolic_bin "
+        f"{spill_launches['symbolic_bin']}, numeric_bin "
+        f"{spill_launches['numeric_bin']}; C equal: ok")
+
+    eng.governor = MemoryGovernor()
+    torch.cuda.reset_peak_memory_stats()
+    grows = st.capacity_grows
+    eng.execute(A, A)                      # rebuilds the trimmed pipeline
+    trim_ms = []
+    for _ in range(3):
+        res, ms = time_host(lambda: eng.execute(A, A))
+        trim_ms.append(ms)
+    trim_peak = torch.cuda.max_memory_allocated()
+    require(st.capacity_grows == grows,
+            f"the trimmed schedule overflowed: {st.capacity_grows - grows} "
+            f"grows")
+    require(arena.bytes_reserved == tspec.nbytes,
+            f"arena reserves {arena.bytes_reserved} B, the trimmed lease is "
+            f"{tspec.nbytes} B")
+    compare_csr("trimmed steady call vs the slice's C", res.C, C_mono)
+    del res
+    log(f"governor trimmed plan (fall_prod_bucket {trimmed}), unbounded: "
+        f"steady median {statistics.median(trim_ms):.1f} ms "
+        f"{['%.1f' % x for x in trim_ms]} against "
+        f"{statistics.median(steady_ms):.1f} ms at {fall}, peak "
+        f"{trim_peak / 2**30:.2f} GiB against {peak / 2**30:.2f}; C "
+        f"equal: ok")
+    out["ladder"] = dict(
+        arena_pressure=st.arena_pressure, arena_trims=st.arena_trims,
+        arena_spills=st.arena_spills, trimmed_fall_prod_bucket=trimmed,
+        trimmed_lease_bytes=tspec.nbytes, spill_ms=spill_ms,
+        spill_peak_bytes=spill_peak, spill_launches=spill_launches,
+        spill_max_abs_err=err_spill, trimmed_steady_ms=trim_ms,
+        trimmed_steady_median_ms=statistics.median(trim_ms),
+        trimmed_peak_bytes=trim_peak)
+    del eng, entry, pipe
+    arena.reclaim()
+    torch.cuda.empty_cache()
+
+    # -- 3. drain backpressure under a one-lease cap --------------------------
+    # Trim and spill are off: with them on, the spill takes the refused
+    # dispatch to the steps path and the drain never backs off.
+    cap = spec.nbytes
+    arena = Arena()
+    eng = SpgemmEngine(cfg, arena=arena, governor=MemoryGovernor(
+        cap_bytes=cap, trim_under_pressure=False, spill_fused=False))
+    drains = {}
+    for ordered in (False, True):
+        arena.reset_peak()
+        pressure = eng.stats.arena_pressure
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        uids = {"mono": [eng.submit(A, A) for _ in range(3)],
+                "scircuit": [eng.submit(S, S) for _ in range(2)]}
+        results = eng.drain(window=2, drain_ordered=ordered)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        tpeak = torch.cuda.max_memory_allocated()
+        label = "ordered" if ordered else "window 2"
+        require(arena.peak_bytes <= cap, f"drain ({label}): arena peak "
+                f"{arena.peak_bytes} B over the cap {cap} B")
+        require(eng.stats.arena_pressure > pressure,
+                f"drain ({label}) met no pressure")
+        require(arena.bytes_in_use == 0, f"drain ({label}) left "
+                f"{arena.bytes_in_use} B in use")
+        for uid in uids["mono"]:
+            compare_csr(f"drain ({label}) request {uid} vs the slice's C",
+                        results[uid].C, C_mono)
+        for uid in uids["scircuit"]:
+            scipy_check(S, results[uid].C)
+        del results
+        drains[label] = dict(wall_ms=wall, peak_bytes=tpeak,
+                             arena_peak_bytes=arena.peak_bytes,
+                             pressure=eng.stats.arena_pressure - pressure)
+        log(f"governor drain ({label}) of 3 x mono_500Hz + 2 x scircuit "
+            f"under a one-lease cap ({cap} B): wall {wall:.1f} ms, torch "
+            f"peak {tpeak / 2**30:.2f} GiB, arena peak {arena.peak_bytes} "
+            f"B <= cap, {eng.stats.arena_pressure - pressure} pressure "
+            f"events; every C equal (mono) / scipy (scircuit): ok")
+    out["drain"] = dict(cap_bytes=cap, **drains)
+    del eng
+    arena.reclaim()
+    torch.cuda.empty_cache()
+
+    # -- 4. injected faults on scircuit ---------------------------------------
+    faults = {}
+    for method in ("esc", "hash"):
+        fcfg = SpgemmConfig(method=method)
+        clean = SpgemmEngine(fcfg, arena=Arena())
+        clean.execute(S, S)
+        ref = clean.execute(S, S)          # the fault-free steady result
+        scipy_check(S, ref.C)
+
+        def check(r, what):
+            if method == "esc":
+                require(_csr_bitwise(r.C, ref.C),
+                        f"{what} on esc is not bitwise equal to the "
+                        f"fault-free run")
+                return True
+            compare_csr(f"{what} on hash", r.C, ref.C)
+            return _csr_bitwise(r.C, ref.C)
+
+        f = {}
+        if method == "esc":
+            fp = FaultPlan([FaultSpec("lease_denial", at=(2, 3))])
+            eng = SpgemmEngine(fcfg, arena=Arena(), faults=fp)
+            eng.execute(S, S)
+            eng.execute(S, S)              # lease_denial visit 0
+            for _ in range(3):
+                eng.submit(S, S)
+            results = eng.drain()
+            require(len(results) == 3 and eng.stats.faults_injected == 2
+                    and fp.injected["lease_denial"] == 2,
+                    f"lease_denial: {len(results)} results, "
+                    f"{eng.stats.faults_injected} injected")
+            f["lease_denial_bitwise"] = all(
+                check(r, "lease_denial recovery") for r in results.values())
+            f["lease_denial_pressure"] = eng.stats.arena_pressure
+        fp = FaultPlan([FaultSpec("verify_overflow", at=(0,))])
+        eng = SpgemmEngine(fcfg, arena=Arena(), faults=fp)
+        eng.execute(S, S)
+        grows = eng.stats.capacity_grows
+        r1 = eng.execute(S, S)
+        require(eng.stats.capacity_grows > grows
+                and fp.injected["verify_overflow"] == 1,
+                f"verify_overflow ({method}) did not redo: {eng.stats}")
+        grows = eng.stats.capacity_grows
+        r2 = eng.execute(S, S)
+        require(eng.stats.capacity_grows == grows,
+                f"the call after verify_overflow ({method}) was not clean")
+        f["verify_overflow_bitwise"] = (check(r1, "verify_overflow redo")
+                                        and check(r2, "the next call"))
+        fp = FaultPlan([FaultSpec("executor_raise", at=(0,),
+                                  message="poisoned")])
+        eng = SpgemmEngine(fcfg, arena=Arena(), faults=fp)
+        try:
+            eng.execute(S, S)
+            raised = None
+        except InjectedFault as exc:
+            raised = exc
+        require(raised is not None and not raised.transient,
+                f"executor_raise ({method}): {raised!r}")
+        eng.execute(S, S)
+        f["executor_raise_bitwise"] = check(eng.execute(S, S),
+                                            "the request after executor_raise")
+        faults[method] = f
+        log(f"governor faults on scircuit ({method}): " + ", ".join(
+            f"{k} {v}" for k, v in f.items()) + ("; recovered C bitwise "
+            "equal to the fault-free run: ok" if method == "esc" else
+            "; rpt/col exact, values within tolerance: ok"))
+        del clean, eng, ref
+    out["faults"] = faults
+    launches = read_launches()
+    require(all(launches[k] > 0 for k in ("fused_bin", "symbolic_bin",
+                                          "numeric_bin",
+                                          "binning_histogram")),
+            f"the governed path did not launch every kernel of its own: "
+            f"{launches}")
+    out["launches"] = launches
+    torch.cuda.empty_cache()
+    return out
+
+
 def run():
     import numpy as np
     from repro_torch.kernels import build
@@ -1677,6 +2051,9 @@ def run():
     stats["binning_histogram"] = phase_binning(A, res, errs)
     stats["bsr_spmm"] = phase_bsr(errs)
     request = phase_request_path(A, res.C, S)
+    t_gov = time.perf_counter()
+    governor = phase_governor(A, res.C, S, slice_stats)
+    log(f"phase governor: {time.perf_counter() - t_gov:.1f} s")
 
     kernels = []
     for name in REPLACES:
@@ -1706,7 +2083,7 @@ def run():
         cluster_sass=cluster_sass,
         slice=slice_stats, extended=ext_stats, extended_top=top_path,
         esc=esc_stats,
-        main_shapes=stats, request_path=request,
+        main_shapes=stats, request_path=request, governor=governor,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)
 

@@ -15,6 +15,7 @@ from .analysis import (compression_ratio, exclusive_sum_in_place,
                        nprod_into_rpt, nprod_per_entry, total_nprod)
 from .spgemm import SpgemmConfig, SpgemmResult, spgemm, spgemm_reference
 from .workspace import next_bucket
+from .faults import FaultPlan, FaultSpec, InjectedFault
 from . import esc
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "exclusive_sum_in_place", "nprod_into_rpt", "nprod_per_entry",
     "total_nprod", "SpgemmConfig", "SpgemmResult", "spgemm",
     "spgemm_reference", "next_bucket", "esc",
+    "FaultPlan", "FaultSpec", "InjectedFault",
 ]

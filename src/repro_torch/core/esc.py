@@ -14,8 +14,16 @@ N and sort to the end.  Duplicate values are reduced by a segment sum over
 the sorted products (``torch.segment_reduce``): each output entry sums its
 products in sorted order, so the result is the same on every run (CUDA
 ``index_add_`` on floats adds in a different order each run).
+
+``workspace=(i32, val)`` hands the expansion its storage: an arena lease
+(``core/workspace.Arena``) of at least ``2 * prod_capacity`` int32 cells
+(row ids, then column ids) and ``prod_capacity`` value cells, written in
+place.  The arrays are the ones the expansion makes without it, so no bit
+of the result changes.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,8 +31,30 @@ from .analysis import nprod_per_entry
 from .csr import CSR
 
 
+Workspace = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _check_workspace(out: Workspace, cap: int, dev: torch.device,
+                     val_dtype: torch.dtype, with_values: bool) -> None:
+    i32, val = out
+    if (i32.dtype != torch.int32 or i32.dim() != 1 or i32.device != dev
+            or not i32.is_contiguous() or i32.numel() < 2 * cap):
+        raise ValueError(
+            f"workspace int32 buffer must be a contiguous 1-D int32 tensor "
+            f"of at least {2 * cap} cells on {dev}, got "
+            f"{tuple(i32.shape)} {i32.dtype} on {i32.device}")
+    if with_values and (val.dtype != val_dtype or val.dim() != 1
+                        or val.device != dev or not val.is_contiguous()
+                        or val.numel() < cap):
+        raise ValueError(
+            f"workspace value buffer must be a contiguous 1-D {val_dtype} "
+            f"tensor of at least {cap} cells on {dev}, got "
+            f"{tuple(val.shape)} {val.dtype} on {val.device}")
+
+
 def expand_products(A: CSR, B: CSR, *, prod_capacity: int,
-                    with_values: bool = True):
+                    with_values: bool = True,
+                    out: Optional[Workspace] = None):
     """Enumerate all intermediate products of C = A·B, row-major.
 
     Returns (rows, cols, vals, valid):
@@ -35,6 +65,10 @@ def expand_products(A: CSR, B: CSR, *, prod_capacity: int,
 
     Per-A-entry product counts -> exclusive offsets; product slot t finds
     its A entry by searchsorted and its B entry by ``t - offset[e]``.
+
+    ``out=(i32, val)`` is the storage to write into instead of allocating:
+    ``rows`` and ``cols`` are the first two ``prod_capacity`` slices of
+    ``i32``, ``vals`` the first one of ``val`` (see the module notes).
     """
     m, n = A.nrows, B.ncols
     dev = A.device
@@ -53,11 +87,23 @@ def expand_products(A: CSR, B: CSR, *, prod_capacity: int,
     a_col = A.col[e].clamp(max=B.nrows - 1).long()
     b_idx = (B.rpt[a_col] + j).clamp(max=max(B.capacity - 1, 0)).long()
 
-    rows = A.row_ids()[e].masked_fill(~valid, m)
-    cols = B.col[b_idx].masked_fill(~valid, n)
+    rows_out = cols_out = vals_out = None
+    if out is not None:
+        cap = prod_capacity
+        _check_workspace(out, cap, dev,
+                         torch.promote_types(A.val.dtype, B.val.dtype),
+                         with_values)
+        rows_out, cols_out = out[0][:cap], out[0][cap:2 * cap]
+        vals_out = out[1][:cap]
+    invalid = ~valid
+    rows = torch.index_select(A.row_ids(), 0, e, out=rows_out)
+    rows.masked_fill_(invalid, m)
+    cols = torch.index_select(B.col, 0, b_idx, out=cols_out)
+    cols.masked_fill_(invalid, n)
     vals = None
     if with_values:
-        vals = (A.val[e] * B.val[b_idx]).masked_fill(~valid, 0)
+        vals = torch.mul(A.val[e], B.val[b_idx], out=vals_out)
+        vals.masked_fill_(invalid, 0)
     return rows, cols, vals, valid
 
 
@@ -78,10 +124,11 @@ def _is_new(rows, cols, m):
     return is_new & is_real, is_real
 
 
-def symbolic(A: CSR, B: CSR, *, prod_capacity: int) -> torch.Tensor:
+def symbolic(A: CSR, B: CSR, *, prod_capacity: int,
+             workspace: Optional[Workspace] = None) -> torch.Tensor:
     """Symbolic phase: (M+1,) int32 buffer with n_nz per row in [0:M]."""
     rows, cols, _, _ = expand_products(
-        A, B, prod_capacity=prod_capacity, with_values=False)
+        A, B, prod_capacity=prod_capacity, with_values=False, out=workspace)
     rows, cols, _ = _sort_products(rows, cols, None)
     is_new, _ = _is_new(rows, cols, A.nrows)
     buf = torch.zeros(A.nrows + 1, dtype=torch.int32, device=A.device)
@@ -105,14 +152,14 @@ def _compress(rows, cols, vals, is_new, is_real, nnz_capacity: int):
 
 
 def numeric(A: CSR, B: CSR, rpt: torch.Tensor, *, prod_capacity: int,
-            nnz_capacity: int) -> CSR:
+            nnz_capacity: int, workspace: Optional[Workspace] = None) -> CSR:
     """Numeric phase: fill C.col / C.val given the symbolic phase's ``rpt``.
 
     Rows come out sorted by column id (the global (row, col) sort gives the
     paper's per-row sort for free).
     """
     rows, cols, vals, _ = expand_products(
-        A, B, prod_capacity=prod_capacity, with_values=True)
+        A, B, prod_capacity=prod_capacity, with_values=True, out=workspace)
     rows, cols, vals = _sort_products(rows, cols, vals)
     is_new, is_real = _is_new(rows, cols, A.nrows)
     col, val = _compress(rows, cols, vals, is_new, is_real, nnz_capacity)
@@ -120,11 +167,12 @@ def numeric(A: CSR, B: CSR, rpt: torch.Tensor, *, prod_capacity: int,
 
 
 def spgemm_fused(A: CSR, B: CSR, *, prod_capacity: int,
-                 nnz_capacity: int) -> CSR:
+                 nnz_capacity: int,
+                 workspace: Optional[Workspace] = None) -> CSR:
     """One-pass ESC SpGEMM (expand once, derive rpt AND values)."""
     m = A.nrows
     rows, cols, vals, _ = expand_products(
-        A, B, prod_capacity=prod_capacity, with_values=True)
+        A, B, prod_capacity=prod_capacity, with_values=True, out=workspace)
     rows, cols, vals = _sort_products(rows, cols, vals)
     is_new, is_real = _is_new(rows, cols, m)
     nnz_buf = torch.zeros(m + 1, dtype=torch.int32, device=A.device)

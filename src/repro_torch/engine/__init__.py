@@ -4,21 +4,28 @@
                  (everything derivable before data arrives), and the learned
                  :class:`HashSchedule`.
   autotune.py  — :class:`AdaptivePolicy` / :class:`PolicyState`: the learned
-                 hash-schedule headroom, and the :class:`EstimatorState`
-                 behind ``plan_mode="estimate"``.
-  cache.py     — LRU :class:`PlanCache` of plans + steady-state pipelines,
-                 with JSON ``dump``/``load`` in the reference's format.
+                 hash-schedule headroom, the :class:`EstimatorState`
+                 behind ``plan_mode="estimate"``, and the
+                 :class:`MemoryGovernor` bounding the workspace arena.
+  cache.py     — LRU :class:`PlanCache` of plans + steady-state pipelines
+                 (arena-aware eviction), with JSON ``dump``/``load`` in the
+                 reference's format.
   executor.py  — :class:`SpgemmEngine`: cold six-step path, steady-state
-                 dispatch, one-read finalize, overflow grow-and-redo,
-                 streaming submit/drain with completion-order finalize, and
-                 prewarm; ``execute`` backs ``spgemm()``.
+                 dispatch with an arena lease, one-read finalize, overflow
+                 grow-and-redo, the governor's ladder, fault sites,
+                 streaming submit/drain with completion-order finalize and
+                 backpressure, and prewarm; ``execute`` backs ``spgemm()``.
   stats.py     — pipeline-build accounting and registry-backed engine and
                  plan counters; ``render`` is ``SpgemmEngine.report``.
   telemetry.py — spans, metrics registry, ring-buffer event log, and the
                  JSONL / Chrome trace_event exporters.
 """
-from .autotune import (AdaptivePolicy, EstimatorState, PolicyState,
-                       trim_schedule)
+from repro_torch.core.workspace import (Arena, ArenaPressureError, Lease,
+                                        LeaseSpec, default_arena,
+                                        reset_default_arena)
+
+from .autotune import (AdaptivePolicy, EstimatorState, MemoryGovernor,
+                       PolicyState, trim_schedule)
 from .cache import CacheEntry, PlanCache
 from .executor import (SpgemmEngine, SpgemmRequest, StepTimer,
                        default_engine, reset_default_engine)
@@ -31,6 +38,8 @@ from .telemetry import (LATENCY_BUCKETS_S, EventLog, MetricsRegistry, Span,
 
 __all__ = [
     "AdaptivePolicy", "EstimatorState", "PolicyState", "trim_schedule",
+    "Arena", "ArenaPressureError", "Lease", "LeaseSpec", "MemoryGovernor",
+    "default_arena", "reset_default_arena",
     "CacheEntry", "PlanCache", "SpgemmEngine", "SpgemmRequest", "StepTimer",
     "default_engine", "reset_default_engine", "HashSchedule", "MatrixSig",
     "PlanKey", "SpgemmPlan", "plan", "plan_key", "EngineStats", "PlanStats",

@@ -22,8 +22,12 @@ calls the schedule is re-derived from the observed maxima at a shrunken
 headroom and swapped in (one pipeline rebuild) when that drops padding
 rows or whole rungs.  At most one trim fires per overflow epoch.
 
-The shard-count policy (``choose_shards``/``revise_shards``) and the
-``MemoryGovernor`` wait for the port's sharding and workspace arena.
+:class:`MemoryGovernor`
+    The bound on the workspace arena's bytes and the degradation ladder
+    the executor walks under it.
+
+The shard-count policy (``choose_shards``/``revise_shards``) waits for the
+port's sharding.
 """
 from __future__ import annotations
 
@@ -301,3 +305,37 @@ def trim_schedule(state: PolicyState, current, *, m: int,
             and fall == current.fall_prod_bucket):
         return None
     return sym, num, fall
+
+
+# ---------------------------------------------------------------------------
+# Memory governor.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MemoryGovernor:
+    """Bound on total arena bytes with a graceful-degradation ladder.
+
+    ``cap_bytes`` bounds the arena's *reserved* bytes (leased + pooled);
+    ``None`` means unbounded (every lease is granted).  When a lease
+    would exceed the cap the executor walks the ladder, cheapest rung
+    first:
+
+      1. ``Arena.reclaim()``: drop idle pooled buffers and retry.
+      2. forced headroom trim (``trim_under_pressure``): re-derive the
+         hash schedule at ``headroom_min`` from the streak's observed
+         maxima, shrinking the plan's lease spec, and retry.
+      3. fused->two-pass spill (``spill_fused``): route the request
+         through the unleased two-pass steps path for this call.
+      4. :class:`~repro_torch.core.workspace.ArenaPressureError`: the
+         caller must finalize in-flight work (returning leases) or raise
+         the cap; ``SpgemmEngine.drain`` does exactly that before
+         re-raising.
+
+    ``retry_after_s`` is the backpressure hint a serving layer hands a
+    rejected request (the reference's ``SpgemmService``).
+    """
+
+    cap_bytes: Optional[int] = None
+    trim_under_pressure: bool = True
+    spill_fused: bool = True
+    retry_after_s: float = 0.05

@@ -5,19 +5,22 @@ The cache holds, per plan signature, the specialized
 built for it, so a repeat shape bucket skips the cold six-step path.
 Hit/miss/eviction counts are first-class, and ``dump``/``load`` persist
 the learned plans as JSON in the reference's format (version 4), so a
-dump of either package loads into the other.  The reference's arena-aware
-eviction waits for the port's workspace arena.
+dump of either package loads into the other.  With an arena attached,
+eviction is arena-aware, as in the reference: it forfeits the evicted
+entry's in-flight workspace leases, and breaks LRU ties by arena
+footprint.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import threading
 from collections import OrderedDict
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
 from repro_torch.core.spgemm import SpgemmConfig
-from repro_torch.core.workspace import next_bucket
+from repro_torch.core.workspace import Arena, Lease, next_bucket
 
 from . import telemetry as telemetry_mod
 from .autotune import PolicyState
@@ -35,21 +38,33 @@ _LOADABLE_VERSIONS = (1, 2, 3, 4)
 
 @dataclasses.dataclass
 class CacheEntry:
-    """A cached plan plus its steady-state pipeline and counters."""
+    """A cached plan plus its steady-state pipeline, counters and the
+    workspace leases its dispatches hold."""
 
     plan: SpgemmPlan
     executable: Optional[Callable] = None
     stats: PlanStats = dataclasses.field(default_factory=PlanStats)
+    leases: List[Lease] = dataclasses.field(default_factory=list)
+    last_used: int = 0    # monotone LRU stamp
 
 
 class PlanCache:
     """Thread-safe LRU cache keyed by plan signature.  Inserting counts as
-    use; a hit moves the entry to the young end."""
+    use; a hit moves the entry to the young end.
 
-    def __init__(self, capacity: int = 64, *, telemetry=None):
+    With an ``arena`` attached, eviction is arena-aware: evicting an entry
+    forfeits its outstanding workspace leases (the arena drops their bytes
+    from accounting; queued device work may still write the buffers, so
+    they are NOT recycled), and LRU ties are broken by arena footprint,
+    evicting the entry holding the most workspace first.
+    """
+
+    def __init__(self, capacity: int = 64, *, telemetry=None,
+                 arena: Optional[Arena] = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
+        self.arena = arena
         self.hits = 0        # guarded-by: _lock
         self.misses = 0      # guarded-by: _lock
         self.evictions = 0   # guarded-by: _lock
@@ -58,6 +73,7 @@ class PlanCache:
         self.telemetry = (telemetry if telemetry is not None
                           else telemetry_mod.NULL)
         self._lock = threading.Lock()
+        self._stamp = itertools.count(1)
         self._entries: "OrderedDict[PlanKey, CacheEntry]" = OrderedDict()  # guarded-by: _lock
 
     # -- lookup ------------------------------------------------------------
@@ -69,6 +85,7 @@ class PlanCache:
                 self.misses += 1
                 return None
             self._entries.move_to_end(key)
+            entry.last_used = next(self._stamp)
             self.hits += 1
             return entry
 
@@ -84,25 +101,60 @@ class PlanCache:
         with self._lock:
             return self._insert_locked(plan)
 
-    def _insert_locked(self, plan: SpgemmPlan) -> CacheEntry:
+    def _footprint(self, entry: CacheEntry) -> int:
+        """Arena bytes this entry answers for: outstanding (in-flight)
+        lease bytes plus the lease its specialized plan would take."""
+        spec = entry.plan.workspace_spec()
+        return (sum(lease.spec.nbytes for lease in entry.leases
+                    if lease.active)
+                + (spec.nbytes if spec is not None else 0))
+
+    def _release_entry_locked(self, entry: CacheEntry) -> None:
+        """Drop an evicted entry's pipeline and forfeit its outstanding
+        arena leases (accounting only: the buffers may still be written by
+        queued device work and are never recycled)."""
+        entry.executable = None
+        if self.arena is not None:
+            for lease in entry.leases:
+                self.arena.forfeit(lease)
+        entry.leases.clear()
+
+    def _evict_one_locked(self, protect: Optional[PlanKey] = None) -> None:
+        """Evict the LRU victim; ties (same ``last_used``: plans loaded
+        together and never hit since) go to the largest arena footprint,
+        so capacity pressure frees the most workspace.  ``protect`` (the
+        key just inserted) is never the victim."""
+        key = min((k for k in self._entries if k != protect),
+                  key=lambda k: (self._entries[k].last_used,
+                                 -self._footprint(self._entries[k])))
+        evicted = self._entries.pop(key)
+        self._release_entry_locked(evicted)
+        self.evictions += 1
+        self.telemetry.event("plan_evict", plan=plan_label(evicted.plan))
+
+    def _insert_locked(self, plan: SpgemmPlan,
+                       stamp: Optional[int] = None) -> CacheEntry:
+        """Insert-and-evict body; the caller holds ``self._lock``.
+        Insertion counts as use; ``stamp`` lets a batch insert
+        (:meth:`load`) give every loaded plan ONE shared stamp, so the
+        footprint tie-break decides among loaded-but-unused plans."""
         entry = CacheEntry(plan=plan)
+        entry.last_used = stamp if stamp is not None else next(self._stamp)
         self._entries[plan.signature] = entry
         self._entries.move_to_end(plan.signature)
         self.telemetry.event("plan_insert", plan=plan_label(plan))
         while len(self._entries) > self.capacity:
-            _, evicted = self._entries.popitem(last=False)
-            evicted.executable = None
-            self.evictions += 1
-            self.telemetry.event("plan_evict", plan=plan_label(evicted.plan))
+            self._evict_one_locked(protect=plan.signature)
         return entry
 
     def evict(self, key: PlanKey) -> bool:
-        """Explicitly evict one entry; returns whether it was present."""
+        """Explicitly evict one entry, forfeiting its arena leases.
+        Returns whether the key was present."""
         with self._lock:
             entry = self._entries.pop(key, None)
             if entry is None:
                 return False
-            entry.executable = None
+            self._release_entry_locked(entry)
             self.evictions += 1
         self.telemetry.event("plan_evict", plan=plan_label(entry.plan))
         return True
@@ -156,10 +208,11 @@ class PlanCache:
         # One critical section for the whole merge: a concurrent grow must
         # not interleave between the read of an entry and its write-back.
         with self._lock:
+            batch_stamp = next(self._stamp)   # loaded plans tie on LRU age
             for plan in plans:
                 existing = self._entries.get(plan.signature)
                 if existing is None:
-                    self._insert_locked(plan)
+                    self._insert_locked(plan, stamp=batch_stamp)
                     continue
                 merged = existing.plan
                 if plan.prod_bucket is not None:
@@ -206,7 +259,7 @@ class PlanCache:
     def clear(self) -> None:
         with self._lock:
             for entry in self._entries.values():
-                entry.executable = None
+                self._release_entry_locked(entry)   # no lease leaks
             self._entries.clear()
 
 

@@ -27,9 +27,18 @@ device work is done); ``prewarm`` specializes a plan ahead of traffic;
 estimator (``core/analysis.estimate_result``) instead of the full
 symbolic pass; the hash headroom is learned per plan
 (``engine/autotune``); ``EngineStats``, spans and ``report()`` come from
-``engine/stats`` and ``engine/telemetry``.  The reference's workspace
-arena (leases, memory governor, pressure retries), fault injection and
-sharded dispatch wait for later slices.
+``engine/stats`` and ``engine/telemetry``.
+
+Each steady-state dispatch leases its product-expansion storage from the
+workspace arena (``core/workspace.Arena``, shared process-wide by default)
+and returns it at finalize, after the host read.  A
+:class:`~repro_torch.engine.autotune.MemoryGovernor` caps the arena's
+bytes; under the cap the dispatch walks the reference's ladder (reclaim,
+forced schedule trim, fused->two-pass spill, ``ArenaPressureError``), and
+``drain`` answers the last rung with backpressure.  A
+:class:`~repro_torch.core.faults.FaultPlan` injects lease denials, verify
+overflows, dispatch errors and stalls at the reference's sites.  The
+reference's sharded dispatch waits for a later slice.
 """
 from __future__ import annotations
 
@@ -38,7 +47,7 @@ import itertools
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -48,12 +57,14 @@ from repro_torch.core.analysis import (estimate_result,
                                        nprod_into_rpt)
 from repro_torch.core.binning import bin_rows, bin_rows_for_ladder
 from repro_torch.core.csr import CSR
+from repro_torch.core.faults import FaultPlan, InjectedFault, resolve_faults
 from repro_torch.core.spgemm import SpgemmConfig, SpgemmResult
-from repro_torch.core.workspace import next_bucket
+from repro_torch.core.workspace import (Arena, ArenaPressureError, Lease,
+                                        default_arena, next_bucket)
 from repro_torch.kernels import spgemm_hash
 
 from . import autotune, stats as stats_mod
-from .autotune import AdaptivePolicy, PolicyState
+from .autotune import AdaptivePolicy, MemoryGovernor, PolicyState
 from .cache import CacheEntry, PlanCache
 from .plan import HashSchedule, MatrixSig, SpgemmPlan, plan as make_plan
 from .stats import EngineStats
@@ -210,33 +221,39 @@ def _execute_steps(A: CSR, B: CSR, plan: SpgemmPlan, timer: StepTimer, *,
 
 # ---------------------------------------------------------------------------
 # Path 2: the steady-state pipelines (one per specialized plan).
+#
+# Each is called as ``body(A, B, ws)``: ``ws`` is the plan's arena lease
+# ``(i32, val)`` when ``plan.workspace_spec()`` is not None (the storage of
+# its product expansion, written in place), else None.
 # ---------------------------------------------------------------------------
 
 def _build_hot_executable(plan: SpgemmPlan) -> Callable:
     """ESC steady state: the whole two-phase flow with the plan's buckets,
-    no host read; totals come back as device scalars for finalize."""
+    no host read; totals come back as device scalars for finalize.  Both
+    expansions (symbolic, then numeric) write the one lease in turn."""
     assert plan.is_specialized and plan.config.method == "esc"
     m = plan.a_sig.nrows
     config = plan.config
     sym_ladder, num_ladder = plan.sym_ladder, plan.num_ladder
     prod_cap, nnz_cap = plan.prod_bucket, plan.nnz_bucket
 
-    def body(A: CSR, B: CSR):
+    def body(A: CSR, B: CSR, ws=None):
         nprod = nprod_into_rpt(A, B)[:m]
         total_nprod = nprod.sum()
         sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
                                num_bins=sym_ladder.num_bins)
-        nnz_buf = esc.symbolic(A, B, prod_capacity=prod_cap)
+        nnz_buf = esc.symbolic(A, B, prod_capacity=prod_cap, workspace=ws)
         nnz = nnz_buf[:m]
         num_binning = bin_rows(nnz, upper=num_ladder.upper,
                                num_bins=num_ladder.num_bins)
         total_nnz = nnz.sum()
         if config.fuse_esc:
             C = esc.spgemm_fused(A, B, prod_capacity=prod_cap,
-                                 nnz_capacity=nnz_cap)
+                                 nnz_capacity=nnz_cap, workspace=ws)
         else:
             C = esc.numeric(A, B, exclusive_sum_in_place(nnz_buf),
-                            prod_capacity=prod_cap, nnz_capacity=nnz_cap)
+                            prod_capacity=prod_cap, nnz_capacity=nnz_cap,
+                            workspace=ws)
         return C, total_nprod, total_nnz, sym_binning, num_binning
 
     return body
@@ -253,7 +270,7 @@ def _build_hash_executable(plan: SpgemmPlan) -> Callable:
     sched = plan.hash_schedule
     nnz_cap = plan.nnz_bucket
 
-    def body(A: CSR, B: CSR):
+    def body(A: CSR, B: CSR, ws=None):
         nprod = nprod_into_rpt(A, B)[:m]
         total_nprod = nprod.sum()
         sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
@@ -263,7 +280,7 @@ def _build_hash_executable(plan: SpgemmPlan) -> Callable:
             row_buckets=sched.sym_row_buckets,
             fallback_prod_capacity=sched.fall_prod_bucket,
             single_access=config.hash_single_access,
-            row_packing=config.row_packing)
+            row_packing=config.row_packing, workspace=ws)
         nnz = nnz_buf[:m]
         num_binning = bin_rows(nnz, upper=num_ladder.upper,
                                num_bins=num_ladder.num_bins)
@@ -272,7 +289,7 @@ def _build_hash_executable(plan: SpgemmPlan) -> Callable:
             A, B, exclusive_sum_in_place(nnz_buf), num_binning, num_ladder,
             row_buckets=sched.num_row_buckets, nnz_capacity=nnz_cap,
             fallback_prod_capacity=sched.fall_prod_bucket,
-            single_access=config.hash_single_access)
+            single_access=config.hash_single_access, workspace=ws)
         return (C, total_nprod, total_nnz, sym_binning, num_binning,
                 sym_fall_prod, num_fall_prod)
 
@@ -293,7 +310,7 @@ def _build_fused_hash_executable(plan: SpgemmPlan) -> Callable:
     sched = plan.hash_schedule
     nnz_cap = plan.nnz_bucket
 
-    def body(A: CSR, B: CSR):
+    def body(A: CSR, B: CSR, ws=None):
         nprod = nprod_into_rpt(A, B)[:m]
         total_nprod = nprod.sum()
         sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
@@ -303,7 +320,7 @@ def _build_fused_hash_executable(plan: SpgemmPlan) -> Callable:
             row_buckets=sched.sym_row_buckets, nnz_capacity=nnz_cap,
             fallback_prod_capacity=sched.fall_prod_bucket,
             single_access=config.hash_single_access,
-            row_packing=config.row_packing)
+            row_packing=config.row_packing, workspace=ws)
         total_nnz = nnz.sum()
         # No numeric phase runs; the n_nz binning stays in the result so
         # steady calls report what cold calls report.
@@ -356,6 +373,7 @@ class _Pending:
     # compile_dispatch), merged into the result's timings.
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
     done: Optional[torch.cuda.Event] = None   # recorded after the dispatch
+    lease: Optional[Lease] = None  # arena workspace checked out at dispatch
 
 
 Record = Union[_Finished, _Pending]
@@ -406,19 +424,35 @@ class SpgemmEngine:
     steady-state call without reading the device, ``finalize`` makes its
     one host read.  ``policy`` tunes the :class:`AdaptivePolicy` knobs (hash
     headroom, trims, estimator); ``telemetry=True`` records spans and
-    events.
+    events.  ``arena`` is the workspace arena steady-state calls lease
+    from (the process-wide ``default_arena()`` unless given), ``governor``
+    the :class:`MemoryGovernor` bounding it (unbounded unless given), and
+    ``faults`` a :class:`FaultPlan` of injections (none unless given).
     """
 
     def __init__(self, config: Optional[SpgemmConfig] = None, *,
                  cache_capacity: int = 64,
                  policy: Optional[AdaptivePolicy] = None,
-                 telemetry: Union[Telemetry, bool, None] = None):
+                 telemetry: Union[Telemetry, bool, None] = None,
+                 arena: Optional[Arena] = None,
+                 governor: Optional[MemoryGovernor] = None,
+                 faults: Optional[FaultPlan] = None):
         self.config = config or SpgemmConfig()
         self.policy = policy or AdaptivePolicy()
+        # Every engine shares ONE arena by default, so the traffic of all
+        # of them is bounded together; pass an Arena for isolation.  The
+        # default governor is unbounded.
+        self.arena = arena if arena is not None else default_arena()
+        self.governor = governor or MemoryGovernor()
         # Disabled by default: spans and events are no-ops, but the
         # registry still backs EngineStats and the plan counters.
         self.telemetry = resolve_telemetry(telemetry)
-        self.cache = PlanCache(cache_capacity, telemetry=self.telemetry)
+        # Fault injection at the sites lease_denial (workspace lease),
+        # verify_overflow (finalize), executor_raise and slow_dispatch
+        # (dispatch); the disabled default costs one attribute read.
+        self.faults = resolve_faults(faults)
+        self.cache = PlanCache(cache_capacity, telemetry=self.telemetry,
+                               arena=self.arena)
         self.stats = EngineStats(registry=self.telemetry.registry)
         # The estimator's headroom is learned across plans: its misses are
         # a property of the traffic, not of one signature.
@@ -427,6 +461,13 @@ class SpgemmEngine:
         self._hist_request = reg.histogram("opsparse_request_latency_seconds")
         self._hist_cold = reg.histogram("opsparse_cold_steps_seconds")
         self._hist_finalize = reg.histogram("opsparse_finalize_seconds")
+        # Snapshots of the (possibly shared) arena's accounting, set on
+        # every lease transition.
+        self._arena_gauges = {name: reg.gauge(name) for name in (
+            "opsparse_arena_bytes_in_use", "opsparse_arena_bytes_reserved",
+            "opsparse_arena_peak_bytes", "opsparse_arena_lease_hits_total",
+            "opsparse_arena_lease_misses_total",
+            "opsparse_arena_pressure_events_total")}
         self._queue: List[SpgemmRequest] = []
         self._uids = itertools.count()
 
@@ -505,7 +546,10 @@ class SpgemmEngine:
         flight, and pending records are finalized in COMPLETION order, so
         a slow request does not hold up the small ones dispatched after
         it.  ``drain_ordered=True`` finalizes in dispatch order with one
-        record in flight.
+        record in flight.  A dispatch refused by the memory governor
+        (``ArenaPressureError``) is backpressure: one in-flight record is
+        finalized (returning its lease) and the dispatch retried; with
+        nothing in flight the error is raised.
         """
         queue, self._queue = self._queue, []
         self.stats.drains += 1
@@ -522,7 +566,16 @@ class SpgemmEngine:
             if drain_ordered:
                 inflight: Optional[Record] = None
                 for req in ordered:
-                    rec = self._dispatch(req.uid, req.A, req.B, req.config)
+                    try:
+                        rec = self._dispatch(req.uid, req.A, req.B,
+                                             req.config)
+                    except ArenaPressureError:
+                        if inflight is None:
+                            raise
+                        results[inflight.uid] = self._finalize(inflight)
+                        inflight = None
+                        rec = self._dispatch(req.uid, req.A, req.B,
+                                             req.config)
                     if inflight is not None:
                         if not isinstance(inflight, _Finished):
                             self.stats.overlapped += 1
@@ -539,7 +592,15 @@ class SpgemmEngine:
                 # memory bound) holds at the moment of dispatch.
                 while len(pending) >= window:
                     self._reap_one(pending, results)
-                rec = self._dispatch(req.uid, req.A, req.B, req.config)
+                while True:
+                    try:
+                        rec = self._dispatch(req.uid, req.A, req.B,
+                                             req.config)
+                        break
+                    except ArenaPressureError:
+                        if not pending:
+                            raise
+                        self._reap_one(pending, results)
                 if any(not isinstance(r, _Finished) for r in pending):
                     self.stats.overlapped += 1   # planned k+1 while k ran
                 pending.append(rec)
@@ -566,6 +627,145 @@ class SpgemmEngine:
                 return
         rec = pending.pop(0)
         results[rec.uid] = self._finalize(rec)
+
+    def _update_arena_gauges(self) -> None:
+        """Snapshot the (possibly shared) arena's accounting into this
+        engine's registry gauges; called on every lease transition."""
+        a = self.arena
+        g = self._arena_gauges
+        g["opsparse_arena_bytes_in_use"].set(a.bytes_in_use)
+        g["opsparse_arena_bytes_reserved"].set(a.bytes_reserved)
+        g["opsparse_arena_peak_bytes"].set(a.peak_bytes)
+        g["opsparse_arena_lease_hits_total"].set(a.lease_hits)
+        g["opsparse_arena_lease_misses_total"].set(a.lease_misses)
+        g["opsparse_arena_pressure_events_total"].set(a.pressure_events)
+
+    # -- fault-injection sites (core/faults.py) -------------------------------
+    def _note_fault(self, site: str, uid: int) -> None:
+        self.stats.faults_injected += 1
+        self.telemetry.event("fault_injected", uid=uid, site=site)
+
+    def _consult_dispatch_faults(self, uid: int) -> None:
+        """``executor_raise`` and ``slow_dispatch``, consulted once per
+        request."""
+        faults = self.faults
+        if not faults.enabled:
+            return
+        spec = faults.fire("executor_raise", uid=uid)
+        if spec is not None:
+            self._note_fault("executor_raise", uid)
+            raise InjectedFault(
+                spec.message or f"injected executor fault (uid={uid})",
+                site="executor_raise", transient=spec.transient)
+        spec = faults.fire("slow_dispatch", uid=uid)
+        if spec is not None and spec.delay_s > 0:
+            self._note_fault("slow_dispatch", uid)
+            time.sleep(spec.delay_s)
+
+    def _try_lease(self, spec, cap, device, uid: int) -> Optional[Lease]:
+        """Arena acquisition behind the ``lease_denial`` site: an injected
+        denial is indistinguishable from the cap binding, so the governor
+        ladder (and the drain's backpressure above it) runs for real.
+        Each acquisition attempt, the ladder's retries included, is one
+        visit of the site."""
+        if self.faults.enabled \
+                and self.faults.fire("lease_denial", uid=uid) is not None:
+            self._note_fault("lease_denial", uid)
+            return None
+        return self.arena.try_acquire(spec, cap, device)
+
+    def _forced_overflow(self, uid: int) -> bool:
+        """``verify_overflow``: one visit per steady-state finalize that
+        found no real overflow."""
+        if not self.faults.enabled:
+            return False
+        if self.faults.fire("verify_overflow", uid=uid) is None:
+            return False
+        self._note_fault("verify_overflow", uid)
+        return True
+
+    # -- the workspace lease ------------------------------------------------
+    def _lease_workspace(self, entry: CacheEntry, uid: int,
+                         device: torch.device) -> Tuple[Optional[Lease], bool]:
+        """Check the plan's workspace out of the arena, walking the
+        governor's degradation ladder under pressure.
+
+        Returns ``(lease, spill)``: ``lease`` is ``None`` for plans with
+        nothing leasable (``workspace_spec() is None``) and under a spill;
+        ``spill=True`` routes THIS call through the unleased two-pass
+        steps path.  Raises :class:`ArenaPressureError` when the ladder is
+        exhausted (``drain`` answers it with backpressure)."""
+        spec = entry.plan.workspace_spec()
+        if spec is None:
+            return None, False
+        cap = self.governor.cap_bytes
+        lease = self._try_lease(spec, cap, device, uid)
+        if lease is None:
+            # rung 0: the cap binds: count the pressure, drop idle pooled
+            # buffers, retry.
+            self.arena.note_pressure()
+            self.stats.arena_pressure += 1
+            self.telemetry.event("arena_pressure", uid=uid,
+                                 want_bytes=spec.nbytes, cap_bytes=cap,
+                                 reserved=self.arena.bytes_reserved)
+            self.arena.reclaim()
+            lease = self._try_lease(spec, cap, device, uid)
+        if lease is None and self.governor.trim_under_pressure:
+            # rung 1: forced headroom trim: re-derive the hash schedule at
+            # the policy floor from the streak's observed maxima, which
+            # shrinks the plan's lease (and drops its pipeline).
+            plan = entry.plan
+            state = plan.policy
+            if (plan.config.method == "hash"
+                    and plan.hash_schedule is not None
+                    and state is not None and state.sym_max is not None):
+                forced = dataclasses.replace(
+                    state, headroom=self.policy.headroom_min)
+                trimmed = autotune.trim_schedule(
+                    forced, plan.hash_schedule, m=plan.a_sig.nrows,
+                    sym_ladder=plan.sym_ladder,
+                    packed=plan.config.row_packing,
+                    fused=plan.config.fuse_numeric, policy=self.policy)
+                if trimmed is not None:
+                    self.stats.arena_trims += 1
+                    entry.stats.schedule_trims += 1
+                    self.telemetry.event("arena_trim", uid=uid)
+                    self.cache.specialize(
+                        entry,
+                        plan.with_hash_schedule(HashSchedule(*trimmed))
+                        .with_policy(forced.after_trim(self.policy)))
+                    spec = entry.plan.workspace_spec()
+                    if spec is None:
+                        return None, False
+                    lease = self._try_lease(spec, cap, device, uid)
+        if lease is None and self.governor.spill_fused \
+                and entry.plan.config.method == "hash" \
+                and entry.plan.config.fuse_numeric:
+            # rung 2: spill the fused plan to the two-pass steps path for
+            # this call: no lease, no arena growth, the same C.  Hash-fused
+            # only: an ESC "spill" would allocate the same expansion per
+            # call, outside the arena's accounting.
+            self.stats.arena_spills += 1
+            self.telemetry.event("arena_spill", uid=uid)
+            return None, True
+        if lease is None:
+            # rung 3: refuse; the caller must return leases first.
+            raise ArenaPressureError(
+                f"workspace lease of {spec.nbytes} bytes exceeds the "
+                f"governor cap ({cap} bytes; "
+                f"{self.arena.bytes_reserved} reserved)")
+        self._update_arena_gauges()
+        return lease, False
+
+    def _release_ws(self, rec: _Pending) -> None:
+        """Return a dispatch's lease to the arena; called after finalize's
+        host read, when the device work that wrote it is done."""
+        if rec.lease is not None:
+            lease, rec.lease = rec.lease, None
+            self.arena.release(lease)
+            if lease in rec.entry.leases:
+                rec.entry.leases.remove(lease)
+            self._update_arena_gauges()
 
     def _estimate_specialize(self, entry: CacheEntry, A: CSR, B: CSR,
                              uid: int) -> Dict[str, float]:
@@ -641,6 +841,7 @@ class SpgemmEngine:
             raise ValueError(f"inner dimensions differ: {A.shape} @ "
                              f"{B.shape}")
         self.stats.requests += 1
+        self._consult_dispatch_faults(uid)
         t0 = time.perf_counter()
         tel = self.telemetry
         # The request span stays OPEN across dispatch and finalize: it
@@ -694,6 +895,26 @@ class SpgemmEngine:
             entry.stats.time_s += time.perf_counter() - t0
             return _Finished(uid, result, span=span, t0=t0)
 
+        # The lease comes BEFORE the pipeline: a forced pressure trim
+        # re-specializes the entry, and the build must see that plan.
+        lease, spill = self._lease_workspace(entry, uid, A.device)
+        if spill:
+            # Fused->two-pass spill: this call runs the unleased steps
+            # path (the same C); the plan and its pipeline stay cached for
+            # when the pressure clears.
+            state = entry.plan.policy or PolicyState(
+                headroom=self.policy.headroom_init)
+            with tel.span("arena_spill_steps", parent=span, uid=uid):
+                result, _, _, _ = _execute_steps(
+                    A, B, entry.plan,
+                    StepTimer(config.timing, tracer=tel, uid=uid),
+                    headroom=state.headroom)
+            entry.stats.steps_calls += 1
+            entry.stats.time_s += time.perf_counter() - t0
+            return _Finished(uid, result, span=span, t0=t0)
+        plan = entry.plan
+        if lease is not None:
+            entry.leases.append(lease)   # eviction forfeits outstanding ones
         if entry.executable is None:
             with tel.span("build_executable", parent=span, uid=uid):
                 t_build = time.perf_counter()
@@ -709,14 +930,15 @@ class SpgemmEngine:
                     est_timings["build"] = time.perf_counter() - t_build
         with tel.span("dispatch", parent=span, uid=uid):
             t_disp = time.perf_counter()
-            handles = entry.executable(A, B)        # no host read
+            ws = None if lease is None else (lease.i32, lease.val)
+            handles = entry.executable(A, B, ws)    # no host read
             done = _record_done(A.device)
             if est_timings is not None:
                 est_timings["compile_dispatch"] = (time.perf_counter()
                                                    - t_disp)
         entry.stats.hot_calls += 1
         return _Pending(uid, entry, plan, A, B, handles, t0, span=span,
-                        timings=est_timings or {}, done=done)
+                        timings=est_timings or {}, done=done, lease=lease)
 
     def _finalize(self, rec: Record) -> SpgemmResult:
         tel = self.telemetry
@@ -773,12 +995,15 @@ class SpgemmEngine:
                 total_nprod, total_nnz = _host_ints(tnp, tnz)
             schedule_ok = True
             admit = None
-            if total_nprod > plan.prod_bucket:
-                return self._grow_and_redo(rec, total_nprod, total_nnz)
+        # The host read waited for the stream that wrote the workspace.
+        self._release_ws(rec)
+        if method != "hash" and total_nprod > plan.prod_bucket:
+            return self._grow_and_redo(rec, total_nprod, total_nnz)
         if not schedule_ok:
             self.stats.bin_overflows += 1
             rec.entry.stats.bin_overflows += 1
-        if not schedule_ok or total_nnz > plan.nnz_bucket:
+        if (not schedule_ok or total_nnz > plan.nnz_bucket
+                or self._forced_overflow(rec.uid)):
             return self._grow_and_redo(rec, total_nprod, total_nnz,
                                        schedule_overflow=not schedule_ok)
         if admit is not None:

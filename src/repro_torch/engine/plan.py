@@ -10,8 +10,10 @@ Plans are progressive (Liu & Vinter-style ahead-of-time allocation): a
 fresh plan has no product/nnz buckets (they depend on data); the first
 execution *learns* them and :meth:`SpgemmPlan.with_capacities` produces
 the specialized plan that steady-state traffic runs against.  The
-adaptive-policy state rides on the plan as ``policy``.  The reference's
-shard and workspace-lease fields wait for the port's sharding and arena.
+adaptive-policy state rides on the plan as ``policy``, and
+:meth:`SpgemmPlan.workspace_spec` is the size class of the arena lease its
+steady state takes.  The reference's shard field waits for the port's
+sharding.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 from repro_torch.core.binning_ranges import BinLadder
 from repro_torch.core.csr import CSR
 from repro_torch.core.spgemm import SpgemmConfig
-from repro_torch.core.workspace import next_bucket
+from repro_torch.core.workspace import LeaseSpec, WorkspacePlan, next_bucket
 
 from .autotune import PolicyState
 
@@ -107,7 +109,9 @@ class SpgemmPlan:
     (pow-2 capacities of the product expansion and of C) and, for the
     hash method, ``hash_schedule``.  ``policy`` is the adaptive-policy
     state (``engine/autotune``): updated without dropping the pipeline
-    and persisted by ``PlanCache.dump/load``.
+    and persisted by ``PlanCache.dump/load``.  ``sym_workspace`` and
+    ``num_workspace`` are the fused metadata layouts of the two binnings
+    (§5.3), derived from (M, NUM_BIN) alone.
     """
 
     a_sig: MatrixSig
@@ -115,6 +119,8 @@ class SpgemmPlan:
     config: SpgemmConfig
     sym_ladder: BinLadder
     num_ladder: BinLadder
+    sym_workspace: WorkspacePlan
+    num_workspace: WorkspacePlan
     prod_bucket: Optional[int] = None
     nnz_bucket: Optional[int] = None
     hash_schedule: Optional[HashSchedule] = None
@@ -146,6 +152,31 @@ class SpgemmPlan:
         shapes: the cached pipeline stays valid)."""
         return dataclasses.replace(self, policy=state)
 
+    def workspace_spec(self) -> Optional[LeaseSpec]:
+        """Size class of the arena lease this plan's steady state takes, or
+        ``None`` when the plan has nothing leasable: not yet specialized,
+        or a hash plan whose fallback rung is statically absent
+        (``fall_prod_bucket == 0``: nothing to expand).  (The reference's
+        sharded parent plans lease nothing either; the port plans no
+        shards yet.)
+
+        ESC leases the product expansion (row ids + col ids as one int32
+        buffer, values apart); hash plans lease the fallback rung's
+        sub-expansion with the same 2:1 int32:value cell split.  Both
+        phases of a two-pass hash plan share ONE lease: the shared
+        ``fall_prod_bucket`` makes that sound."""
+        if not self.is_specialized or self.config.shards > 1:
+            return None
+        dtype = self.a_sig.dtype
+        if self.config.method == "hash":
+            fall = self.hash_schedule.fall_prod_bucket
+            if not fall:
+                return None
+            return LeaseSpec(i32_cells=2 * fall, val_cells=fall,
+                             val_dtype=dtype)
+        return LeaseSpec(i32_cells=2 * self.prod_bucket,
+                         val_cells=self.prod_bucket, val_dtype=dtype)
+
 
 def plan(a_sig: MatrixSig, b_sig: MatrixSig,
          config: SpgemmConfig = SpgemmConfig()) -> SpgemmPlan:
@@ -162,8 +193,11 @@ def plan(a_sig: MatrixSig, b_sig: MatrixSig,
         raise NotImplementedError(
             "sharding waits for a later slice of the port (shards must be 1)")
     sym_ladder, num_ladder = config.ladders()
-    return SpgemmPlan(a_sig=a_sig, b_sig=b_sig, config=config,
-                      sym_ladder=sym_ladder, num_ladder=num_ladder)
+    return SpgemmPlan(
+        a_sig=a_sig, b_sig=b_sig, config=config,
+        sym_ladder=sym_ladder, num_ladder=num_ladder,
+        sym_workspace=WorkspacePlan(a_sig.nrows, sym_ladder.num_bins),
+        num_workspace=WorkspacePlan(a_sig.nrows, num_ladder.num_bins))
 
 
 def plan_key(A: CSR, B: CSR, config: SpgemmConfig) -> PlanKey:

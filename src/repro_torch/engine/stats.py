@@ -128,8 +128,7 @@ class PlanStats(_RegistryStats):
 
 class EngineStats(_RegistryStats):
     """Engine-level counters (cache counters live on the PlanCache).  The
-    reference's counters of sharding, the arena and fault injection come
-    with those layers.
+    reference's sharding counters come with the port's sharding.
 
     requests          user-visible requests
     overlapped        request k+1 planned while k ran on the device
@@ -139,15 +138,20 @@ class EngineStats(_RegistryStats):
     reordered         drain() finalizes ahead of dispatch order
     peak_inflight     max concurrent dispatches a drain() held (gauge)
     schedule_trims    headroom-policy hash-schedule shrinks
+    arena_pressure    governor-cap lease refusals (degradation entered)
+    arena_trims       forced headroom trims under arena pressure
+    arena_spills      fused calls spilled to the unleased two-pass path
     estimates         cold plans specialized from the sampling estimator
     estimate_hits     estimated plans confirmed by an admitted finalize
     estimate_misses   estimated plans corrected by an overflow redo
+    faults_injected   scheduled FaultPlan injections this engine consumed
     """
 
     _PREFIX = "opsparse_engine_"
     _COUNTERS = ("requests", "overlapped", "capacity_grows", "bin_overflows",
-                 "drains", "reordered", "schedule_trims", "estimates",
-                 "estimate_hits", "estimate_misses")
+                 "drains", "reordered", "schedule_trims", "arena_pressure",
+                 "arena_trims", "arena_spills", "estimates",
+                 "estimate_hits", "estimate_misses", "faults_injected")
     _GAUGES = ("peak_inflight",)
 
 
@@ -180,11 +184,22 @@ def render(engine) -> str:
             s.drains, s.reordered, s.peak_inflight),
         "policy: %d schedule trims" % s.schedule_trims,
     ]
+    if s.faults_injected:
+        lines.append("faults: %d scheduled injections consumed"
+                     % s.faults_injected)
     if s.estimates:
         lines.append(
             "estimate: %d estimated plans, %d confirmed / %d redone, "
             "headroom %.2f" % (s.estimates, s.estimate_hits,
                                s.estimate_misses, engine.est_state.headroom))
+    arena = engine.arena
+    lines.append(
+        "arena: %d B in use / %d B reserved (peak %d B), "
+        "%d hits / %d misses, %d pressure events "
+        "(%d trims, %d spills)" % (
+            arena.bytes_in_use, arena.bytes_reserved, arena.peak_bytes,
+            arena.lease_hits, arena.lease_misses, arena.pressure_events,
+            s.arena_trims, s.arena_spills))
     tel = engine.telemetry
     if tel.enabled:
         spans = sum(1 for e in tel.events.snapshot()

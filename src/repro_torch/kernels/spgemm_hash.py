@@ -808,7 +808,8 @@ def _scatter_nnz(nnz_buf, rows, valid, nnz_rows, m: int) -> None:
 def symbolic_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder,
                        *, row_buckets, fallback_prod_capacity: int = 0,
                        single_access: bool = True, row_packing: bool = False,
-                       collect_accesses: bool = False):
+                       collect_accesses: bool = False,
+                       workspace: Optional[esc.Workspace] = None):
     """Symbolic phase over a bucketed schedule, with no host sync.
 
     Rungs are dispatched LARGEST first (the §5.5 launch-order rule),
@@ -819,6 +820,8 @@ def symbolic_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder,
     accesses (0 unless ``collect_accesses``).  ``row_packing`` packs
     ``ladder.rows_per_block[b]`` rows per block (``row_buckets`` must then
     be multiples of the pack, as ``host_schedule(packs=...)`` makes them).
+    ``workspace`` (an arena lease's buffers) is the fallback rung's
+    expansion storage (``esc.expand_products(out=...)``).
     """
     _check_schedule(row_buckets, ladder, fallback_prod_capacity)
     m = A.nrows
@@ -834,7 +837,8 @@ def symbolic_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder,
             sub = gather_rows(A, rows, valid)
             sub_prod = _fallback_sub_prod(A, B, rows, valid)
             sub_nnz = esc.symbolic(sub, B,
-                                   prod_capacity=fallback_prod_capacity)
+                                   prod_capacity=fallback_prod_capacity,
+                                   workspace=workspace)
             _scatter_nnz(nnz_buf, rows, valid, sub_nnz[:rows.shape[0]], m)
 
     for b in range(len(ladder.table_sizes) - 1, -1, -1):
@@ -935,11 +939,12 @@ def numeric_scheduled(A: CSR, B: CSR, rpt: torch.Tensor, binning: Binning,
                       ladder: BinLadder, *, row_buckets, nnz_capacity: int,
                       fallback_prod_capacity: int = 0,
                       single_access: bool = True,
-                      collect_accesses: bool = False):
+                      collect_accesses: bool = False,
+                      workspace: Optional[esc.Workspace] = None):
     """Numeric phase over a bucketed schedule, with no host sync.
 
-    Mirrors :func:`symbolic_scheduled`.  Returns ``(C, sub_prod,
-    accesses)``; the caller verifies ``sub_prod`` against
+    Mirrors :func:`symbolic_scheduled` (``workspace`` included).  Returns
+    ``(C, sub_prod, accesses)``; the caller verifies ``sub_prod`` against
     ``fallback_prod_capacity``.
     """
     _check_schedule(row_buckets, ladder, fallback_prod_capacity)
@@ -957,7 +962,8 @@ def numeric_scheduled(A: CSR, B: CSR, rpt: torch.Tensor, binning: Binning,
             sub_prod = _fallback_sub_prod(A, B, rows, valid)
             subC = esc.spgemm_fused(sub, B,
                                     prod_capacity=fallback_prod_capacity,
-                                    nnz_capacity=fallback_prod_capacity)
+                                    nnz_capacity=fallback_prod_capacity,
+                                    workspace=workspace)
             scatter_sub_rows(subC, rows, valid, rpt, c_col, c_val,
                              nnz_capacity=nnz_capacity)
 
@@ -1063,7 +1069,8 @@ def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
                     row_buckets, nnz_capacity: int,
                     fallback_prod_capacity: int = 0,
                     single_access: bool = True, row_packing: bool = False,
-                    collect_accesses: bool = False):
+                    collect_accesses: bool = False,
+                    workspace: Optional[esc.Workspace] = None):
     """Fused symbolic->numeric phase over a bucketed schedule, no host sync.
 
     ONE binning (by n_prod, the symbolic ladder) and ONE table build per
@@ -1078,7 +1085,9 @@ def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
     (:func:`launch_fused_rungs`): forked from the current stream after the
     fallback rung, one side stream each, largest tables first, and joined
     back into the current stream before the exclusive sum.  On the CPU they
-    run one after another in the same order.
+    run one after another in the same order.  The fallback rung, and with
+    it ``workspace`` (the expansion's storage, as in
+    :func:`symbolic_scheduled`), stays on the current stream.
 
     Returns ``(C, nnz, sub_prod, accesses)``: the assembled CSR, the (M,)
     per-row nnz, the fallback rung's product total to verify against
@@ -1103,7 +1112,8 @@ def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
             sub_prod = _fallback_sub_prod(A, B, rows, valid)
             subC = esc.spgemm_fused(sub, B,
                                     prod_capacity=fallback_prod_capacity,
-                                    nnz_capacity=fallback_prod_capacity)
+                                    nnz_capacity=fallback_prod_capacity,
+                                    workspace=workspace)
             _scatter_nnz(nnz_buf, rows, valid, subC.nnz_per_row(), m)
         fallback = (subC, rows, valid)
 
