@@ -99,6 +99,24 @@ Phases, in order; any failure exits non-zero:
      off (arena peak <= cap, pressure met, every C checked); injected
      faults on scircuit (lease_denial in a drain, verify_overflow,
      executor_raise): ESC recovers bitwise, hash within tolerance.
+  7c. row-block sharding, with its own launch counts, after the earlier
+     phases' engines and leases are dropped: SpgemmEngine(SpgemmConfig(
+     method="hash"), shards=N) on mono_500Hz for N = 2 and 4, one cold
+     and STEADY_CALLS steady calls each, every C equal to the slice's (on
+     the card: rpt/col exact, values within tolerance); the spec's
+     bounds, each shard's share of row_flops (the largest at most total/N
+     plus the largest row), the distinct sub-plans, each sub-plan's
+     fall_prod_bucket and their sum beside the unsharded one, cold and
+     steady ms, the shard_merge span and the merge timed alone on the
+     card (CUDA events), peak memory, launches per steady call; at N = 4
+     one steady dispatch under torch's sync debug mode "error" (no host
+     sync) and one profiled steady call; a drain (window 2) of 2 x
+     mono_500Hz + 2 x scircuit on a shards=2 engine (4 sharded requests,
+     0 shard grows, 4 request latencies, every C checked), its Chrome
+     trace validated and its Prometheus text parsed line by line (the
+     sharding counters and the arena gauges present); AUTO_SHARDS with
+     the default policy (1 shard on one card, no fan-out) and with
+     AdaptivePolicy(max_shards=4) (its decision and flop basis, C equal).
   8. output: a "kernels" JSON line (all five kernels; the cluster kernel
      once for each of the three hash wrappers, named <kernel>_cluster,
      its launches those of the extended phase; the global kernel once for
@@ -112,6 +130,8 @@ also writes every measured number (per rung, per phase) as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -1992,6 +2012,350 @@ def phase_governor(A, C_mono, S, slice_stats):
     return out
 
 
+def compare_on_card(what, C, D):
+    """C against D, both on the card: rpt/col exact, val within tol
+    (compared where they lie: mono's C is 4 GiB)."""
+    nz = int(D.rpt[-1])
+    require(torch.equal(C.rpt, D.rpt), f"{what}: rpt differs")
+    require(torch.equal(C.col[:nz], D.col[:nz]), f"{what}: col differs")
+    cv, dv = C.val[:nz], D.val[:nz]
+    err = float((cv - dv).abs().max()) if nz else 0.0
+    require(torch.allclose(cv, dv, rtol=VAL_RTOL, atol=VAL_ATOL),
+            f"{what}: values differ by up to {err:.3e}")
+    return err
+
+
+def dispatch_syncs_nothing(eng, A, what):
+    """One steady dispatch under torch's sync debug mode "error" (any host
+    sync raises), then its finalize outside it."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rec = eng.dispatch(A, A)
+    except RuntimeError as exc:
+        raise SmokeError(f"{what}: the steady dispatch synced the host: "
+                         f"{str(exc).splitlines()[0]}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return eng.finalize(rec)
+
+
+def check_prometheus(text, names):
+    """Every sample line of ``text`` is ``name{labels} value`` under one
+    ``# TYPE`` header of its metric; each of ``names`` has a sample."""
+    typed, seen = set(), set()
+    for line in text.strip().splitlines():
+        if line.startswith("# TYPE "):
+            parts = line.split()
+            require(len(parts) == 4 and parts[2] not in typed
+                    and parts[3] in ("counter", "gauge", "histogram"),
+                    f"prometheus: bad TYPE line {line!r}")
+            typed.add(parts[2])
+            continue
+        sample, _, value = line.rpartition(" ")
+        try:
+            float(value)
+        except ValueError:
+            raise SmokeError(f"prometheus: bad value in {line!r}")
+        base = sample.split("{")[0]
+        require(("{" not in sample or sample.endswith("}"))
+                and any(base == n or base.startswith(n + "_")
+                        for n in typed),
+                f"prometheus: sample without its TYPE header: {line!r}")
+        seen.add(base)
+    missing = [n for n in names if n not in seen]
+    require(not missing, f"prometheus: no sample of {missing}")
+    return len(typed)
+
+
+def shard_key(eng, A, s, n):
+    """The plan key of shard s's sub-plan in a shards=n engine on A·A."""
+    from repro_torch.engine import MatrixSig
+    parent = eng.cache.peek((MatrixSig.of(A), MatrixSig.of(A),
+                             dataclasses.replace(eng.config, shards=n)))
+    spec = parent.plan.shard_spec
+    sig = MatrixSig(spec.row_buckets[s], A.ncols, spec.cap_buckets[s],
+                    MatrixSig.of(A).dtype)
+    return (sig, MatrixSig.of(A), eng.config)
+
+
+def phase_sharded(A, C_mono, S, unsharded_plan, slice_stats):
+    """Row-block sharding on the one card: mono_500Hz at shards = 2 and
+    4, a host-sync check, a sharded drain, AUTO_SHARDS, and the sharded
+    engine's Chrome trace and Prometheus text."""
+    import tempfile
+    from repro_torch import SpgemmConfig
+    from repro_torch.core.analysis import row_flops
+    from repro_torch.engine import (AdaptivePolicy, Arena, MatrixSig,
+                                    SpgemmEngine, default_arena,
+                                    prometheus_text, reset_default_engine,
+                                    validate_chrome_trace)
+    cfg = SpgemmConfig(method="hash")
+    # Earlier phases' engines and leases go; the slice's C stays (the
+    # reference every sharded C is held to).  An engine in a reference
+    # cycle frees its device memory only when the collector runs.
+    reset_default_engine()
+    default_arena().reclaim()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {}
+    flops = row_flops(A, A)
+    total_flops, max_row = int(flops.sum()), int(flops.max())
+    unsharded_fall = unsharded_plan.hash_schedule.fall_prod_bucket
+    per_call_unsharded = {
+        k: slice_stats["steady_launches"][k] / STEADY_CALLS
+        for k in ("fused_bin", "binning_histogram")}
+    reset_launches()          # this path's counts, read at its end
+
+    for n in (2, 4):
+        arena = Arena()
+        eng = SpgemmEngine(cfg, shards=n, arena=arena, telemetry=True)
+        key = (MatrixSig.of(A), MatrixSig.of(A),
+               SpgemmConfig(method="hash", shards=n))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        before = read_launches()
+        res, cold_ms = time_host(lambda: eng.execute(A, A))
+        cold_launches = {k: v - before[k] for k, v in read_launches().items()}
+        err_cold = compare_on_card(f"shards={n} cold C vs the slice's C",
+                                   res.C, C_mono)
+        cap = res.C.capacity
+        del res
+        # Each shard's sub-plan as the cold call left it (the steady calls
+        # may trim it: every shard's finalize is one admitted call of it).
+        cold_buckets = [eng.cache.peek(shard_key(eng, A, s, n))
+                        .plan.hash_schedule.fall_prod_bucket
+                        for s in range(n)]
+        steady_ms = []
+        before = read_launches()
+        for _ in range(STEADY_CALLS):
+            res, ms = time_host(lambda: eng.execute(A, A))
+            steady_ms.append(ms)
+        launches = {k: v - before[k] for k, v in read_launches().items()}
+        peak = torch.cuda.max_memory_allocated()
+        err = compare_on_card(f"shards={n} steady C vs the slice's C",
+                              res.C, C_mono)
+        require(res.total_nnz == int(C_mono.rpt[-1]),
+                f"shards={n}: total_nnz {res.total_nnz}")
+        del res
+        parent = eng.cache.peek(key)
+        spec = parent.plan.shard_spec
+        require(spec is not None and spec.n_shards == n,
+                f"shards={n}: parent plan's spec {spec}")
+        shares = [int(flops[spec.bounds[s]:spec.bounds[s + 1]].sum())
+                  for s in range(n)]
+        require(max(shares) <= total_flops / n + max_row,
+                f"shards={n}: shard flops {shares} exceed total/N + the "
+                f"largest row ({total_flops / n + max_row:.0f})")
+        subs = {}
+        for s in range(n):
+            sub = eng.cache.peek(shard_key(eng, A, s, n))
+            require(sub is not None and sub.plan.is_specialized,
+                    f"shards={n}: shard {s} has no specialized sub-plan")
+            subs[s] = sub
+        distinct = {id(e): e for e in subs.values()}
+        buckets = [subs[s].plan.hash_schedule.fall_prod_bucket
+                   for s in range(n)]
+        fused_per_call = launches["fused_bin"] / STEADY_CALLS
+        require(launches["fused_bin"] > 0
+                and cold_launches["symbolic_bin"] > 0
+                and cold_launches["numeric_bin"] > 0,
+                f"shards={n}: the sharded path did not launch its kernels: "
+                f"cold {cold_launches}, steady {launches}")
+        require(launches["symbolic_bin"] == 0 and launches["numeric_bin"] == 0,
+                f"shards={n}: steady calls ran the two-pass kernels: "
+                f"{launches}")
+        spans = [s for s in eng.telemetry.finished_spans()
+                 if s["name"] == "shard_merge"]
+        merge_span_ms = [s["dur"] * 1e3 for s in spans]
+
+        # The merge's device time: one more steady request whose shards
+        # are finalized here, then the merge alone under CUDA events.
+        rec = eng.dispatch(A, A)
+        parts = tuple(eng.finalize(r).C for r in rec.shard_recs)
+        merge = parent.executable
+        merge_ms = time_cuda(lambda: merge(parts), 3)
+        merged = merge(parts)
+        compare_on_card(f"shards={n} merge alone vs the slice's C", merged,
+                        C_mono)
+        eng.telemetry.end_span(rec.span)
+        del rec, parts, merged
+
+        row = dict(
+            bounds=list(spec.bounds), row_buckets=list(spec.row_buckets),
+            cap_buckets=list(spec.cap_buckets), flop_shares=shares,
+            flop_share_bound=total_flops / n + max_row,
+            distinct_sub_plans=len(distinct),
+            cold_fall_prod_buckets=cold_buckets,
+            fall_prod_buckets=buckets, fall_prod_bucket_sum=sum(buckets),
+            unsharded_fall_prod_bucket=unsharded_fall,
+            schedule_trims=eng.stats.schedule_trims,
+            sub_plan_schedules=sorted({str(e.plan.hash_schedule)
+                                       for e in distinct.values()}),
+            sub_plan_nnz_buckets=[subs[s].plan.nnz_bucket
+                                  for s in range(n)],
+            merged_capacity=cap, cold_ms=cold_ms, steady_ms=steady_ms,
+            steady_median_ms=statistics.median(steady_ms),
+            merge_span_ms=merge_span_ms, merge_device_ms=merge_ms,
+            peak_bytes=peak, held_bytes=held, cold_launches=cold_launches,
+            steady_launches=launches,
+            fused_bin_per_steady_call=fused_per_call,
+            binning_histogram_per_steady_call=(
+                launches["binning_histogram"] / STEADY_CALLS),
+            unsharded_per_steady_call=per_call_unsharded,
+            capacity_grows=eng.stats.capacity_grows,
+            shard_grows=eng.stats.shard_grows,
+            max_abs_err=max(err, err_cold))
+        log(f"sharded mono_500Hz shards={n}: bounds {spec.bounds}, row "
+            f"buckets {spec.row_buckets}, cap buckets {spec.cap_buckets}; "
+            f"flop shares {[round(x / total_flops, 4) for x in shares]} "
+            f"(largest {max(shares)} <= total/N + largest row "
+            f"{total_flops / n + max_row:.0f}); {len(distinct)} distinct "
+            f"sub-plan(s); fall_prod_bucket per shard after the cold call "
+            f"{cold_buckets}, sum {sum(cold_buckets)}, after the steady "
+            f"calls {buckets}, sum {sum(buckets)} ({eng.stats.schedule_trims}"
+            f" schedule trims; unsharded {unsharded_fall}); merged capacity "
+            f"{cap}; sub-plan schedule(s) {row['sub_plan_schedules']}")
+        log(f"  cold {cold_ms:.1f} ms, steady median "
+            f"{statistics.median(steady_ms):.1f} ms "
+            f"{['%.1f' % x for x in steady_ms]} (unsharded "
+            f"{slice_stats['steady_median_ms']:.1f}, cold "
+            f"{slice_stats['cold_ms']:.1f}); shard_merge span "
+            f"{['%.2f' % x for x in merge_span_ms]} ms (host), the merge "
+            f"on the card {merge_ms:.2f} ms; peak {peak / 2**30:.2f} GiB "
+            f"({held / 2**30:.2f} held before, the slice's C among it); "
+            f"launches per steady call fused_bin {fused_per_call:g} "
+            f"(unsharded {per_call_unsharded['fused_bin']:g}), "
+            f"binning_histogram {row['binning_histogram_per_steady_call']:g}"
+            f"; cold launches {cold_launches}; C equal, values within "
+            f"{row['max_abs_err']:.3e}: ok")
+        out[f"shards_{n}"] = row
+        if n == 4:
+            res = dispatch_syncs_nothing(eng, A, "shards=4")
+            compare_on_card("shards=4 sync-checked call vs the slice's C",
+                            res.C, C_mono)
+            del res
+            prof = profile_steady(lambda: eng.execute(A, A))
+            log(f"  profile of one shards=4 steady call: wall "
+                f"{prof['wall_ms']:.1f} ms, device busy "
+                f"{prof['device_busy_ms']:.1f} ms, idle share "
+                f"{prof['device_idle_share']:.3f}, ranges " + ", ".join(
+                    f"{k} {v:.1f} ms" for k, v in
+                    prof["range_device_ms"].items()))
+            out["shards_4"]["profile"] = prof
+            log("  shards=4 steady dispatch under sync debug mode "
+                "'error': 0 host syncs: ok")
+        del eng, parent, subs, distinct
+        arena.reclaim()
+        torch.cuda.empty_cache()
+
+    # -- a drain of 2 x mono + 2 x scircuit on a shards=2 engine --------------
+    eng = SpgemmEngine(cfg, shards=2, arena=Arena(), telemetry=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    uids = {"mono": [eng.submit(A, A) for _ in range(2)],
+            "scircuit": [eng.submit(S, S) for _ in range(2)]}
+    results = eng.drain(window=2)
+    torch.cuda.synchronize()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    dpeak = torch.cuda.max_memory_allocated()
+    for uid in uids["mono"]:
+        compare_on_card(f"sharded drain request {uid} vs the slice's C",
+                        results[uid].C, C_mono)
+    s_ref = [scipy_check(S, results[uid].C) for uid in uids["scircuit"]]
+    del results
+    st = eng.stats
+    hist = eng.telemetry.registry.get("opsparse_request_latency_seconds")
+    require(st.sharded_requests == 4 and st.shard_grows == 0
+            and st.requests == 4 and hist.count == 4,
+            f"sharded drain: {st.sharded_requests} sharded requests, "
+            f"{st.shard_grows} shard grows, {st.requests} requests, "
+            f"{hist.count} request latencies")
+    log(f"sharded drain (shards=2, window 2) of 2 x mono_500Hz + 2 x "
+        f"scircuit: wall {drain_ms:.1f} ms, peak {dpeak / 2**30:.2f} GiB; "
+        f"4 sharded requests, 0 shard grows, 4 request latencies; C equal "
+        f"(mono) / scipy (scircuit): ok")
+
+    # -- telemetry of the sharded engine --------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "sharded_trace.json"
+        payload = eng.telemetry.export_chrome_trace(path)
+        n_events = validate_chrome_trace(path)
+    names = {e["name"] for e in payload["traceEvents"]}
+    require({"partition", "shard", "verify_slices", "shard_merge"} <= names,
+            f"sharded trace lacks sharding spans: {sorted(names)}")
+    text = prometheus_text(eng)
+    n_types = check_prometheus(text, (
+        "opsparse_engine_sharded_requests_total",
+        "opsparse_engine_shard_grows_total",
+        "opsparse_engine_auto_requests_total",
+        "opsparse_engine_policy_revisions_total",
+        "opsparse_arena_bytes_in_use", "opsparse_arena_bytes_reserved",
+        "opsparse_arena_peak_bytes", "opsparse_plan_calls_total"))
+    require("opsparse_engine_sharded_requests_total 4" in text,
+            "prometheus: the sharded counter is not 4")
+    log(f"sharded telemetry: Chrome trace of {n_events} events validates "
+        f"(partition, shard, verify_slices, shard_merge spans); Prometheus "
+        f"text of {len(text.splitlines())} lines under {n_types} TYPE "
+        f"headers parses, with the sharding counters and the arena gauges: "
+        f"ok")
+    out["drain"] = dict(wall_ms=drain_ms, peak_bytes=dpeak, scircuit=s_ref,
+                        trace_events=n_events,
+                        prometheus_lines=len(text.splitlines()))
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- AUTO_SHARDS ----------------------------------------------------------
+    auto = {}
+    for label, policy in (("default", AdaptivePolicy()),
+                          ("max_shards=4", AdaptivePolicy(max_shards=4))):
+        eng = SpgemmEngine(cfg, shards="auto", policy=policy, arena=Arena())
+        res, cold_ms = time_host(lambda: eng.execute(A, A))
+        del res
+        res, steady_ms = time_host(lambda: eng.execute(A, A))
+        err = compare_on_card(f"AUTO ({label}) C vs the slice's C", res.C,
+                              C_mono)
+        del res
+        akey = (MatrixSig.of(A), MatrixSig.of(A),
+                SpgemmConfig(method="hash", shards=0))
+        state = eng.cache.peek(akey).plan.policy
+        st = eng.stats
+        if label == "default":
+            require(state.shard_decision == 1 and st.sharded_requests == 0,
+                    f"AUTO on one card chose {state.shard_decision} shards "
+                    f"({st.sharded_requests} sharded requests)")
+        else:
+            require(state.shard_decision > 1
+                    and st.sharded_requests == st.auto_requests == 2,
+                    f"AUTO (max_shards=4) chose {state.shard_decision}, "
+                    f"{st.sharded_requests} sharded of {st.auto_requests}")
+        auto[label] = dict(decision=state.shard_decision,
+                           basis_flops=state.shard_basis,
+                           devices=torch.cuda.device_count(),
+                           sharded_requests=st.sharded_requests,
+                           auto_requests=st.auto_requests, cold_ms=cold_ms,
+                           steady_ms=steady_ms, max_abs_err=err)
+        log(f"AUTO_SHARDS ({label} policy): decision "
+            f"{state.shard_decision} from {state.shard_basis} flops on "
+            f"{torch.cuda.device_count()} card(s), {st.sharded_requests} of "
+            f"{st.auto_requests} requests sharded; cold {cold_ms:.1f} ms, "
+            f"steady {steady_ms:.1f} ms; C equal: ok")
+        del eng
+        torch.cuda.empty_cache()
+    out["auto"] = auto
+    launches = read_launches()
+    require(all(launches[k] > 0 for k in ("fused_bin", "symbolic_bin",
+                                          "numeric_bin")),
+            f"the sharded path did not launch every kernel of its own: "
+            f"{launches}")
+    out["launches"] = launches
+    log(f"phase sharded launches: {launches}")
+    return out
+
+
 def run():
     import numpy as np
     from repro_torch.kernels import build
@@ -2054,6 +2418,9 @@ def run():
     t_gov = time.perf_counter()
     governor = phase_governor(A, res.C, S, slice_stats)
     log(f"phase governor: {time.perf_counter() - t_gov:.1f} s")
+    t_shard = time.perf_counter()
+    sharded = phase_sharded(A, res.C, S, plan, slice_stats)
+    log(f"phase sharded: {time.perf_counter() - t_shard:.1f} s")
 
     kernels = []
     for name in REPLACES:
@@ -2084,6 +2451,7 @@ def run():
         slice=slice_stats, extended=ext_stats, extended_top=top_path,
         esc=esc_stats,
         main_shapes=stats, request_path=request, governor=governor,
+        sharded=sharded,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)
 

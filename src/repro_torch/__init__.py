@@ -7,9 +7,9 @@ CPU, and ``spgemm`` runs where its operands live: on CUDA tensors the
 kernels are the hand-written ones in ``kernels/csrc``, on CPU tensors
 their plain PyTorch versions.
 """
-from .core import (CSR, SpgemmConfig, SpgemmResult, random_csr, spgemm,
-                   spgemm_reference)
+from .core import (AUTO_SHARDS, CSR, SpgemmConfig, SpgemmResult,
+                   random_csr, spgemm, spgemm_reference)
 from .convert import csr_from_reference, csr_to_numpy
 
-__all__ = ["CSR", "SpgemmConfig", "SpgemmResult", "random_csr", "spgemm",
+__all__ = ["AUTO_SHARDS", "CSR", "SpgemmConfig", "SpgemmResult", "random_csr", "spgemm",
            "spgemm_reference", "csr_from_reference", "csr_to_numpy"]

@@ -12,8 +12,10 @@ from .binning import (Binning, bin_rows, bin_rows_for_ladder,
 from .binning_ranges import (BinLadder, make_ladder, numeric_ladder,
                              symbolic_ladder, SYMBOLIC_SWEEP, NUMERIC_SWEEP)
 from .analysis import (compression_ratio, exclusive_sum_in_place,
-                       nprod_into_rpt, nprod_per_entry, total_nprod)
-from .spgemm import SpgemmConfig, SpgemmResult, spgemm, spgemm_reference
+                       nprod_into_rpt, nprod_per_entry, row_flops,
+                       total_nprod)
+from .spgemm import (AUTO_SHARDS, SpgemmConfig, SpgemmResult, spgemm,
+                     spgemm_reference)
 from .workspace import next_bucket
 from .faults import FaultPlan, FaultSpec, InjectedFault
 from . import esc
@@ -24,7 +26,7 @@ __all__ = [
     "BinLadder", "make_ladder", "numeric_ladder", "symbolic_ladder",
     "SYMBOLIC_SWEEP", "NUMERIC_SWEEP", "compression_ratio",
     "exclusive_sum_in_place", "nprod_into_rpt", "nprod_per_entry",
-    "total_nprod", "SpgemmConfig", "SpgemmResult", "spgemm",
+    "row_flops", "total_nprod", "AUTO_SHARDS", "SpgemmConfig", "SpgemmResult", "spgemm",
     "spgemm_reference", "next_bucket", "esc",
     "FaultPlan", "FaultSpec", "InjectedFault",
 ]

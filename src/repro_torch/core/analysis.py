@@ -56,6 +56,20 @@ def total_nprod(A: CSR, B: CSR) -> torch.Tensor:
     return nprod_per_entry(A, B).sum(dtype=torch.int64)
 
 
+def row_flops(A: CSR, B: CSR) -> np.ndarray:
+    """(M,) int64 HOST array: flop estimate per output row, 2 * n_prod
+    (one multiply and one add per intermediate product).
+
+    The load-balance weight of row-block sharding: splitting A by
+    cumulative row flops rather than by row count keeps the shards of a
+    skewed matrix even.  The doubling happens on the host in int64, since
+    ``2 * nprod`` in int32 wraps.  This read is the partitioner's one
+    cold-call host sync.
+    """
+    nprod = nprod_into_rpt(A, B)[:A.nrows].cpu().numpy()
+    return 2 * nprod.astype(np.int64)
+
+
 def compression_ratio(A: CSR, B: CSR, C: CSR) -> float:
     """Paper Eq. (3): total n_prod / nnz(C)."""
     npd = int(total_nprod(A, B))

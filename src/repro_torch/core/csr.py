@@ -153,6 +153,55 @@ class CSR:
             col, val = self.col[:cap], self.val[:cap]
         return CSR(rpt=self.rpt, col=col, val=val, shape=self.shape)
 
+    def to(self, device: Device) -> "CSR":
+        """The same matrix on ``device`` (itself when already there)."""
+        dev = torch.device(device)
+        if self.device == dev:
+            return self
+        return CSR(rpt=self.rpt.to(dev), col=self.col.to(dev),
+                   val=self.val.to(dev), shape=self.shape)
+
+    def row_slice(self, start: int, stop: int, *,
+                  nrows: Optional[int] = None,
+                  capacity: Optional[int] = None) -> "CSR":
+        """Rows ``[start, stop)`` as a new CSR with rebased row pointers.
+
+        The substrate of row-block sharding: each shard of A is a
+        ``row_slice`` whose product with the full B is an ordinary SpGEMM.
+        ``nrows`` / ``capacity`` pad the slice to static buckets (trailing
+        empty rows, zero-filled storage), so every same-bucket slice has
+        the same shapes.  The bounds and sizes are host ints; the entry
+        offsets stay on the device, so slicing never syncs the host.
+
+        A ``capacity`` below the slice's nnz truncates silently, as in the
+        reference (the engine checks the slice sizes at finalize).  The
+        truncated slice keeps its leading entries, and its row pointers
+        are clamped to the capacity so that it stays a valid CSR: torch
+        raises on the out-of-range gathers that JAX clamps.
+        """
+        n_real = stop - start
+        out_rows = nrows if nrows is not None else n_real
+        if not 0 <= start <= stop <= self.nrows:
+            raise ValueError(f"row slice [{start}, {stop}) of "
+                             f"{self.nrows} rows")
+        if out_rows < n_real:
+            raise ValueError(f"nrows {out_rows} < the slice's {n_real}")
+        cap = int(capacity) if capacity is not None else self.capacity
+        if cap < 1:
+            raise ValueError(f"capacity {cap} < 1")
+        dev = self.device
+        rpt_w = self.rpt[start:stop + 1]          # (n_real+1,), on device
+        base = rpt_w[0]
+        rpt = torch.empty(out_rows + 1, dtype=torch.int32, device=dev)
+        rpt[:n_real + 1] = (rpt_w - base).clamp(max=cap)
+        rpt[n_real + 1:] = rpt[n_real]            # padding rows are empty
+        idx = base + torch.arange(cap, dtype=torch.int32, device=dev)
+        valid = idx < rpt_w[-1]
+        safe = idx.clamp(0, self.capacity - 1).long()
+        return CSR(rpt=rpt, col=self.col[safe].masked_fill(~valid, 0),
+                   val=self.val[safe].masked_fill(~valid, 0),
+                   shape=(out_rows, self.ncols))
+
 
 def gather_rows(A: CSR, rows: torch.Tensor, valid: torch.Tensor,
                 nnz_capacity: Optional[int] = None) -> CSR:

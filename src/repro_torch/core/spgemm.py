@@ -19,13 +19,20 @@ cold steps.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
 from .binning import Binning
 from .binning_ranges import BinLadder, numeric_ladder, symbolic_ladder
 from .csr import CSR
+
+
+# ``SpgemmConfig.shards`` sentinel: the engine's adaptive policy picks the
+# shard count from the flop estimate (``repro_torch.engine.autotune``)
+# instead of a static knob.  0 (not None) keeps the config JSON-trivial and
+# totally ordered, as in the reference.
+AUTO_SHARDS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +43,9 @@ class SpgemmConfig:
     version on CPU tensors and its CUDA kernel on CUDA tensors.
     ``plan_mode="estimate"`` sizes cold plans from the sampling estimator
     (``core/analysis.estimate_result``) instead of the full symbolic pass,
-    as in the reference.  ``shards`` other than 1 waits for the port's
-    sharding and is refused by the planner.
+    as in the reference.  ``shards=N`` fans each request out into N
+    flop-balanced row blocks of A; ``shards=AUTO_SHARDS`` lets the engine's
+    adaptive policy choose N.
     """
 
     method: str = "esc"              # "esc" | "hash"
@@ -50,7 +58,8 @@ class SpgemmConfig:
     row_packing: bool = False        # hash: several small rows per block
     interpret: Optional[bool] = None
     timing: bool = False             # per-step wall-clock (benchmarks)
-    shards: int = 1
+    shards: int = 1                  # row-block shards of A (engine fan-out;
+                                     # AUTO_SHARDS = policy-chosen)
     plan_mode: str = "exact"         # "exact" | "estimate"
 
     def ladders(self) -> tuple[BinLadder, BinLadder]:
@@ -74,17 +83,26 @@ class SpgemmResult:
         return self.total_nprod / max(self.total_nnz, 1)
 
 
-def spgemm(A: CSR, B: CSR, config: SpgemmConfig = SpgemmConfig()
-           ) -> SpgemmResult:
+def spgemm(A: CSR, B: CSR, config: SpgemmConfig = SpgemmConfig(), *,
+           shards: Union[int, str, None] = None) -> SpgemmResult:
     """C = A · B in CSR, two-phase, binned, statically bucketed.
 
     Runs where the operands live, through the shared
     :class:`repro_torch.engine.SpgemmEngine`: the call is planned against
     the operands' shape-bucket signatures, and repeat signatures go
     straight to the plan's steady-state pipeline.
+
+    ``shards=N`` partitions A into N flop-balanced row blocks and fans the
+    product out into per-shard sub-dispatches whose results are merged
+    back into one CSR with the same nnz and structure.  ``shards="auto"``
+    (or ``AUTO_SHARDS``) lets the engine's adaptive policy pick N per plan
+    from the flop estimate.
     """
     if A.ncols != B.nrows:
         raise ValueError(f"inner dimensions differ: {A.shape} @ {B.shape}")
+    if shards is not None:
+        shards = AUTO_SHARDS if shards == "auto" else int(shards)
+        config = dataclasses.replace(config, shards=shards)
     # Imported here: core is the engine's substrate, so the import points
     # engine -> core at module-load time and core -> engine only here.
     from repro_torch.engine.executor import default_engine

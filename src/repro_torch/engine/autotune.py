@@ -1,17 +1,19 @@
 """Adaptive execution policy learned from the engine's own telemetry.
 
-A port of the policy half of ``repro/engine/autotune.py`` (paper §4.3:
-the binning/hashing policy trades hash-table padding against the
-rebuilds an overflow costs and must follow the workload):
+A port of ``repro/engine/autotune.py`` (paper §4.3: the binning/hashing
+policy trades hash-table padding against the rebuilds an overflow costs
+and must follow the workload):
 
 :class:`AdaptivePolicy`
     The engine-level knobs: hash-schedule headroom bounds and steps, the
-    trim streak, and the sampling estimator's knobs.  One per engine.
+    trim streak, shard sizing, and the sampling estimator's knobs.  One
+    per engine.
 
 :class:`PolicyState`
     The per-plan learned state on ``SpgemmPlan.policy``, serialized by
     ``PlanCache.dump/load``: the current headroom, the eviction-free
-    streak and the observed per-rung bin-size maxima.  Host ints only.
+    streak, the observed per-rung bin-size maxima, and the shard-count
+    decision with the flop basis it was made from.  Host ints only.
 
 :class:`EstimatorState`
     The engine-level learned headroom of ``plan_mode="estimate"``.
@@ -26,8 +28,11 @@ rows or whole rungs.  At most one trim fires per overflow epoch.
     The bound on the workspace arena's bytes and the degradation ladder
     the executor walks under it.
 
-The shard-count policy (``choose_shards``/``revise_shards``) waits for the
-port's sharding.
+The shard-count policy (``choose_shards``/``revise_shards``) picks N so
+that every shard carries enough flops to pay for the merge, bounded by the
+devices the shards could land on (one card: N = 1 unless ``max_shards``
+lifts it, as the reference on one device); a stream whose mean flops
+leaves a hysteresis band around the decision's basis is re-decided.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ from repro_torch.core.workspace import next_bucket
 from repro_torch.kernels.spgemm_hash import (_ROW_BUCKET_MIN,
                                              fallback_capacity_bucket,
                                              schedule_bucket)
+
+from .partition import clamp_shards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +59,13 @@ class AdaptivePolicy:
                     the capacity-margin floor, below which pow-2 rounding
                     provides all remaining slack).
     trim_streak     eviction-free hot finalizes before a trim attempt.
-
-    The reference's shard-count knobs come with sharding, which the port
-    does not have yet.
+    min_shard_flops flops one shard must carry to pay for the merge
+                    (below it, fewer shards or none).
+    max_shards      hard cap on the learned shard count (``None`` = the
+                    device count: per-shard occupancy).
+    revise_period   finalized requests between shard-count reviews.
+    revise_factor   hysteresis band: the observed mean must leave
+                    ``[basis/f, basis*f]`` before N is re-decided.
     """
 
     headroom_init: float = 2.0
@@ -63,6 +74,10 @@ class AdaptivePolicy:
     headroom_grow: float = 2.0
     headroom_shrink: float = 0.75
     trim_streak: int = 16
+    min_shard_flops: int = 1 << 21
+    max_shards: Optional[int] = None
+    revise_period: int = 8
+    revise_factor: float = 4.0
     # plan_mode="estimate" knobs: the sampled-ratio tail quantile, the
     # sample size, and the bounds/steps of the ENGINE-level learned headroom
     # multiplier on the estimator's tail ratio (EstimatorState) — grown
@@ -78,7 +93,6 @@ class AdaptivePolicy:
     est_hit_streak: int = 16
 
 
-
 @dataclasses.dataclass(frozen=True)
 class PolicyState:
     """Per-plan learned policy state (lives on ``SpgemmPlan.policy``).
@@ -86,9 +100,8 @@ class PolicyState:
     Bin-size maxima are observed over the CURRENT eviction-free streak
     (reset on overflow and after a trim attempt), so a trim re-derives
     from what the stream does *now*, not what it did before the last
-    regime change.  Every field is a host Python int/float:
-    JSON-serializable and wrap-proof.  The shard fields are carried for the
-    reference's dump format; the port decides no shard count yet.
+    regime change.  Flop telemetry windows between shard reviews.  Every
+    field is a host Python int/float: JSON-serializable and wrap-proof.
     """
 
     headroom: float = 2.0
@@ -154,6 +167,22 @@ class PolicyState:
     def wants_trim(self, policy: AdaptivePolicy) -> bool:
         return (not self.trimmed and self.sym_max is not None
                 and self.streak >= policy.trim_streak)
+
+    # -- shard-count telemetry ----------------------------------------------
+    def note_flops(self, flops: int) -> "PolicyState":
+        """Accumulate one finalized request's flop estimate (host int)."""
+        return dataclasses.replace(
+            self, flops_total=self.flops_total + int(flops),
+            flops_calls=self.flops_calls + 1)
+
+    @property
+    def mean_flops(self) -> int:
+        return self.flops_total // max(self.flops_calls, 1)
+
+    def with_shard_decision(self, n: int, basis: int) -> "PolicyState":
+        return dataclasses.replace(
+            self, shard_decision=int(n), shard_basis=int(basis),
+            flops_total=0, flops_calls=0)
 
     # -- estimate provenance -------------------------------------------------
     def with_estimated(self, flag: bool) -> "PolicyState":
@@ -226,6 +255,60 @@ class EstimatorState:
         self._streak = 0
         self.headroom = min(self._policy.est_headroom_max,
                             self.headroom * self._policy.est_headroom_grow)
+
+
+# ---------------------------------------------------------------------------
+# Shard-count selection.
+# ---------------------------------------------------------------------------
+
+def choose_shards(total_flops: int, nrows: int, devices: int,
+                  policy: AdaptivePolicy, *, telemetry=None) -> int:
+    """Shard count from a flop estimate and the device occupancy bound.
+
+    Each shard must carry ``min_shard_flops`` to pay for the merge (the
+    shards' verify reads and the concatenation), and fanning wider than
+    the devices that could run the shards gains nothing, so tiny products
+    collapse to N=1 (unsharded: no merge at all).  All host Python int: a
+    multi-billion-flop stream must not wrap.  ``telemetry`` (anything with
+    ``.event``) records the decision and its flop basis.
+    """
+    limit = (int(policy.max_shards) if policy.max_shards is not None
+             else max(int(devices), 1))
+    n = min(limit, int(total_flops) // max(int(policy.min_shard_flops), 1))
+    n = clamp_shards(nrows, n)
+    if telemetry is not None:
+        telemetry.event("autotune.choose_shards", shards=n,
+                        total_flops=int(total_flops), devices=int(devices))
+    return n
+
+
+def revise_shards(state: PolicyState, nrows: int, devices: int,
+                  policy: AdaptivePolicy, *,
+                  telemetry=None) -> Tuple[PolicyState, bool]:
+    """Periodic shard-count review over the telemetry window.
+
+    Every ``revise_period`` finalized requests, re-decide N from the
+    window's mean flops, but only when the mean has left the hysteresis
+    band around the decision's basis, so a stream near a sizing boundary
+    does not flap plans (each flip costs a cold call).  Returns ``(state,
+    revised)``; the window resets either way.  A revision is recorded on
+    ``telemetry`` when one fires.
+    """
+    if state.shard_decision is None or state.flops_calls < policy.revise_period:
+        return state, False
+    mean = state.mean_flops
+    basis = max(state.shard_basis, 1)
+    state = dataclasses.replace(state, flops_total=0, flops_calls=0)
+    if (mean * policy.revise_factor >= basis
+            and mean <= basis * policy.revise_factor):
+        return state, False                  # within the hysteresis band
+    n = choose_shards(mean, nrows, devices, policy)
+    if n == state.shard_decision:
+        return dataclasses.replace(state, shard_basis=mean), False
+    if telemetry is not None:
+        telemetry.event("autotune.revise_shards", shards=n,
+                        prev_shards=state.shard_decision, mean_flops=mean)
+    return state.with_shard_decision(n, mean), True
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from repro_torch.core.workspace import Arena, Lease, next_bucket
 
 from . import telemetry as telemetry_mod
 from .autotune import PolicyState
+from .partition import ShardSpec
 from .plan import HashSchedule, MatrixSig, PlanKey, SpgemmPlan
 from .plan import plan as make_plan
 from .stats import PlanStats, plan_label
@@ -178,7 +179,8 @@ class PlanCache:
     # -- persistence --------------------------------------------------------
     def dump(self, path: str) -> int:
         """Write every cached plan's learned state (capacity buckets, hash
-        schedule, policy) as JSON; pipelines are rebuilt on first use.
+        schedule, shard spec, policy) as JSON; pipelines are rebuilt on
+        first use.
         Returns the number of plans written."""
         plans = [entry.plan for _, entry in self.items()]
         payload = {"version": _DUMP_VERSION,
@@ -191,12 +193,12 @@ class PlanCache:
         """Prewarm the cache from a :meth:`dump` file of either package.
 
         Loaded plans merge monotonically into same-signature entries
-        (buckets, schedules and policy maxima only grow), and every loaded
+        (buckets, schedules, shard specs and policy maxima only grow), and
+        every loaded
         hash schedule is re-aligned for packing first (pow-2 and
         pack-floored buckets; see :func:`_align_schedule_for_packing`).
         A merge that changes nothing, or only the policy, keeps the live
-        pipeline.  A sharded plan cannot load: the port has no sharding
-        yet.  Returns the number of plans loaded."""
+        pipeline.  Returns the number of plans loaded."""
         with open(path) as f:
             payload = json.load(f)
         if payload.get("version") not in _LOADABLE_VERSIONS:
@@ -224,6 +226,11 @@ class PlanCache:
                     if merged.hash_schedule is not None:
                         sched = sched.union(merged.hash_schedule)
                     merged = merged.with_hash_schedule(sched)
+                if plan.shard_spec is not None:
+                    spec = (merged.shard_spec.union(plan.shard_spec)
+                            if merged.shard_spec is not None
+                            else plan.shard_spec)
+                    merged = merged.with_shard_spec(spec)
                 if plan.policy is not None:
                     state = (merged.policy.union(plan.policy)
                              if merged.policy is not None else plan.policy)
@@ -274,16 +281,14 @@ def _plan_to_json(p: SpgemmPlan) -> dict:
         "nnz_bucket": p.nnz_bucket,
         "hash_schedule": (dataclasses.asdict(p.hash_schedule)
                           if p.hash_schedule is not None else None),
-        "shard_spec": None,       # the port's plans are never sharded
+        "shard_spec": (dataclasses.asdict(p.shard_spec)
+                       if p.shard_spec is not None else None),
         "policy": (dataclasses.asdict(p.policy)
                    if p.policy is not None else None),
     }
 
 
 def _plan_from_json(blob: dict) -> SpgemmPlan:
-    if blob.get("shard_spec") is not None:
-        raise NotImplementedError(
-            "the dump holds a sharded plan; sharding is not ported yet")
     plan = make_plan(MatrixSig(**blob["a_sig"]), MatrixSig(**blob["b_sig"]),
                      SpgemmConfig(**blob["config"]))
     if blob.get("prod_bucket") is not None:
@@ -300,6 +305,12 @@ def _plan_from_json(blob: dict) -> SpgemmPlan:
             sym_row_buckets=tuple(hs["sym_row_buckets"]),
             num_row_buckets=tuple(hs["num_row_buckets"]),
             fall_prod_bucket=int(fall)))
+    ss = blob.get("shard_spec")
+    if ss is not None:
+        plan = plan.with_shard_spec(ShardSpec(
+            bounds=tuple(ss["bounds"]),
+            row_buckets=tuple(ss["row_buckets"]),
+            cap_buckets=tuple(ss["cap_buckets"])))
     pol = blob.get("policy")            # absent from v1 dumps
     if pol is not None:
         for key in ("sym_max", "num_max"):

@@ -37,8 +37,14 @@ bytes; under the cap the dispatch walks the reference's ladder (reclaim,
 forced schedule trim, fused->two-pass spill, ``ArenaPressureError``), and
 ``drain`` answers the last rung with backpressure.  A
 :class:`~repro_torch.core.faults.FaultPlan` injects lease denials, verify
-overflows, dispatch errors and stalls at the reference's sites.  The
-reference's sharded dispatch waits for a later slice.
+overflows, dispatch errors and stalls at the reference's sites.
+
+``shards=N`` fans a request out into N flop-balanced row blocks of A
+(``engine/partition``): each shard is an ordinary sub-dispatch on a
+pow-2-bucketed slice signature (shards with the same buckets share one
+sub-plan), and a merge concatenates the shards' CSRs on the device.
+``shards="auto"`` lets the adaptive policy (``engine/autotune``) choose N
+per plan from the flop estimate and revise it from finalize telemetry.
 """
 from __future__ import annotations
 
@@ -54,11 +60,11 @@ import torch
 from repro_torch.core import esc
 from repro_torch.core.analysis import (estimate_result,
                                        exclusive_sum_in_place,
-                                       nprod_into_rpt)
+                                       nprod_into_rpt, row_flops)
 from repro_torch.core.binning import bin_rows, bin_rows_for_ladder
 from repro_torch.core.csr import CSR
 from repro_torch.core.faults import FaultPlan, InjectedFault, resolve_faults
-from repro_torch.core.spgemm import SpgemmConfig, SpgemmResult
+from repro_torch.core.spgemm import AUTO_SHARDS, SpgemmConfig, SpgemmResult
 from repro_torch.core.workspace import (Arena, ArenaPressureError, Lease,
                                         default_arena, next_bucket)
 from repro_torch.kernels import spgemm_hash
@@ -66,6 +72,8 @@ from repro_torch.kernels import spgemm_hash
 from . import autotune, stats as stats_mod
 from .autotune import AdaptivePolicy, MemoryGovernor, PolicyState
 from .cache import CacheEntry, PlanCache
+from .partition import (ShardSpec, data_axis_devices, plan_shards,
+                        shard_devices)
 from .plan import HashSchedule, MatrixSig, SpgemmPlan, plan as make_plan
 from .stats import EngineStats
 from .telemetry import Span, Telemetry, resolve_telemetry
@@ -332,6 +340,44 @@ def _build_fused_hash_executable(plan: SpgemmPlan) -> Callable:
     return body
 
 
+def _build_merge_executable(spec: ShardSpec, m: int, n: int) -> Callable:
+    """The concatenation of the shards' CSRs for a sharded plan's
+    partition.
+
+    Row-block sub-products are disjoint in row space, so the merged C is a
+    concatenation: each shard's row pointers rebased by the running nnz
+    offsets (on the device: no host read) and its packed entries scattered
+    at its offset, the padding dropped.  The output's storage is the sum
+    of the shards' capacities, as in the reference.  The real row counts
+    come from the spec's pinned bounds.
+    """
+    real_rows = tuple(spec.rows(s) for s in range(spec.n_shards))
+    stats_mod.record_trace(("merge", spec.bounds, m, n))   # one build
+
+    def run(parts):
+        dev = parts[0].device
+        nnzs = torch.stack([C.rpt[r] for C, r in zip(parts, real_rows)])
+        offs = torch.zeros(len(parts) + 1, dtype=torch.int32, device=dev)
+        offs[1:] = torch.cumsum(nnzs, 0)
+        rpt = torch.cat([C.rpt[:r] + offs[i]
+                         for i, (C, r) in enumerate(zip(parts, real_rows))]
+                        + [offs[-1:]])
+        out_cap = sum(C.capacity for C in parts)
+        # One slot past the end takes every padding entry (dropped).
+        col = torch.zeros(out_cap + 1, dtype=torch.int32, device=dev)
+        val = torch.zeros(out_cap + 1, dtype=parts[0].val.dtype, device=dev)
+        for i, C in enumerate(parts):
+            idx = torch.arange(C.capacity, dtype=torch.int32, device=dev)
+            tgt = torch.where(idx < nnzs[i], offs[i] + idx,
+                              torch.full_like(idx, out_cap)).long()
+            col.scatter_(0, tgt, C.col)
+            val.scatter_(0, tgt, C.val)
+        return CSR(rpt=rpt, col=col[:out_cap], val=val[:out_cap],
+                   shape=(m, n))
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # Request records.
 # ---------------------------------------------------------------------------
@@ -352,7 +398,8 @@ class _Finished:
 
     uid: int
     result: SpgemmResult
-    span: Optional[Span] = None    # open request span (ends at finalize)
+    auto_entry: Optional[CacheEntry] = None  # AUTO_SHARDS policy entry
+    span: Optional[Span] = None    # open request/shard span (ends at finalize)
     t0: Optional[float] = None     # dispatch wall clock
 
 
@@ -368,7 +415,8 @@ class _Pending:
     B: CSR
     handles: tuple
     t0: float
-    span: Optional[Span] = None
+    auto_entry: Optional[CacheEntry] = None  # AUTO_SHARDS policy entry
+    span: Optional[Span] = None    # open request/shard span (ends at finalize)
     # Host phase times of an estimated cold call (estimate, build,
     # compile_dispatch), merged into the result's timings.
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -376,7 +424,28 @@ class _Pending:
     lease: Optional[Lease] = None  # arena workspace checked out at dispatch
 
 
-Record = Union[_Finished, _Pending]
+@dataclasses.dataclass
+class _ShardedPending:
+    """A request fanned out into per-shard sub-dispatches awaiting merge.
+
+    Each of ``shard_recs`` is an ordinary record (``_Finished`` from a
+    cold shard, ``_Pending`` from a steady one) with its own verify read;
+    the merge finalize checks the slices' storage buckets (redoing any
+    truncated shard), then concatenates the shards' CSRs."""
+
+    uid: int
+    entry: CacheEntry   # the PARENT (sharded) plan's cache entry
+    spec: ShardSpec     # the partition the shards were sliced with
+    shard_recs: List["Record"]
+    A: CSR              # the operands, kept for the slice check and the
+    B: CSR              # redo of an overflowed shard
+    config: SpgemmConfig
+    t0: float
+    auto_entry: Optional[CacheEntry] = None  # AUTO_SHARDS policy entry
+    span: Optional[Span] = None    # open request span (ends at finalize)
+
+
+Record = Union[_Finished, _Pending, _ShardedPending]
 
 
 def _record_done(device: torch.device) -> Optional[torch.cuda.Event]:
@@ -391,6 +460,8 @@ def _record_done(device: torch.device) -> Optional[torch.cuda.Event]:
 
 def _record_ready(rec: Record) -> bool:
     """Whether a record's device work has completed (never blocks)."""
+    if isinstance(rec, _ShardedPending):
+        return all(_record_ready(r) for r in rec.shard_recs)
     if isinstance(rec, _Finished) or rec.done is None:
         return True
     return rec.done.query()
@@ -423,21 +494,40 @@ class SpgemmEngine:
     ``finalize(dispatch(A, B))``.  ``dispatch`` queues the device work of a
     steady-state call without reading the device, ``finalize`` makes its
     one host read.  ``policy`` tunes the :class:`AdaptivePolicy` knobs (hash
-    headroom, trims, estimator); ``telemetry=True`` records spans and
-    events.  ``arena`` is the workspace arena steady-state calls lease
-    from (the process-wide ``default_arena()`` unless given), ``governor``
-    the :class:`MemoryGovernor` bounding it (unbounded unless given), and
+    headroom, trims, shard sizing, estimator); ``telemetry=True`` records
+    spans and events.
+
+    ``shards=N`` makes every plan of the engine's own config
+    partition-aware: requests fan out into N flop-balanced row-block
+    sub-dispatches of A whose CSRs the merge concatenates (one plan, N
+    shards).  ``shards="auto"`` lets the policy learn N per plan from the
+    cold flop estimate, bounded by the devices (one card: N = 1 unless
+    ``AdaptivePolicy.max_shards`` lifts it), and revise it when the
+    stream's flops drift.  ``mesh`` is a sequence of ``torch.device`` the
+    shards are placed on round-robin (B replicated once per device), or
+    None to run every shard where the operands are.
+
+    ``arena`` is the workspace arena steady-state calls lease from (the
+    process-wide ``default_arena()`` unless given), ``governor`` the
+    :class:`MemoryGovernor` bounding it (unbounded unless given), and
     ``faults`` a :class:`FaultPlan` of injections (none unless given).
     """
 
     def __init__(self, config: Optional[SpgemmConfig] = None, *,
                  cache_capacity: int = 64,
+                 shards: Union[int, str] = 1, mesh=None,
                  policy: Optional[AdaptivePolicy] = None,
                  telemetry: Union[Telemetry, bool, None] = None,
                  arena: Optional[Arena] = None,
                  governor: Optional[MemoryGovernor] = None,
                  faults: Optional[FaultPlan] = None):
+        if shards != "auto" and (isinstance(shards, str)
+                                 or int(shards) < 1):
+            raise ValueError(f"shards must be >= 1 or 'auto', got "
+                             f"{shards!r}")
         self.config = config or SpgemmConfig()
+        self.shards = shards
+        self.mesh = tuple(mesh) if mesh is not None else None
         self.policy = policy or AdaptivePolicy()
         # Every engine shares ONE arena by default, so the traffic of all
         # of them is bounded together; pass an Arena for isolation.  The
@@ -470,8 +560,27 @@ class SpgemmEngine:
             "opsparse_arena_pressure_events_total")}
         self._queue: List[SpgemmRequest] = []
         self._uids = itertools.count()
+        # Replicas of B per shard device, made once per B (streams reuse
+        # the same B request after request); a new B drops them all, so
+        # stale replicas do not pin device memory.
+        self._b_src = None
+        self._b_placed: Dict[torch.device, CSR] = {}
 
     # -- public API ---------------------------------------------------------
+    def _effective_config(self, config: Optional[SpgemmConfig]
+                          ) -> SpgemmConfig:
+        """The per-call config.  The engine-level ``shards`` (an int, or
+        ``"auto"``) folds into the engine's own config only: an explicitly
+        passed config is taken as it is, so ``SpgemmConfig(shards=1)`` opts
+        one call out of the engine's sharding."""
+        if config is not None:
+            return config
+        config = self.config
+        if self.shards != 1 and config.shards == 1:
+            shards = AUTO_SHARDS if self.shards == "auto" else self.shards
+            config = dataclasses.replace(config, shards=shards)
+        return config
+
     def execute(self, A: CSR, B: CSR,
                 config: Optional[SpgemmConfig] = None) -> SpgemmResult:
         """Plan-then-execute one product (the ``spgemm()`` backend)."""
@@ -482,7 +591,8 @@ class SpgemmEngine:
         """Plan the call and queue its device work.  A cold (or ``timing``)
         call runs the steps path to completion here; a steady-state call
         returns with its work in flight and no host read."""
-        return self._dispatch(next(self._uids), A, B, config or self.config)
+        return self._dispatch(next(self._uids), A, B,
+                              self._effective_config(config))
 
     def finalize(self, rec: Record) -> SpgemmResult:
         """The call's one host read: verify the buckets it ran with, or
@@ -502,8 +612,17 @@ class SpgemmEngine:
         neither, the sampling estimator sizes the plan, hash schedule
         included, so the first request of any method goes straight to the
         steady state.
+
+        A sharded (or AUTO_SHARDS) config is refused with ``ValueError``:
+        its buckets live on the shards' sub-plans, whose slices need data.
+        Pass ``SpgemmConfig(shards=1)``, or ``PlanCache.load`` a dump.
         """
-        config = config or self.config
+        config = self._effective_config(config)
+        if config.shards != 1:
+            raise ValueError(
+                "prewarm seeds capacity buckets, which sharded (or "
+                "AUTO_SHARDS) plans don't use; pass SpgemmConfig(shards=1) "
+                "or PlanCache.load() a dump")
         a_sig, b_sig = MatrixSig.of(A), MatrixSig.of(B)
         entry = self.cache.get((a_sig, b_sig, config))
         if entry is None:
@@ -534,7 +653,8 @@ class SpgemmEngine:
             raise ValueError(f"inner dimensions differ: {A.shape} @ "
                              f"{B.shape}")
         uid = next(self._uids)
-        self._queue.append(SpgemmRequest(uid, A, B, config or self.config))
+        self._queue.append(SpgemmRequest(uid, A, B,
+                                         self._effective_config(config)))
         return uid
 
     def drain(self, *, drain_ordered: bool = False,
@@ -835,18 +955,32 @@ class SpgemmEngine:
             entry, specialized.with_policy(state.with_estimated(True)))
         return {"estimate": time.perf_counter() - t0}
 
-    def _dispatch(self, uid: int, A: CSR, B: CSR,
-                  config: SpgemmConfig) -> Record:
+    def _dispatch(self, uid: int, A: CSR, B: CSR, config: SpgemmConfig, *,
+                  _sub: bool = False,
+                  _parent: Optional[Span] = None) -> Record:
         if A.ncols != B.nrows:
             raise ValueError(f"inner dimensions differ: {A.shape} @ "
                              f"{B.shape}")
-        self.stats.requests += 1
-        self._consult_dispatch_faults(uid)
+        if config.shards == AUTO_SHARDS:
+            auto_entry, config = self._resolve_auto_shards(A, B, config)
+            rec = self._dispatch(uid, A, B, config, _sub=_sub,
+                                 _parent=_parent)
+            rec.auto_entry = auto_entry   # finalize feeds telemetry back
+            return rec
+        if config.shards > 1:
+            if A.nrows >= 2:
+                return self._dispatch_sharded(uid, A, B, config)
+            # Nothing to partition: run (and key the plan) unsharded.
+            config = dataclasses.replace(config, shards=1)
+        if not _sub:       # shard sub-dispatches are not user requests
+            self.stats.requests += 1
+            self._consult_dispatch_faults(uid)
         t0 = time.perf_counter()
         tel = self.telemetry
-        # The request span stays OPEN across dispatch and finalize: it
-        # rides the record and _finalize closes it.
-        span = tel.start_span("request", uid=uid, method=config.method)
+        # The request (or shard) span stays OPEN across dispatch and
+        # finalize: it rides the record and _finalize closes it.
+        span = tel.start_span("shard" if _sub else "request",
+                              parent=_parent, uid=uid, method=config.method)
         a_sig, b_sig = MatrixSig.of(A), MatrixSig.of(B)
         with tel.span("plan_lookup", parent=span, uid=uid) as lookup:
             entry = self.cache.get((a_sig, b_sig, config))
@@ -940,20 +1074,237 @@ class SpgemmEngine:
         return _Pending(uid, entry, plan, A, B, handles, t0, span=span,
                         timings=est_timings or {}, done=done, lease=lease)
 
+    def _dispatch_sharded(self, uid: int, A: CSR, B: CSR,
+                          config: SpgemmConfig) -> Record:
+        """Fan one request out into per-shard row-block sub-dispatches.
+
+        The parent plan owns the learned :class:`ShardSpec`; each shard's
+        A slice is padded to the spec's pow-2 row and storage buckets and
+        dispatched through the ordinary (unsharded) plan machinery, so the
+        shards reuse the steady-state pipelines, and shards whose buckets
+        coincide share ONE sub-plan.  A slice outgrowing its bucket grows
+        that shard's bucket alone (checked at finalize).
+        """
+        self.stats.requests += 1
+        self.stats.sharded_requests += 1
+        self._consult_dispatch_faults(uid)
+        t0 = time.perf_counter()
+        tel = self.telemetry
+        span = tel.start_span("request", uid=uid, method=config.method,
+                              shards=config.shards)
+        a_sig, b_sig = MatrixSig.of(A), MatrixSig.of(B)
+        with tel.span("plan_lookup", parent=span, uid=uid) as lookup:
+            entry = self.cache.get((a_sig, b_sig, config))
+            lookup.set(hit=entry is not None)
+            if entry is None:
+                entry = self.cache.insert(make_plan(a_sig, b_sig, config))
+        entry.stats.calls += 1
+
+        spec = entry.plan.shard_spec
+        if spec is None:
+            # Cold call: ONE host read of the flop estimate (and of A's row
+            # pointers) balances the row blocks; the partition is then
+            # pinned, so steady shard signatures never move.  Whether a
+            # later request's slices FIT the learned storage buckets is
+            # checked at finalize, which keeps the steady dispatch free of
+            # host reads.
+            with tel.span("partition", parent=span, uid=uid):
+                flops = row_flops(A, B)
+                rpt = A.rpt.cpu().numpy()
+                spec = plan_shards(rpt, flops, config.shards, telemetry=tel)
+                self.cache.specialize(entry,
+                                      entry.plan.with_shard_spec(spec))
+
+        if entry.executable is None:
+            with tel.span("build_executable", parent=span, uid=uid):
+                entry.executable = _build_merge_executable(
+                    spec, m=A.nrows, n=B.ncols)
+
+        devices = (shard_devices(self.mesh, spec.n_shards)
+                   if self.mesh is not None else None)
+        sub_cfg = dataclasses.replace(config, shards=1)
+        shard_recs: List[Record] = []
+        for s in range(spec.n_shards):
+            A_s = A.row_slice(spec.bounds[s], spec.bounds[s + 1],
+                              nrows=spec.row_buckets[s],
+                              capacity=spec.cap_buckets[s])
+            B_s = B
+            if devices is not None:
+                dev = devices[s]
+                A_s = A_s.to(dev)                       # row-sharded A
+                if self._b_src is not B.val:            # new B: drop replicas
+                    self._b_src = B.val
+                    self._b_placed = {}
+                if dev not in self._b_placed:
+                    self._b_placed[dev] = B.to(dev)
+                B_s = self._b_placed[dev]
+            try:
+                rec = self._dispatch(uid, A_s, B_s, sub_cfg, _sub=True,
+                                     _parent=span)
+            except ArenaPressureError:
+                # Unwind the fan-out: finalize the shards already in flight
+                # so their leases return, then re-raise; the drain's
+                # backpressure redispatches the whole request.
+                for r in shard_recs:
+                    self._finalize(r)
+                tel.end_span(span)
+                raise
+            rec.span.set(shard=s)
+            shard_recs.append(rec)
+        return _ShardedPending(uid, entry, spec, shard_recs, A, B,
+                               config, t0, span=span)
+
+    # -- adaptive shard count (AUTO_SHARDS) ---------------------------------
+    def _device_count(self, device: torch.device) -> int:
+        """Occupancy bound of the shard count: the devices shards could
+        land on (the mesh, else the cards, else 1 for CPU operands)."""
+        if self.mesh is not None:
+            return len(data_axis_devices(self.mesh))
+        if device.type != "cuda":
+            return 1
+        return max(torch.cuda.device_count(), 1)
+
+    def _resolve_auto_shards(self, A: CSR, B: CSR, config: SpgemmConfig):
+        """Turn an AUTO_SHARDS config into a concrete one via the policy.
+
+        The decision lives on the AUTO plan entry (keyed by the unresolved
+        config), so it is learned once per signature, with ONE host read of
+        the flop estimate on the cold request, then pinned; finalize
+        telemetry (:meth:`_note_auto`) revises it when the stream's mean
+        flops drift out of the hysteresis band.
+        """
+        self.stats.auto_requests += 1
+        a_sig, b_sig = MatrixSig.of(A), MatrixSig.of(B)
+        entry = self.cache.get((a_sig, b_sig, config))
+        if entry is None:
+            entry = self.cache.insert(make_plan(a_sig, b_sig, config))
+        state = entry.plan.policy
+        if state is None or state.shard_decision is None:
+            total = int(row_flops(A, B).sum())
+            n = autotune.choose_shards(total, A.nrows,
+                                       self._device_count(A.device),
+                                       self.policy, telemetry=self.telemetry)
+            state = ((state or PolicyState(headroom=self.policy.headroom_init))
+                     .with_shard_decision(n, total))
+            self.cache.update_policy(entry, state)
+        n = state.shard_decision
+        return entry, dataclasses.replace(config, shards=max(n, 1))
+
+    def _note_auto(self, entry: CacheEntry, result: SpgemmResult) -> None:
+        """Feed one finalized request's flop estimate back to its AUTO
+        plan's policy, revising the shard decision on sustained drift."""
+        state = entry.plan.policy
+        if state is None:
+            return
+        state = state.note_flops(2 * result.total_nprod)
+        state, revised = autotune.revise_shards(
+            state, entry.plan.a_sig.nrows,
+            self._device_count(result.C.device), self.policy,
+            telemetry=self.telemetry)
+        if revised:
+            self.stats.policy_revisions += 1
+        self.cache.update_policy(entry, state)
+
     def _finalize(self, rec: Record) -> SpgemmResult:
         tel = self.telemetry
         with tel.span("finalize", parent=rec.span, uid=rec.uid) as fin:
             result = self._finalize_record(rec)
+        if rec.auto_entry is not None:
+            self._note_auto(rec.auto_entry, result)
         if tel.enabled:
             self._hist_finalize.observe(fin.dur)
             span = rec.span
             if isinstance(span, Span):
+                # Close the request/shard span the dispatch left open;
+                # only requests feed the request-latency histogram.
                 tel.end_span(span)
-                if rec.t0 is not None:
+                if span.name == "request" and rec.t0 is not None:
                     self._hist_request.observe(span.t1 - rec.t0)
         return result
 
+    def _discard(self, rec: Record) -> None:
+        """Drop a shard record superseded by a redo: wait for its device
+        work, return its lease and close its span (its result is unused)."""
+        if isinstance(rec, _Pending):
+            if rec.done is not None:
+                rec.done.synchronize()
+            self._release_ws(rec)
+        self.telemetry.end_span(rec.span)
+
+    def _finalize_sharded(self, rec: _ShardedPending) -> SpgemmResult:
+        """Merge finalize: one verify read per shard (each sub-record's
+        ordinary finalize, overflow redo and all), then the concatenation
+        of the shards' CSRs on the device.
+
+        The slice-storage check happens HERE, not at dispatch: a slice
+        whose nnz outgrew its learned bucket was truncated (its sub-plan
+        cannot tell: the truncated slice is a valid CSR), so the read of
+        A's row pointers at the bounds is part of the request's verify.
+        That keeps the sharded dispatch free of host reads.  An overflow
+        grows only the offending shard's bucket and redoes only that shard.
+        """
+        t_fin = time.perf_counter()
+        tel = self.telemetry
+        spec = rec.spec
+        with tel.span("verify_slices", uid=rec.uid):
+            bounds = torch.tensor(spec.bounds, dtype=torch.long,
+                                  device=rec.A.rpt.device)
+            slice_nnz = rec.A.rpt[bounds].tolist()
+        sizes = [slice_nnz[s + 1] - slice_nnz[s]
+                 for s in range(spec.n_shards)]
+        overflowed = [s for s in range(spec.n_shards)
+                      if sizes[s] > spec.cap_buckets[s]]
+        if overflowed:
+            tel.event("shard_grow", uid=rec.uid, shards=tuple(overflowed))
+            grown = spec
+            for s in overflowed:
+                grown = grown.with_cap_bucket(s, 2 * sizes[s])  # headroom
+                self.stats.shard_grows += 1
+            rec.entry.stats.capacity_grows += len(overflowed)
+            current = rec.entry.plan.shard_spec
+            if current is not None:     # keep any concurrent growth
+                grown = grown.union(current)
+            self.cache.specialize(
+                rec.entry, rec.entry.plan.with_shard_spec(grown))
+            sub_cfg = dataclasses.replace(rec.config, shards=1)
+            for s in overflowed:        # redo ONLY the truncated shards
+                self._discard(rec.shard_recs[s])
+                A_s = rec.A.row_slice(spec.bounds[s], spec.bounds[s + 1],
+                                      nrows=grown.row_buckets[s],
+                                      capacity=grown.cap_buckets[s])
+                rec.shard_recs[s] = self._dispatch(
+                    rec.uid, A_s, rec.B, sub_cfg, _sub=True,
+                    _parent=rec.span)
+        shard_results = [self._finalize(r) for r in rec.shard_recs]
+        merge = rec.entry.executable
+        if merge is None:     # the entry was re-specialized while in flight
+            merge = _build_merge_executable(
+                rec.spec, m=rec.spec.bounds[-1], n=rec.B.ncols)
+            rec.entry.executable = merge
+        parts = tuple(r.C for r in shard_results)
+        with tel.span("shard_merge", uid=rec.uid, n_shards=spec.n_shards):
+            if self.mesh is not None:
+                # Shard results live on their shard's device: gather them
+                # where the operands are before concatenating.
+                home = rec.A.device
+                parts = tuple(C.to(home) for C in parts)
+            C = merge(parts)
+        timings: Dict[str, float] = {}
+        for r in shard_results:
+            for k, v in r.timings.items():
+                timings[k] = timings.get(k, 0.0) + v
+        # Book only the merge/verify overhead on the parent plan: the shard
+        # work is charged to the shard plans.
+        rec.entry.stats.time_s += time.perf_counter() - t_fin
+        return SpgemmResult(
+            C=C,
+            total_nprod=sum(r.total_nprod for r in shard_results),
+            total_nnz=sum(r.total_nnz for r in shard_results),
+            sym_binning=None, num_binning=None, timings=timings)
+
     def _finalize_record(self, rec: Record) -> SpgemmResult:
+        if isinstance(rec, _ShardedPending):
+            return self._finalize_sharded(rec)
         if isinstance(rec, _Finished):
             return rec.result
         # Verify against the DISPATCH-TIME plan: passing a later, larger

@@ -10,10 +10,10 @@ Plans are progressive (Liu & Vinter-style ahead-of-time allocation): a
 fresh plan has no product/nnz buckets (they depend on data); the first
 execution *learns* them and :meth:`SpgemmPlan.with_capacities` produces
 the specialized plan that steady-state traffic runs against.  The
-adaptive-policy state rides on the plan as ``policy``, and
+adaptive-policy state rides on the plan as ``policy``,
 :meth:`SpgemmPlan.workspace_spec` is the size class of the arena lease its
-steady state takes.  The reference's shard field waits for the port's
-sharding.
+steady state takes, and a sharded plan (``config.shards > 1``) carries the
+learned row-block partition as ``shard_spec``.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from repro_torch.core.spgemm import SpgemmConfig
 from repro_torch.core.workspace import LeaseSpec, WorkspacePlan, next_bucket
 
 from .autotune import PolicyState
+from .partition import ShardSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,9 +108,12 @@ class SpgemmPlan:
     Derivable before data: the signatures, the config and both ladders.
     Learned on the first execution: ``prod_bucket`` / ``nnz_bucket``
     (pow-2 capacities of the product expansion and of C) and, for the
-    hash method, ``hash_schedule``.  ``policy`` is the adaptive-policy
-    state (``engine/autotune``): updated without dropping the pipeline
-    and persisted by ``PlanCache.dump/load``.  ``sym_workspace`` and
+    hash method, ``hash_schedule``; for a sharded plan, ``shard_spec``
+    (the row-block partition, balanced by cumulative flop estimate on the
+    cold call).  ``policy`` is the adaptive-policy state
+    (``engine/autotune``: the hash headroom, the AUTO_SHARDS decision):
+    updated without dropping the pipeline and persisted by
+    ``PlanCache.dump/load``.  ``sym_workspace`` and
     ``num_workspace`` are the fused metadata layouts of the two binnings
     (§5.3), derived from (M, NUM_BIN) alone.
     """
@@ -124,6 +128,7 @@ class SpgemmPlan:
     prod_bucket: Optional[int] = None
     nnz_bucket: Optional[int] = None
     hash_schedule: Optional[HashSchedule] = None
+    shard_spec: Optional[ShardSpec] = None
     policy: Optional[PolicyState] = None
 
     @property
@@ -133,7 +138,11 @@ class SpgemmPlan:
     @property
     def is_specialized(self) -> bool:
         """True once everything the steady state needs is learned: the
-        capacity buckets, plus the launch schedule for hash plans."""
+        capacity buckets, plus the launch schedule for hash plans.  A
+        sharded parent plan needs only its partition: the capacities live
+        on the shards' sub-plans."""
+        if self.config.shards > 1:
+            return self.shard_spec is not None
         caps = self.prod_bucket is not None and self.nnz_bucket is not None
         if self.config.method == "hash":
             return caps and self.hash_schedule is not None
@@ -147,6 +156,10 @@ class SpgemmPlan:
     def with_hash_schedule(self, schedule: HashSchedule) -> "SpgemmPlan":
         return dataclasses.replace(self, hash_schedule=schedule)
 
+    def with_shard_spec(self, spec: ShardSpec) -> "SpgemmPlan":
+        """Plan with a learned (or per-shard grown) row-block partition."""
+        return dataclasses.replace(self, shard_spec=spec)
+
     def with_policy(self, state: PolicyState) -> "SpgemmPlan":
         """Plan carrying updated adaptive-policy state (same signature and
         shapes: the cached pipeline stays valid)."""
@@ -155,10 +168,9 @@ class SpgemmPlan:
     def workspace_spec(self) -> Optional[LeaseSpec]:
         """Size class of the arena lease this plan's steady state takes, or
         ``None`` when the plan has nothing leasable: not yet specialized,
-        or a hash plan whose fallback rung is statically absent
-        (``fall_prod_bucket == 0``: nothing to expand).  (The reference's
-        sharded parent plans lease nothing either; the port plans no
-        shards yet.)
+        a sharded parent (leases live on the shards' sub-plans), or a hash
+        plan whose fallback rung is statically absent
+        (``fall_prod_bucket == 0``: nothing to expand).
 
         ESC leases the product expansion (row ids + col ids as one int32
         buffer, values apart); hash plans lease the fallback rung's
@@ -189,9 +201,6 @@ def plan(a_sig: MatrixSig, b_sig: MatrixSig,
         raise ValueError(
             f"unknown plan_mode {config.plan_mode!r} "
             "(expected 'exact' or 'estimate')")
-    if config.shards != 1:
-        raise NotImplementedError(
-            "sharding waits for a later slice of the port (shards must be 1)")
     sym_ladder, num_ladder = config.ladders()
     return SpgemmPlan(
         a_sig=a_sig, b_sig=b_sig, config=config,

@@ -51,10 +51,14 @@ def reset() -> None:
 # -- per-plan / per-engine counters ----------------------------------------
 
 def plan_label(plan) -> str:
-    """Compact stable label for one plan (event payloads, reports):
-    shapes and method."""
+    """Compact stable label for one plan (Prometheus label values, event
+    payloads, reports): shapes, method, and the shard fan-out."""
     a, b = plan.a_sig, plan.b_sig
-    return f"{a.nrows}x{a.ncols}·{b.nrows}x{b.ncols}/{plan.config.method}"
+    label = (f"{a.nrows}x{a.ncols}·{b.nrows}x{b.ncols}"
+             f"/{plan.config.method}")
+    if plan.config.shards != 1:
+        label += f"/sh{plan.config.shards}"
+    return label
 
 
 def _metric_property(field: str):
@@ -127,16 +131,19 @@ class PlanStats(_RegistryStats):
 
 
 class EngineStats(_RegistryStats):
-    """Engine-level counters (cache counters live on the PlanCache).  The
-    reference's sharding counters come with the port's sharding.
+    """Engine-level counters (cache counters live on the PlanCache).
 
-    requests          user-visible requests
+    requests          user-visible requests (shard sub-dispatches excluded)
     overlapped        request k+1 planned while k ran on the device
     capacity_grows    pow-2 bucket overflows (re-plan + rebuild)
     bin_overflows     hash launch-schedule overflows (subset of grows)
     drains            drain() invocations
+    sharded_requests  requests fanned out into row-block shards
+    shard_grows       per-shard slice-storage bucket grows
     reordered         drain() finalizes ahead of dispatch order
     peak_inflight     max concurrent dispatches a drain() held (gauge)
+    auto_requests     requests routed through the AUTO_SHARDS policy
+    policy_revisions  telemetry-driven shard-count re-decisions
     schedule_trims    headroom-policy hash-schedule shrinks
     arena_pressure    governor-cap lease refusals (degradation entered)
     arena_trims       forced headroom trims under arena pressure
@@ -149,9 +156,11 @@ class EngineStats(_RegistryStats):
 
     _PREFIX = "opsparse_engine_"
     _COUNTERS = ("requests", "overlapped", "capacity_grows", "bin_overflows",
-                 "drains", "reordered", "schedule_trims", "arena_pressure",
-                 "arena_trims", "arena_spills", "estimates",
-                 "estimate_hits", "estimate_misses", "faults_injected")
+                 "drains", "sharded_requests", "shard_grows", "reordered",
+                 "auto_requests", "policy_revisions", "schedule_trims",
+                 "arena_pressure", "arena_trims", "arena_spills",
+                 "estimates", "estimate_hits", "estimate_misses",
+                 "faults_injected")
     _GAUGES = ("peak_inflight",)
 
 
@@ -180,9 +189,13 @@ def render(engine) -> str:
         "rebuilds: %d steady-state pipeline builds, %d capacity grows "
         "(%d hash bin overflows)" % (
             total_traces(), s.capacity_grows, s.bin_overflows),
-        "drain: %d drains, reordered %d finalizes (peak %d in flight)" % (
-            s.drains, s.reordered, s.peak_inflight),
-        "policy: %d schedule trims" % s.schedule_trims,
+        "sharding: %d sharded requests, %d per-shard bucket grows; "
+        "%d drains reordered %d finalizes (peak %d in flight)" % (
+            s.sharded_requests, s.shard_grows, s.drains, s.reordered,
+            s.peak_inflight),
+        "policy: %d auto-shard requests, %d shard revisions, "
+        "%d schedule trims" % (
+            s.auto_requests, s.policy_revisions, s.schedule_trims),
     ]
     if s.faults_injected:
         lines.append("faults: %d scheduled injections consumed"
@@ -224,9 +237,17 @@ def render(engine) -> str:
                 "/".join(str(b) for b in hs.num_row_buckets),
                 hs.fall_prod_bucket)
         if p.policy is not None:
+            pol = p.policy
             sched += ", policy headroom=%.2f streak=%d%s" % (
-                p.policy.headroom, p.policy.streak,
-                " estimated" if p.policy.estimated else "")
+                pol.headroom, pol.streak,
+                " estimated" if pol.estimated else "")
+            if pol.shard_decision is not None:
+                sched += " shards->%d" % pol.shard_decision
+        if p.shard_spec is not None:
+            sched += ", shards=%d bounds=%s caps=%s" % (
+                p.shard_spec.n_shards,
+                "/".join(str(b) for b in p.shard_spec.bounds),
+                "/".join(str(c) for c in p.shard_spec.cap_buckets))
         lines.append(
             "  plan %s: %d calls (%d hot / %d steps), "
             "buckets prod=%s nnz=%s%s, %.1f ms total" % (

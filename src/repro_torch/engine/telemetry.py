@@ -22,18 +22,23 @@ Metrics
     Counters, gauges and histograms with fixed pow-2 latency buckets.
 
 Exporters
-    JSON Lines and Chrome ``trace_event`` (Perfetto).  The Prometheus text
-    of a whole engine (``engine_sample_blocks``/``prometheus_text``) reads
-    the arena and the shards, which the port does not have yet.
+    JSON Lines, Chrome ``trace_event`` (Perfetto; checked by
+    :func:`validate_chrome_trace`) and :func:`prometheus_text`, the
+    Prometheus exposition text of a whole engine: its registry (the
+    engine counters, the sharding counters and the arena gauges), the
+    plan-cache counters and the per-plan counters labeled by plan.
 """
 from __future__ import annotations
 
 import bisect
 import itertools
 import json
+import subprocess
 import threading
 import time
 from collections import deque
+from datetime import datetime, timezone
+from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 # Fixed pow-2 latency bucket edges, in seconds: 2^-14 s (~61 us) .. 2^6 s
@@ -203,6 +208,48 @@ def render_metric_samples(name: str, metric, labels: str = "") -> List[str]:
     return [f"{name}{_labelset(labels)} {metric.value:g}"
             if isinstance(metric.value, float)
             else f"{name}{_labelset(labels)} {metric.value}"]
+
+
+def histogram_quantile(hist: Optional[Histogram], q: float
+                       ) -> Optional[float]:
+    """Conservative quantile estimate from a fixed-bucket histogram.
+
+    The smallest bucket upper edge whose cumulative count covers a ``q``
+    fraction of the observations (Prometheus' ``histogram_quantile``,
+    rounded UP to the edge: the right bias for deadline admission).  An
+    empty or missing histogram gives ``None``; observations in the +Inf
+    bucket resolve to twice the top edge.
+    """
+    if hist is None or not hist.count:
+        return None
+    target = max(0.0, min(1.0, q)) * hist.count
+    cum = 0
+    for edge, c in zip(hist.buckets, hist.counts):
+        cum += c
+        if cum >= target:
+            return edge
+    return 2.0 * hist.buckets[-1]
+
+
+def merge_sample_blocks(
+        blocks_list: "Iterable[Dict[str, Tuple[str, List[str]]]]") -> str:
+    """Merge per-source sample blocks into one exposition document: ONE
+    ``# TYPE`` header per metric name, then every source's samples for
+    that name (each source renders with its own label set)."""
+    merged: "Dict[str, Tuple[str, List[str]]]" = {}
+    for blocks in blocks_list:
+        for name, (kind, samples) in blocks.items():
+            have = merged.get(name)
+            if have is None:
+                merged[name] = (kind, list(samples))
+            else:
+                have[1].extend(samples)
+    lines: List[str] = []
+    for name in sorted(merged):
+        kind, samples = merged[name]
+        lines.append(f"# TYPE {name} {kind}")
+        lines.extend(samples)
+    return "\n".join(lines) + "\n"
 
 
 # ---------------------------------------------------------------------------
@@ -467,3 +514,147 @@ def resolve_telemetry(arg: Union["Telemetry", bool, None]) -> "Telemetry":
 # the cache when no engine telemetry was threaded through).
 # Never hand its registry to stats objects — it is process-global.
 NULL = Telemetry(enabled=False, events_capacity=1)
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace_event schema validation.
+# ---------------------------------------------------------------------------
+
+_ALLOWED_PH = {"X", "B", "E", "i", "I", "M", "C"}
+
+
+def validate_chrome_trace(payload_or_path) -> int:
+    """Validate a Chrome ``trace_event`` payload (or a file holding one);
+    returns the event count.
+
+    Checks the container, each event's required fields, known phase
+    types, a non-negative ``dur`` on ``"X"`` complete events, and matched
+    ``B``/``E`` pairs per ``(pid, tid)`` track.  Raises
+    :class:`ValueError` on the first violation.
+    """
+    payload = payload_or_path
+    if isinstance(payload, (str, Path)):
+        with open(payload) as f:
+            payload = json.load(f)
+    if not isinstance(payload, dict) or "traceEvents" not in payload:
+        raise ValueError("trace payload must be an object with 'traceEvents'")
+    events = payload["traceEvents"]
+    if not isinstance(events, list):
+        raise ValueError("'traceEvents' must be a list")
+    open_be: Dict[tuple, int] = {}
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            raise ValueError(f"event {i} is not an object")
+        for field in ("name", "ph", "ts", "pid", "tid"):
+            if field not in ev:
+                raise ValueError(f"event {i} missing '{field}'")
+        if not isinstance(ev["ts"], (int, float)):
+            raise ValueError(f"event {i} 'ts' is not numeric")
+        ph = ev["ph"]
+        if ph not in _ALLOWED_PH:
+            raise ValueError(f"event {i} has unknown phase {ph!r}")
+        track = (ev["pid"], ev["tid"])
+        if ph == "X":
+            if not isinstance(ev.get("dur"), (int, float)) or ev["dur"] < 0:
+                raise ValueError(f"event {i} ('X') needs numeric dur >= 0")
+        elif ph == "B":
+            open_be[track] = open_be.get(track, 0) + 1
+        elif ph == "E":
+            depth = open_be.get(track, 0)
+            if depth <= 0:
+                raise ValueError(f"event {i}: 'E' without matching 'B' "
+                                 f"on track {track}")
+            open_be[track] = depth - 1
+    unbalanced = {k: v for k, v in open_be.items() if v}
+    if unbalanced:
+        raise ValueError(f"unmatched 'B' events on tracks {unbalanced}")
+    return len(events)
+
+
+# ---------------------------------------------------------------------------
+# Stamps for measurement artifacts.
+# ---------------------------------------------------------------------------
+
+# Timezone-aware UTC ISO-8601 with seconds precision and the literal 'Z'
+# suffix (the reference's benchmark-artifact format).
+UTC_TIMESTAMP_FORMAT = "%Y-%m-%dT%H:%M:%SZ"
+
+
+def utc_now_iso() -> str:
+    """Timezone-aware UTC timestamp in :data:`UTC_TIMESTAMP_FORMAT`."""
+    return datetime.now(timezone.utc).strftime(UTC_TIMESTAMP_FORMAT)
+
+
+def git_rev(cwd=None) -> str:
+    """Short git revision of ``cwd`` (or the working directory);
+    ``"unknown"`` outside a git checkout."""
+    try:
+        out = subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"],
+            cwd=str(cwd) if cwd is not None else None,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            timeout=10, check=True)
+        rev = out.stdout.decode().strip()
+        return rev or "unknown"
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text for a whole engine.
+# ---------------------------------------------------------------------------
+
+def engine_sample_blocks(engine, labels: str = ""
+                         ) -> "Dict[str, Tuple[str, List[str]]]":
+    """Sample blocks (``name -> (kind, lines)``) for one engine.
+
+    The engine registry (EngineStats counters, the sharding counters, the
+    latency histograms, the arena gauges), the plan-cache counters, the
+    per-plan counters labeled by plan, and the event-log accounting, with
+    ``labels`` (e.g. ``tenant="acme"``) merged into every sample.  The
+    arena gauges are refreshed first, so an engine idle since its last
+    lease reports the arena as it is now.  A multi-tenant front end merges
+    one block set per engine with :func:`merge_sample_blocks`.
+    """
+    tel = engine.telemetry
+    cache = engine.cache
+    refresh = getattr(engine, "_update_arena_gauges", None)
+    if refresh is not None:
+        refresh()
+    blocks = tel.registry.sample_blocks(labels)
+
+    for name, kind, value in (
+            ("opsparse_plan_cache_hits_total", "counter", cache.hits),
+            ("opsparse_plan_cache_misses_total", "counter", cache.misses),
+            ("opsparse_plan_cache_evictions_total", "counter",
+             cache.evictions),
+            ("opsparse_plan_cache_size", "gauge", len(cache)),
+            ("opsparse_plan_cache_capacity", "gauge", cache.capacity),
+            ("opsparse_telemetry_events_appended_total", "counter",
+             tel.events.appended),
+            ("opsparse_telemetry_events_dropped_total", "counter",
+             tel.events.dropped),
+    ):
+        blocks.setdefault(name, (kind, []))[1].append(
+            f"{name}{_labelset(labels)} {value}")
+
+    # Per-plan counters: a sample per plan label under one shared name.
+    entries = list(cache.items())
+    if entries:
+        from .stats import PlanStats, plan_label  # here: stats imports us
+        for _, entry in entries:
+            label = ",".join(p for p in (
+                labels, f'plan="{plan_label(entry.plan)}"') if p)
+            for field in PlanStats._COUNTERS:
+                name = entry.stats.metric_name(field)
+                blocks.setdefault(name, ("counter", []))[1].extend(
+                    render_metric_samples(
+                        name, entry.stats.metric(field), label))
+    return blocks
+
+
+def prometheus_text(engine) -> str:
+    """Prometheus exposition text for one engine (the single-tenant view:
+    :func:`engine_sample_blocks` with no labels), what a ``/metrics``
+    endpoint returns verbatim."""
+    return merge_sample_blocks([engine_sample_blocks(engine)])

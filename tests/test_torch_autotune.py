@@ -1,26 +1,40 @@
 """The reference's autotune and plan-cache persistence tests on the port,
 on the CPU.
 
-From ``tests/test_autotune.py``: schedule trims, growth of the headroom,
-capacity-only overflow, the fused->two-pass fallback and the int31
-bucket math (without its ``choose_shards`` line).  From
+From ``tests/test_autotune.py``: the shard-count policy
+(``choose_shards``, ``revise_shards``, AUTO_SHARDS through the engine and
+``spgemm``), schedule trims, growth of the headroom, capacity-only
+overflow, the fused->two-pass fallback and the int31 bucket math.  From
 ``tests/test_partition.py``: the unsharded dump/load cases (the no-op
 load, the fused round trip, a stale v1 schedule, an unknown version, the
-monotone merge).  Only the imports, ``device="cpu"`` and the unsharded
-engine differ from the reference's cases; the shard-count policy waits
-for the port's sharding.  (``test_load_v2_dump_merges_fallback_buckets``
-is in ``tests/test_torch_arena.py``, with its arenas.)
+monotone merge; the sharded ones are in ``tests/test_torch_partition.py``).
+Only the imports and ``device="cpu"`` differ from the reference's cases.
+(``test_load_v2_dump_merges_fallback_buckets`` is in
+``tests/test_torch_arena.py``, with its arenas.)
+
+The AUTO_SHARDS cases also run the reference's engine on the same inputs
+(numpy in): the same shard decisions, counters and C (``rpt``/``col``
+exact, ``val`` within 1e-5).  On the CPU the device count is 1 in both
+packages (``jax.local_device_count()`` in the reference), so the default
+policy picks one shard and only ``max_shards`` lifts it.
 """
+import dataclasses
 import json
 
 import numpy as np
 import pytest
 
-from repro_torch.core import CSR, SpgemmConfig, next_bucket, random_csr
+from repro.core import csr as jcsr
+from repro import engine as jengine
+from repro_torch import convert
+from repro_torch.core import (AUTO_SHARDS, CSR, SpgemmConfig, next_bucket,
+                              random_csr, spgemm)
 from repro_torch.core.binning_ranges import symbolic_ladder
 from repro_torch.core.spgemm import spgemm_reference
 from repro_torch.engine import (AdaptivePolicy, HashSchedule, MatrixSig,
                                 PlanCache, PolicyState, SpgemmEngine,
+                                choose_shards, clamp_shards,
+                                reset_default_engine, revise_shards,
                                 total_traces, trim_schedule)
 from repro_torch.engine.autotune import trim_buckets, trim_fallback
 from repro_torch.kernels.spgemm_hash import (fallback_capacity_bucket,
@@ -37,6 +51,143 @@ def _pair(seed, m=32, k=28, n=36, da=3.0, db=3.0, dist="uniform"):
 
 def _from_dense(d):
     return CSR.from_dense(d, device="cpu")
+
+
+def _check(result, A, B):
+    np.testing.assert_allclose(result.C.to_dense().numpy(),
+                               spgemm_reference(A, B).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Shard-count selection (tests/test_autotune.py).
+# ---------------------------------------------------------------------------
+
+def test_choose_shards_scales_with_flops_and_occupancy():
+    pol = AdaptivePolicy(min_shard_flops=1000, max_shards=None)
+    # Tiny products collapse to 1 (the merge would dominate).
+    assert choose_shards(10, nrows=1000, devices=8, policy=pol) == 1
+    assert choose_shards(999, nrows=1000, devices=8, policy=pol) == 1
+    # Enough flops for 3 shards, but occupancy bounds the fan-out.
+    assert choose_shards(3500, nrows=1000, devices=2, policy=pol) == 2
+    assert choose_shards(3500, nrows=1000, devices=8, policy=pol) == 3
+    # max_shards is a hard cap over the device count.
+    cap = dataclasses.replace(pol, max_shards=2)
+    assert choose_shards(10**9, nrows=1000, devices=8, policy=cap) == 2
+    # Row feasibility: never more shards than the rows can carry.
+    assert choose_shards(10**9, nrows=3, devices=8, policy=pol) == 1
+    assert clamp_shards(8, 100) == 4 and clamp_shards(1, 5) == 1
+
+
+@pytest.mark.parametrize("max_shards", [None, 2, 4])
+def test_choose_shards_equals_reference(max_shards):
+    kw = dict(min_shard_flops=1000, max_shards=max_shards)
+    pol, jpol = AdaptivePolicy(**kw), jengine.AdaptivePolicy(**kw)
+    for flops in (0, 999, 1000, 3500, 10**6, 2**36):
+        for nrows in (1, 3, 8, 1000):
+            for devices in (1, 2, 8):
+                assert choose_shards(flops, nrows, devices, pol) \
+                    == jengine.choose_shards(flops, nrows, devices, jpol)
+
+
+def test_revise_shards_hysteresis_band():
+    pol = AdaptivePolicy(min_shard_flops=1000, max_shards=4,
+                         revise_period=2, revise_factor=2.0)
+    state = PolicyState().with_shard_decision(4, 8000)
+    # Window not full yet: no review.
+    state = state.note_flops(7000)
+    state, revised = revise_shards(state, 1000, 4, pol)
+    assert not revised and state.flops_calls == 1
+    # Mean inside [basis/2, basis*2]: window resets, decision holds.
+    state = state.note_flops(5000)
+    state, revised = revise_shards(state, 1000, 4, pol)
+    assert not revised and state.shard_decision == 4
+    assert state.flops_calls == 0
+    # Sustained drift far below the band: shrink (here to 1).
+    for f in (100, 120):
+        state = state.note_flops(f)
+    state, revised = revise_shards(state, 1000, 4, pol)
+    assert revised and state.shard_decision == 1
+    assert state.shard_basis == 110
+
+
+def test_engine_auto_shards_shrink_to_one_on_tiny_products():
+    """A stream that turns tiny stops fanning out: the policy revises N
+    down to 1 from telemetry.  The reference's engine, fed the same
+    requests, makes the same decisions and counts the same requests."""
+    pol_kw = dict(min_shard_flops=1000, max_shards=2, revise_period=2,
+                  revise_factor=2.0, trim_streak=10**6)
+    engine = SpgemmEngine(shards="auto", policy=AdaptivePolicy(**pol_kw))
+    jeng = jengine.SpgemmEngine(shards="auto",
+                                policy=jengine.AdaptivePolicy(**pol_kw))
+    jA = jcsr.random_csr(1, 48, 40, avg_nnz_per_row=6.0)
+    jB = jcsr.random_csr(2, 40, 36, avg_nnz_per_row=6.0)
+    A, B = (convert.csr_from_reference(np.asarray(M.rpt), np.asarray(M.col),
+                                       np.asarray(M.val), M.shape,
+                                       device="cpu") for M in (jA, jB))
+    cap_a = next_bucket(A.capacity)
+    d = np.zeros((48, 40), np.float32)
+    d[:, 0] = 1.0                       # 1 nnz/row: a tiny product
+    A_tiny = _from_dense(d).with_capacity(cap_a)
+    jA_tiny = jcsr.CSR.from_dense(d).with_capacity(cap_a)
+    assert MatrixSig.of(A_tiny) == MatrixSig.of(A)   # same AUTO plan
+
+    def both(a, ja):
+        r, jr = engine.execute(a, B), jeng.execute(ja, jB)
+        _check(r, a, B)
+        assert r.total_nnz == jr.total_nnz
+        np.testing.assert_array_equal(r.C.rpt.numpy(), np.asarray(jr.C.rpt))
+        return r
+
+    both(A, jA)                         # cold: decides N=2 from flops
+    assert engine.stats.sharded_requests == 1
+    auto_entry = engine.cache.get(
+        (MatrixSig.of(A), MatrixSig.of(B),
+         dataclasses.replace(engine.config, shards=AUTO_SHARDS)))
+    assert auto_entry.plan.policy.shard_decision == 2
+
+    seen_sharded = engine.stats.sharded_requests
+    for _ in range(4):                  # tiny stream: mean flops collapses
+        both(A_tiny, jA_tiny)
+    assert engine.stats.policy_revisions == 1
+    assert auto_entry.plan.policy.shard_decision == 1
+    # The last request(s) ran unsharded: the sharded counter stopped.
+    assert engine.stats.sharded_requests < seen_sharded + 4
+    both(A_tiny, jA_tiny)
+    assert engine.stats.sharded_requests < engine.stats.auto_requests
+    for field in ("requests", "sharded_requests", "auto_requests",
+                  "policy_revisions", "shard_grows"):
+        assert getattr(engine.stats, field) == getattr(jeng.stats, field), \
+            field
+
+
+def test_default_policy_on_one_device_picks_one_shard():
+    """The occupancy bound: on one device the default policy never fans
+    out, whatever the flops; ``max_shards`` lifts the bound."""
+    A, B = _pair(1, m=48, k=40, n=36, da=6.0, db=6.0)
+    engine = SpgemmEngine(shards="auto",
+                          policy=AdaptivePolicy(min_shard_flops=1000))
+    _check(engine.execute(A, B), A, B)
+    key = (MatrixSig.of(A), MatrixSig.of(B),
+           SpgemmConfig(shards=AUTO_SHARDS))
+    assert engine.cache.get(key).plan.policy.shard_decision == 1
+    assert engine.stats.sharded_requests == 0
+    lifted = SpgemmEngine(shards="auto", policy=AdaptivePolicy(
+        min_shard_flops=500, max_shards=4))     # ~3,000 flops: 6 -> 4
+    _check(lifted.execute(A, B), A, B)
+    assert lifted.cache.get(key).plan.policy.shard_decision == 4
+    assert lifted.stats.sharded_requests == 1
+
+
+def test_spgemm_auto_shards_knob():
+    A, B = _pair(7)
+    reset_default_engine()
+    try:
+        _check(spgemm(A, B, shards="auto"), A, B)
+        from repro_torch.engine import default_engine
+        assert default_engine().stats.auto_requests == 1
+    finally:
+        reset_default_engine()
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +366,9 @@ def test_bucket_math_survives_near_int31_counts():
     fb = fallback_capacity_bucket(np.int64(big), headroom=2.0)
     assert fb == 2**32 > 0
     assert next_bucket(2 * big) == 2**32
+    # choose_shards on a multi-billion-flop estimate.
+    pol = AdaptivePolicy(min_shard_flops=1 << 30, max_shards=64)
+    assert choose_shards(2**36, nrows=10**6, devices=64, policy=pol) == 64
     # Trimming with near-wrap maxima stays monotone and positive.
     out = trim_buckets((big,), (2**32,), m=2**40, headroom=2.0)
     assert out == (2**32,)

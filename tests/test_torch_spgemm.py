@@ -17,6 +17,7 @@ from repro.core import spgemm as jspgemm
 from repro.core.spgemm import SpgemmConfig as JConfig
 from repro.engine import default_engine as jdefault
 from repro.engine import reset_default_engine as jreset
+from repro.engine import SpgemmEngine as JEngine
 from repro_torch import convert
 from repro_torch.core.spgemm import (SpgemmConfig, spgemm,
                                      spgemm_reference)
@@ -234,13 +235,29 @@ def test_config_matches_reference_fields_and_defaults():
     assert tf == jf
 
 
-@pytest.mark.parametrize("kw,exc", [(dict(shards=2), NotImplementedError),
-                                    (dict(plan_mode="guess"), ValueError),
+@pytest.mark.parametrize("kw,exc", [(dict(plan_mode="guess"), ValueError),
                                     (dict(method="dense"), ValueError)])
 def test_unported_options_raise(kw, exc):
     A, B = _pair(seed=2, m=8, k=8, n=8)
     with pytest.raises(exc):
         SpgemmEngine().execute(_port(A), _port(B), SpgemmConfig(**kw))
+
+
+def test_sharded_option_runs():
+    """``shards=2`` was refused before sharding was ported; it now gives
+    the reference's C on the same pair (tests/test_torch_partition.py
+    covers sharding in full)."""
+    A, B = _pair(seed=2, m=8, k=8, n=8)
+    r = SpgemmEngine().execute(_port(A), _port(B), SpgemmConfig(shards=2))
+    want = JEngine().execute(A, B, JConfig(shards=2))
+    assert r.total_nnz == want.total_nnz
+    np.testing.assert_array_equal(r.C.rpt.numpy(), np.asarray(want.C.rpt))
+    nnz = want.total_nnz
+    np.testing.assert_array_equal(r.C.col.numpy()[:nnz],
+                                  np.asarray(want.C.col)[:nnz])
+    np.testing.assert_allclose(r.C.val.numpy()[:nnz],
+                               np.asarray(want.C.val)[:nnz], rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_inner_dimension_mismatch_raises():
