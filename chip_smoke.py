@@ -117,11 +117,35 @@ Phases, in order; any failure exits non-zero:
      sharding counters and the arena gauges present); AUTO_SHARDS with
      the default policy (1 shard on one card, no fan-out) and with
      AdaptivePolicy(max_shards=4) (its decision and flop basis, C equal).
+  7d. the multi-tenant service (repro_torch.serve.SpgemmService), with
+     its own launch counts, after the earlier engines are dropped: a
+     stream of 16 A_s·A_s products on the scircuit analogs of seeds
+     crc32("scircuit") + s (one capacity bucket) over tenants alpha and
+     beta, for SpgemmConfig(method="hash") and SpgemmConfig() (ESC), each
+     request timed with a synchronize inside the clock: (1) clean, then
+     under a seeded FaultPlan (lease denials at visits 5 and 6 and with p
+     = 0.25, verify overflows with p = 0.15): no failed request, C equal
+     to the clean run's (ESC bitwise; hash rpt/col exact, values within
+     tolerance, the values not bitwise equal counted), chaos p99 <= max(5
+     x clean p99, 0.5 s), faults injected; (6) /metrics and /healthz
+     scraped over loopback, every per-tenant opsparse_service_* series
+     and opsparse_engine_faults_injected_total present; (2) a poisoned
+     request -> error with 0 retries, a 0.3 s stall under a 0.05 s
+     deadline -> timeout with no value; (4) two tenant threads running the
+     stream at once: every C equal to the single-thread one, 0 arena bytes
+     in use, no exception.  Then on mono_500Hz: (3) a hash shards=2 tenant
+     whose lease denials walk reclaim, shed_shards and spill_two_pass (the
+     governor's own trim and spill off), C equal to the slice's; (5) a
+     tenant calibrated on scircuit refuses mono_500Hz under a 0.1 s
+     deadline before dispatching, then serves it (predicted beside
+     measured latency); (7) a steady scircuit call through svc.call
+     against engine.execute, medians of 20 in turns.
   8. output: a "kernels" JSON line (all five kernels; the cluster kernel
      once for each of the three hash wrappers, named <kernel>_cluster,
      its launches those of the extended phase; the global kernel once for
-     each, <kernel>_global, its launches those of the top-rung path), the
-     card line, and the result line.
+     each, <kernel>_global, its launches those of the top-rung path; the
+     three hash wrappers' service_launches those of the service phase),
+     the card line, and the result line.
 
 Needs one card.  Exits 2 without printing a result when no card is visible
 or when the port's sources are not beside this script.  ``--report PATH``
@@ -2356,6 +2380,388 @@ def phase_sharded(A, C_mono, S, unsharded_plan, slice_stats):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The multi-tenant service (repro_torch.serve).
+# ---------------------------------------------------------------------------
+
+SERVICE_REQUESTS = 16
+# The chaos stream's FaultPlan seed.  On the hash method the scircuit
+# analogs lease nothing (no fallback rows), so only verify_overflow draws
+# from the plan's coin; seed 0's first 14 draws all miss p = 0.15 and the
+# gate would be inert, seed 1's hit 4 times.
+SERVICE_SEED = 1
+
+
+def service_stream(S):
+    """A_s·A_s for the scircuit analogs of seeds crc32("scircuit") + s,
+    s < SERVICE_REQUESTS (s = 0 is S), padded to one capacity bucket;
+    built on the host in worker processes."""
+    from benchmarks.torch.matrices import BY_NAME, from_host, host_arrays, pool
+    from repro_torch.core import next_bucket
+    spec = BY_NAME[SCIRCUIT["name"]]
+    t0 = time.perf_counter()
+    with pool(min(SERVICE_REQUESTS - 1, 7)) as ex:
+        futures = [ex.submit(host_arrays, spec, 1, s)
+                   for s in range(1, SERVICE_REQUESTS)]
+        mats = [S] + [from_host(f.result(), "cuda") for f in futures]
+    cap = next_bucket(max(M.capacity for M in mats))
+    stream = [(M.with_capacity(cap), M.with_capacity(cap)) for M in mats]
+    log(f"service stream: {len(stream)} scircuit analogs (seeds crc32 + "
+        f"0..{SERVICE_REQUESTS - 1}), nnz {min(int(M.nnz()) for M in mats)}"
+        f"..{max(int(M.nnz()) for M in mats)}, padded to capacity {cap}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    return stream
+
+
+def return_and_sync_ms(fn):
+    """(fn(), ms when fn returns, ms after a synchronize): what the host
+    clock reads with and without the device work still in flight."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    t_ret = time.perf_counter()
+    torch.cuda.synchronize()
+    return out, (t_ret - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+
+def _p99(lats):
+    return sorted(lats)[min(len(lats) - 1, int(0.99 * len(lats)))]
+
+
+def _values_differing(C, D):
+    nz = int(D.rpt[-1])
+    return int((C.val[:nz] != D.val[:nz]).sum())
+
+
+def phase_service(A, C_mono, S):
+    """The SpGEMM service on the card (the reference's serve gate at full
+    size): a 16-request scircuit stream over two tenants, clean and under
+    chaos, for the hash method and ESC; structured failures; every service
+    rung on mono_500Hz; two tenant threads at once; deadline admission of
+    a mono_500Hz request; /metrics over loopback; the service's own cost
+    beside engine.execute."""
+    import threading
+    import urllib.request
+    from repro_torch import SpgemmConfig
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    from repro_torch.engine import (Arena, MemoryGovernor, default_arena,
+                                    reset_default_engine)
+    from repro_torch.serve import SpgemmService
+    reset_default_engine()
+    default_arena().reclaim()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {}
+    stream = service_stream(S)
+    tenants = ("alpha", "beta")
+    assign = [tenants[i % 2] for i in range(len(stream))]
+    reset_launches()          # this path's counts, read at its end
+
+    def run_service(cfg, faults=None):
+        svc = SpgemmService(cfg, arena=Arena(), faults=faults,
+                            backoff_base_s=1e-3, backoff_cap_s=0.05)
+        outs, lats = [], []
+        for (X, Y), ten in zip(stream, assign):
+            t0 = time.perf_counter()
+            r = svc.call(X, Y, tenant=ten, deadline_s=60.0)
+            torch.cuda.synchronize()        # C's writes inside the clock
+            lats.append(time.perf_counter() - t0)
+            outs.append(r)
+        return svc, outs, lats
+
+    for method in ("hash", "esc"):
+        cfg = SpgemmConfig(method=method)
+        res = {}
+        bitwise = method == "esc"
+
+        def same(r, ref, what):
+            if bitwise:
+                require(_csr_bitwise(r.value.C, ref.value.C),
+                        f"{what} ({method}): C not bitwise equal")
+                return 0
+            compare_on_card(f"{what} ({method})", r.value.C, ref.value.C)
+            return _values_differing(r.value.C, ref.value.C)
+
+        # -- 1. clean stream, then the chaos stream ---------------------------
+        svc_clean, clean, clean_lats = run_service(cfg)
+        require(all(r.ok for r in clean),
+                f"clean stream ({method}): {[r.status for r in clean]}")
+        scipy_check(stream[0][0], clean[0].value.C)
+        svc_clean.close()
+        plan = FaultPlan([
+            FaultSpec(site="lease_denial", at=(5, 6)),
+            FaultSpec(site="lease_denial", probability=0.25),
+            FaultSpec(site="verify_overflow", probability=0.15),
+        ], seed=SERVICE_SEED)
+        svc, chaos, chaos_lats = run_service(cfg, plan)
+        failed = [i for i, r in enumerate(chaos) if not r.ok]
+        require(not failed, f"chaos stream ({method}): failed requests "
+                f"{failed}: {[chaos[i].error for i in failed]}")
+        differing = sum(same(r, c, f"chaos request {i} vs clean")
+                        for i, (r, c) in enumerate(zip(chaos, clean)))
+        injected = plan.total_injected
+        p99_clean, p99_chaos = _p99(clean_lats), _p99(chaos_lats)
+        bound = max(5.0 * p99_clean, 0.5)
+        require(p99_chaos <= bound, f"chaos p99 ({method}) {p99_chaos:.3f} s "
+                f"over its bound {bound:.3f} s")
+        require(injected > 0, f"chaos stream ({method}): no fault injected")
+        res["stream"] = dict(
+            injected=plan.snapshot()["injected"],
+            retries=sum(r.retries for r in chaos),
+            survived=sum(r.faults_survived for r in chaos),
+            clean_ms=[x * 1e3 for x in clean_lats],
+            chaos_ms=[x * 1e3 for x in chaos_lats],
+            p99_clean_ms=p99_clean * 1e3, p99_chaos_ms=p99_chaos * 1e3,
+            values_differing=differing)
+        log(f"service 1 ({method}): {len(stream)} requests over "
+            f"{len(tenants)} tenants, 0 failed; {injected} faults injected "
+            f"({plan.snapshot()['injected']}), {res['stream']['retries']} "
+            f"retries, {res['stream']['survived']} survived; chaos vs clean "
+            + ("bitwise" if bitwise else "rpt/col exact, values within "
+               f"tolerance, {differing} values not bitwise equal")
+            + f"; p99 {p99_chaos * 1e3:.1f} ms chaos vs {p99_clean * 1e3:.1f} "
+            f"ms clean (bound {bound * 1e3:.0f} ms): ok")
+
+        # -- 6. /metrics over loopback (the chaos service) --------------------
+        server = svc.serve_http()
+        try:
+            body = urllib.request.urlopen(server.url,
+                                          timeout=10).read().decode()
+            health = urllib.request.urlopen(
+                server.url.replace("/metrics", "/healthz"),
+                timeout=10).read()
+        finally:
+            svc.close()
+        series = [f'{name}{{tenant="{t}"}}' for t in tenants for name in (
+            "opsparse_service_requests_total",
+            "opsparse_service_retries_total",
+            "opsparse_service_timeouts_total",
+            "opsparse_service_sheds_total",
+            "opsparse_service_spills_total",
+            "opsparse_service_rejected_total",
+            "opsparse_service_errors_total",
+            "opsparse_service_faults_survived_total",
+            "opsparse_engine_faults_injected_total")]
+        missing = [s for s in series if s + " " not in body]
+        require(health == b"ok\n" and not missing,
+                f"/metrics ({method}): health {health!r}, missing {missing}")
+        n_types = check_prometheus(body, ["opsparse_service_tenants"])
+        res["scrape"] = dict(bytes=len(body), metrics=n_types)
+        log(f"service 6 ({method}): GET {server.url}: {len(body)} B, "
+            f"{n_types} metrics, every per-tenant opsparse_service_* series "
+            f"and opsparse_engine_faults_injected_total present; /healthz "
+            f"ok")
+        del svc, chaos
+
+        # -- 2. structured failures -------------------------------------------
+        X0, Y0 = stream[0]
+        svc_p = SpgemmService(cfg, arena=Arena(), faults=FaultPlan(
+            [FaultSpec(site="executor_raise", at=(0,),
+                       message="poisoned")]))
+        r_p = svc_p.call(X0, Y0, tenant="alpha")
+        require(r_p.status == "error" and r_p.retries == 0
+                and "poisoned" in r_p.error,
+                f"poisoned request ({method}): {r_p}")
+        slow = FaultPlan([FaultSpec(site="slow_dispatch", at=(1,),
+                                    delay_s=0.3)])
+        svc_s = SpgemmService(cfg, arena=Arena(), faults=slow)
+        svc_s.call(X0, Y0, tenant="alpha")       # warm: latency history
+        r_s = svc_s.call(X0, Y0, tenant="alpha", deadline_s=0.05)
+        require(r_s.status == "timeout" and r_s.value is None,
+                f"stalled request ({method}): {r_s.status}")
+        res["structured"] = dict(poison=r_p.status, poison_retries=r_p.retries,
+                                 slow=r_s.status, slow_error=r_s.error,
+                                 stalls=slow.injected["slow_dispatch"])
+        log(f"service 2 ({method}): poisoned request -> {r_p.status} after "
+            f"{r_p.retries} retries; 0.3 s stall under a 0.05 s deadline -> "
+            f"{r_s.status} with no value ({r_s.error}; "
+            f"{slow.injected['slow_dispatch']} stall injected): ok")
+        del svc_p, svc_s
+
+        # -- 4. two tenant threads at once ------------------------------------
+        svc_t = SpgemmService(cfg, arena=Arena())
+        got = {t: [] for t in tenants}
+        errors = []
+
+        def tenant_loop(t):
+            try:
+                for X, Y in stream:
+                    r = svc_t.call(X, Y, tenant=t)
+                    got[t].append(r)
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(f"{t}: {type(exc).__name__}: {exc}")
+
+        threads = [threading.Thread(target=tenant_loop, args=(t,))
+                   for t in tenants]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        require(not errors and not any(th.is_alive() for th in threads),
+                f"tenant threads ({method}): {errors}")
+        require(all(len(got[t]) == len(stream) and all(r.ok for r in got[t])
+                    for t in tenants),
+                f"tenant threads ({method}): "
+                f"{ {t: [r.status for r in got[t]] for t in tenants} }")
+        differing_t = sum(same(r, c, f"thread {t} request {i}")
+                          for t in tenants
+                          for i, (r, c) in enumerate(zip(got[t], clean)))
+        in_use = svc_t.arena.bytes_in_use
+        require(in_use == 0, f"tenant threads ({method}): {in_use} B of the "
+                f"arena still in use")
+        serial = sum(clean_lats) * 1e3
+        res["threads"] = dict(wall_ms=wall, values_differing=differing_t,
+                              clean_stream_ms=serial,
+                              lease_hits=svc_t.arena.lease_hits,
+                              lease_misses=svc_t.arena.lease_misses)
+        log(f"service 4 ({method}): 2 tenant threads x {len(stream)} "
+            f"requests in {wall:.1f} ms (the clean stream, {len(stream)} "
+            f"requests in one thread: {serial:.1f} ms), every C equal to "
+            f"the single-thread "
+            + ("one bitwise" if bitwise else f"one ({differing_t} values not "
+               "bitwise equal)")
+            + f", arena 0 B in use ({svc_t.arena.lease_hits} lease hits, "
+            f"{svc_t.arena.lease_misses} misses), no exception: ok")
+        del svc_t, got, clean
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[method] = res
+
+    cfg = SpgemmConfig(method="hash")
+    X0, Y0 = stream[0]
+    # -- 3. every service rung on mono_500Hz ------------------------------
+    # The governor's own trim and spill would absorb a denial inside the
+    # engine; off, a denied lease reaches the service's ladder.
+    gov = MemoryGovernor(trim_under_pressure=False, spill_fused=False)
+    cfg2 = SpgemmConfig(method="hash", shards=2)
+
+    def rung_service(faults):
+        svc = SpgemmService(cfg2, arena=Arena(), governor=gov,
+                            faults=faults, backoff_base_s=1e-3)
+        for c in (cfg2, cfg):                # cold, then steady, each
+            for _ in range(2):
+                r = svc.call(A, A, tenant="delta", config=c)
+                require(r.ok, f"rung warm-up {c}: {r.status} {r.error}")
+        return svc
+
+    probe = FaultPlan([FaultSpec(site="lease_denial", at=())])
+    svc = rung_service(probe)
+    v0 = probe.visits["lease_denial"]
+    # What latency reads on a sharded call: the merge is enqueued after
+    # the shards' finalize reads, so it may run past the return.
+    _, sharded_ret, sharded_sync = return_and_sync_ms(
+        lambda: svc.call(A, A, tenant="delta"))
+    log(f"service latency, hash shards=2 steady on mono_500Hz: "
+        f"{sharded_ret:.1f} ms at return, {sharded_sync:.1f} ms after a "
+        f"synchronize")
+    del svc
+    gc.collect()
+    plan = FaultPlan([FaultSpec(site="lease_denial",
+                                at=tuple(range(v0, v0 + 16)))])
+    svc = rung_service(plan)
+    r, ms = time_host(lambda: svc.call(A, A, tenant="delta"))
+    require(r.ok and r.degraded == "spill_two_pass",
+            f"service ladder: {r.status} degraded {r.degraded} ({r.error})")
+    err = compare_on_card("spill_two_pass C vs the slice's C", r.value.C,
+                          C_mono)
+    text = svc.prometheus_text()
+    counters = {name: int(float(line.rpartition(" ")[2]))
+                for line in text.splitlines()
+                for name in ("opsparse_service_sheds_total",
+                             "opsparse_service_spills_total",
+                             "opsparse_service_retries_total")
+                if line.startswith(name + '{tenant="delta"}')}
+    require(counters.get("opsparse_service_sheds_total") == 1
+            and counters.get("opsparse_service_spills_total") == 1,
+            f"service ladder counters: {counters}")
+    out["rungs"] = dict(visits_before=v0, retries=r.retries,
+                        sharded_return_ms=sharded_ret,
+                        sharded_sync_ms=sharded_sync,
+                        faults_survived=r.faults_survived, ms=ms,
+                        counters=counters, max_abs_err=err)
+    log(f"service 3: hash shards=2 on mono_500Hz, lease denials from "
+        f"visit {v0}: ok after {r.retries} retries through reclaim, "
+        f"shed_shards, spill_two_pass ({r.faults_survived} faults "
+        f"survived, {ms:.1f} ms), counters {counters}; C equal to the "
+        f"slice's (max |diff| {err:.3e}): ok")
+    del svc, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5. deadline admission at scale ------------------------------------
+    svc = SpgemmService(cfg, arena=Arena())
+    calib, calib_ms = time_host(lambda: svc.call(X0, Y0, tenant="gamma"))
+    require(calib.ok, f"gamma calibration: {calib.status}")
+    eng = svc.engine("gamma")
+    s_per_flop = svc._tenants["gamma"].cold_s_per_flop
+    mono_flops = svc._flops(A, A)
+    predicted = s_per_flop * mono_flops
+    requests = eng.stats.requests
+    t0 = time.perf_counter()
+    r = svc.call(A, A, tenant="gamma", deadline_s=0.1)
+    reject_ms = (time.perf_counter() - t0) * 1e3
+    require(r.status == "timeout" and "predicted" in (r.error or "")
+            and eng.stats.requests == requests,
+            f"mono under a 0.1 s deadline: {r.status} ({r.error}), "
+            f"{eng.stats.requests - requests} requests dispatched")
+    r, measured_ms = time_host(lambda: svc.call(A, A, tenant="gamma"))
+    require(r.ok, f"mono with no deadline: {r.status} ({r.error})")
+    compare_on_card("gamma's mono C vs the slice's C", r.value.C, C_mono)
+    del r
+    r, steady_ret, steady_sync = return_and_sync_ms(
+        lambda: svc.call(A, A, tenant="gamma"))
+    log(f"service latency, hash steady on mono_500Hz: {steady_ret:.1f} ms "
+        f"at return, {steady_sync:.1f} ms after a synchronize")
+    out["deadline"] = dict(steady_return_ms=steady_ret,
+                           steady_sync_ms=steady_sync,
+                           cold_s_per_flop=s_per_flop, mono_flops=mono_flops,
+                           predicted_ms=predicted * 1e3,
+                           measured_ms=measured_ms, reject_ms=reject_ms,
+                           calibration_ms=calib_ms)
+    log(f"service 5: gamma calibrated on scircuit ({calib_ms:.1f} ms, "
+        f"{s_per_flop:.3e} s/flop); mono_500Hz under a 0.1 s deadline -> "
+        f"timeout in {reject_ms:.1f} ms with no dispatch, with none -> ok; "
+        f"predicted {predicted * 1e3:.1f} ms ({mono_flops} flops) vs "
+        f"measured cold {measured_ms:.1f} ms: ok")
+    del svc, eng, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 7. the service's own cost -------------------------------------------
+    svc = SpgemmService(cfg, arena=Arena())
+    eng = svc.engine("alpha")
+    for _ in range(2):                       # cold, then steady
+        svc.call(X0, Y0, tenant="alpha")
+    via_svc, via_eng = [], []
+    for _ in range(20):                      # in turns
+        _, ms = time_host(lambda: svc.call(X0, Y0, tenant="alpha"))
+        via_svc.append(ms)
+        _, ms = time_host(lambda: eng.execute(X0, Y0))
+        via_eng.append(ms)
+    med_svc, med_eng = statistics.median(via_svc), statistics.median(via_eng)
+    out["cost"] = dict(service_ms=via_svc, engine_ms=via_eng,
+                       service_median_ms=med_svc, engine_median_ms=med_eng)
+    log(f"service 7: steady scircuit call, median of 20: svc.call "
+        f"{med_svc:.3f} ms, engine.execute {med_eng:.3f} ms "
+        f"(service layer {med_svc - med_eng:+.3f} ms)")
+    del svc, eng
+    launches = read_launches()
+    require(all(launches[k] > 0 for k in ("fused_bin", "symbolic_bin",
+                                          "numeric_bin")),
+            f"the service path did not launch every kernel of its own: "
+            f"{launches}")
+    out["launches"] = launches
+    log(f"phase service launches: {launches}")
+    del stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run():
     import numpy as np
     from repro_torch.kernels import build
@@ -2421,6 +2827,9 @@ def run():
     t_shard = time.perf_counter()
     sharded = phase_sharded(A, res.C, S, plan, slice_stats)
     log(f"phase sharded: {time.perf_counter() - t_shard:.1f} s")
+    t_svc = time.perf_counter()
+    service = phase_service(A, res.C, S)
+    log(f"phase service: {time.perf_counter() - t_svc:.1f} s")
 
     kernels = []
     for name in REPLACES:
@@ -2432,6 +2841,8 @@ def run():
         top = s["float32"] if name == "bsr_spmm" else s
         entry.update({k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")})
+        if name in HASH_KERNELS:
+            entry.update(service_launches=service["launches"][name])
         if name in CLUSTER_KERNELS + GLOBAL_KERNELS:
             entry.update(bound_share=s["bound_share"])
         if name == "binning_histogram":
@@ -2451,7 +2862,7 @@ def run():
         slice=slice_stats, extended=ext_stats, extended_top=top_path,
         esc=esc_stats,
         main_shapes=stats, request_path=request, governor=governor,
-        sharded=sharded,
+        sharded=sharded, service=service,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)
 
