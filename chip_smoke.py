@@ -108,7 +108,10 @@ Phases, in order; any failure exits non-zero:
      plus the largest row), the distinct sub-plans, each sub-plan's
      fall_prod_bucket and their sum beside the unsharded one, cold and
      steady ms, the shard_merge span and the merge timed alone on the
-     card (CUDA events), peak memory, launches per steady call; at N = 4
+     card (CUDA events), each steady request's latency as the request
+     histogram observes it (once the event after its merge has completed)
+     between its time at return and its synchronized wall time, peak
+     memory, launches per steady call; at N = 4
      one steady dispatch under torch's sync debug mode "error" (no host
      sync) and one profiled steady call; a drain (window 2) of 2 x
      mono_500Hz + 2 x scircuit on a shards=2 engine (4 sharded requests,
@@ -139,12 +142,33 @@ Phases, in order; any failure exits non-zero:
      tenant calibrated on scircuit refuses mono_500Hz under a 0.1 s
      deadline before dispatching, then serves it (predicted beside
      measured latency); (7) a steady scircuit call through svc.call
-     against engine.execute, medians of 20 in turns.
+     against engine.execute, medians of 20 in turns.  The hash stream of
+     (1) again in the fixed-order mode (torch.use_deterministic_algorithms
+     (True)): each chaos C bitwise equal to its clean twin.
+  7e. the reference's engine gates (benchmarks/torch/bench_engine.py, the
+     configurations of ENGINE_GATES) in process at 24 requests of 256 x
+     256 x 256, 4 a row: every correctness gate must hold (the bitwise
+     gates on hash in the fixed-order mode), every timing gate is printed
+     with its threshold, PASS or MISS; output in
+     chiprun_out/engine_gates.log.  Then the fixed-order kernels:
+     fused_bin and numeric_bin (symbolic_bin too) on the tiny ladders and
+     on 8 rows of every extended table size, tables bitwise equal to the
+     plain versions' on the shared-memory, cluster and global routes; at
+     the main path's rungs on mono_500Hz, each rung's time and
+     FIXED_ORDER_ROWS rows bitwise; and spgemm(method="hash") on
+     mono_500Hz in the mode (counts set to 0 just before): the cold call
+     and two steady calls bitwise equal, steady ms with and without
+     torch's fill of uninitialised memory beside the atomic kernels'.
   8. output: a "kernels" JSON line (all five kernels; the cluster kernel
      once for each of the three hash wrappers, named <kernel>_cluster,
      its launches those of the extended phase; the global kernel once for
      each, <kernel>_global, its launches those of the top-rung path; the
-     three hash wrappers' service_launches those of the service phase),
+     three hash wrappers' service_launches those of the service phase;
+     fused_bin and numeric_bin carry their fixed-order variant as
+     "fixed_order", its launches those of the fixed-order mono run;
+     segment_sum, scatter_kept and count_into, their launches those of
+     the slice phase, their times at the largest shape a steady mono
+     call gives them),
      the card line, and the result line.
 
 Needs one card.  Exits 2 without printing a result when no card is visible
@@ -154,6 +178,7 @@ also writes every measured number (per rung, per phase) as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -187,7 +212,13 @@ SOURCES = {
     "binning_histogram": CSRC + "binning_histogram.cu",
     "bsr_spmm": CSRC + "bsr_spmm.cu",
     **{k: CSRC + "spgemm_hash.cu" for k in CLUSTER_KERNELS + GLOBAL_KERNELS},
+    "segment_sum": CSRC + "segment_sum.cu",
+    "scatter_kept": CSRC + "scatter.cu",
+    "count_into": CSRC + "scatter.cu",
 }
+# The kernels of the port's torch-op code (the ESC's in-order sum, the
+# dump-slot writes); the reference's are jnp, with no Pallas kernel.
+SCATTER_KERNELS = ("segment_sum", "scatter_kept", "count_into")
 _HASH_TPU = {"symbolic_bin": "src/repro/kernels/spgemm_hash.py:191",
              "numeric_bin": "src/repro/kernels/spgemm_hash.py:309",
              "fused_bin": "src/repro/kernels/spgemm_hash.py:462"}
@@ -197,6 +228,12 @@ REPLACES = {
     "bsr_spmm": "src/repro/kernels/bsr_spmm.py:32",
     **{k + "_cluster": v for k, v in _HASH_TPU.items()},
     **{k + "_global": v for k, v in _HASH_TPU.items()},
+    # The ESC accumulator's in-order sum and the dump-slot writes; the
+    # reference's are jnp scatters (the lines named), with no Pallas
+    # kernel behind them.
+    "segment_sum": "src/repro/core/esc.py:151",
+    "scatter_kept": "src/repro/kernels/spgemm_hash.py:534",
+    "count_into": "src/repro/core/esc.py:95",
 }
 # Multiplier of the extended ladders that routes mono_500Hz rows to their
 # top rungs (symbolic 262,144 / 1,048,576 by n_prod 94-374 / 375-1,497,
@@ -240,6 +277,13 @@ class SmokeError(Exception):
 def require(cond, msg):
     if not cond:
         raise SmokeError(msg)
+
+
+def fixed_order():
+    """torch.use_deterministic_algorithms(True) inside (the hash wrappers'
+    fixed-order kernels), the mode it found after: the bench's own."""
+    from benchmarks.torch.bench_engine import fixed_order as mode
+    return mode(True)
 
 
 def log(*args):
@@ -326,10 +370,11 @@ def run_bin(sh, kind, plain, A, B, rows, count, t_size, rows_cap, *,
     return dict(nnz=out[0], cols=out[1], vals=out[2], acc=out[3])
 
 
-def compare(what, k, p, nprod_rows, valid):
+def compare(what, k, p, nprod_rows, valid, *, bitwise=False):
     """Kernel result k against plain result p; returns max |val err|.
     nnz and accesses on every row, tables on the valid rows only (the
-    kernels leave the padding rows' tables unwritten)."""
+    kernels leave the padding rows' tables unwritten); ``bitwise`` holds
+    the values to the plain version's bits (the fixed-order kernels)."""
     require(torch.equal(k["nnz"], p["nnz"]), f"{what}: nnz differs")
     err = 0.0
     if k["cols"] is not None:
@@ -341,6 +386,11 @@ def compare(what, k, p, nprod_rows, valid):
         used = pc >= 0
         diff = (kv - pv).abs().masked_fill(~used, 0)
         err = float(diff.max()) if diff.numel() else 0.0
+        if bitwise:
+            same = kv.view(torch.int32) == pv.view(torch.int32)
+            require(bool((same | ~used).all()),
+                    f"{what}: {int((~same & used).sum())} values not "
+                    f"bitwise equal (up to {err:.3e} apart)")
         bad = diff > VAL_ATOL + VAL_RTOL * pv.abs()
         require(not bool(bad.any()),
                 f"{what}: values differ by up to {err:.3e}")
@@ -362,7 +412,8 @@ def bin_inputs(binning, b, rows_cap, limit=None):
 
 
 def check_bins(sh, A, B, binning, ladder, kinds, *, buckets,
-               limit=None, packs=(False, True), label="", by_route=False):
+               limit=None, packs=(False, True), label="", by_route=False,
+               bitwise=False):
     """Every populated table rung: each kernel kind, both disciplines,
     packed and unpacked (where the kernel packs), against the plain
     version.  Returns {kind: max val err}, or with ``by_route`` {kind +
@@ -394,7 +445,7 @@ def check_bins(sh, A, B, binning, ladder, kinds, *, buckets,
                     key = (kind + ROUTE_SUFFIX[route_of(sh, kind, t_size)]
                            if by_route else kind)
                     errs[key] = max(errs.get(key, 0.0), compare(
-                        what, k, plain, nprod_rows, valid))
+                        what, k, plain, nprod_rows, valid, bitwise=bitwise))
                     totals[sa] = int(k["acc"].long().sum())
                 if int(plain["nnz"].long().sum()):
                     require(totals[True] < totals[False],
@@ -421,8 +472,10 @@ def compare_csr(what, C, D):
 # Phases.
 # ---------------------------------------------------------------------------
 
-def phase_tiny(sh, errs):
-    """Tiny ladders force every rung plus the fallback rung."""
+def phase_tiny(sh, errs, *, bitwise=False):
+    """Tiny ladders force every rung plus the fallback rung.  ``bitwise``
+    holds each kernel's tables to the plain version's bits (the fixed-order
+    kernels, under torch.use_deterministic_algorithms(True))."""
     from repro_torch.core import (CSR, bin_rows_for_ladder,
                                   exclusive_sum_in_place, make_ladder,
                                   nprod_into_rpt, random_csr)
@@ -443,8 +496,9 @@ def phase_tiny(sh, errs):
                                              packs=sym.rows_per_block)
     require(all(sym_buckets), f"tiny ladder leaves a rung empty: "
             f"{sym_buckets}")
+    label = "tiny fixed-order " if bitwise else "tiny "
     e = check_bins(sh, A, B, bn, sym, ("symbolic_bin", "fused_bin"),
-                   buckets=sym_buckets, label="tiny ")
+                   buckets=sym_buckets, label=label, bitwise=bitwise)
     for k, v in e.items():
         errs[k] = max(errs[k], v)
 
@@ -464,7 +518,7 @@ def phase_tiny(sh, errs):
     require(all(num_buckets), f"tiny numeric ladder leaves a rung empty: "
             f"{num_buckets}")
     e = check_bins(sh, A, B, nbn, num, ("numeric_bin",),
-                   buckets=num_buckets, label="tiny ")
+                   buckets=num_buckets, label=label, bitwise=bitwise)
     errs["numeric_bin"] = max(errs["numeric_bin"],
                               e.get("numeric_bin", 0.0))
 
@@ -491,8 +545,12 @@ def phase_tiny(sh, errs):
                                         row_packing=packed)
         errs["fused_bin"] = max(errs["fused_bin"], compare_csr(
             f"tiny fused_scheduled (packed={packed})", F, F0))
-    log("phase tiny ladders: every rung + fallback, both disciplines, "
-        f"packed and unpacked, values within {VAL_ATOL} + {VAL_RTOL}*|v|: ok")
+    log(f"phase {label}ladders: every rung + fallback, both disciplines, "
+        f"packed and unpacked, kernels' values "
+        + ("bitwise equal to the plain versions'" if bitwise else
+           f"within {VAL_ATOL} + {VAL_RTOL}*|v|")
+        + "; the scheduled paths within tolerance: ok")
+    return A, B
 
 
 def table3_matrix(spec):
@@ -513,10 +571,14 @@ def kernel_wrappers():
     from repro_torch.kernels import spgemm_hash as sh
     from repro_torch.kernels.binning_histogram import binning_histogram
     from repro_torch.kernels.bsr_spmm import bsr_spmm
+    from repro_torch.kernels.scatter import count_into, scatter_kept
+    from repro_torch.kernels.segment_sum import segment_sum
     return {"symbolic_bin": sh.symbolic_bin_call,
             "numeric_bin": sh.numeric_bin_call,
             "fused_bin": sh.fused_bin_call,
-            "binning_histogram": binning_histogram, "bsr_spmm": bsr_spmm}
+            "binning_histogram": binning_histogram, "bsr_spmm": bsr_spmm,
+            "segment_sum": segment_sum, "scatter_kept": scatter_kept,
+            "count_into": count_into}
 
 
 def reset_launches():
@@ -950,6 +1012,9 @@ def phase_slice(A):
     peak = torch.cuda.max_memory_allocated()
     require(steady_launches["fused_bin"] > 0,
             f"steady calls did not launch the fused kernel: {launches}")
+    require(all(launches[k] > 0 for k in SCATTER_KERNELS),
+            f"the slice did not launch each of {SCATTER_KERNELS}: "
+            f"{launches}")
     require(steady_launches["symbolic_bin"] == 0
             and steady_launches["numeric_bin"] == 0,
             f"steady calls ran the two-pass kernels: {steady_launches}")
@@ -1456,7 +1521,9 @@ def phase_cluster_sass():
                                 or "SPIN" in op for op in counts),
                     f"{kernel}'s SASS holds no distributed-shared-memory "
                     f"CAS, or a device-memory atomic: {picked[kernel]}")
-    require(sum(k.startswith("cluster_rows_kernel") for k in picked) == 4,
+    # Both disciplines, keys only and with values, and the two fixed-order
+    # instances (with values).
+    require(sum(k.startswith("cluster_rows_kernel") for k in picked) == 6,
             f"the SASS lacks an instance of cluster_rows_kernel: "
             f"{sorted(picked)}")
     log(f"phase cluster SASS (cuobjdump): table atomics {picked}: ok")
@@ -1690,7 +1757,8 @@ def _csr_bitwise(C, D):
     """Whether C and D carry the same CSR payload, bit for bit."""
     nz = int(D.rpt[-1])
     return (torch.equal(C.rpt, D.rpt) and torch.equal(C.col[:nz], D.col[:nz])
-            and torch.equal(C.val[:nz], D.val[:nz]))
+            and torch.equal(C.val[:nz].view(torch.int32),
+                            D.val[:nz].view(torch.int32)))
 
 
 def phase_governor(A, C_mono, S, slice_stats):
@@ -2152,12 +2220,29 @@ def phase_sharded(A, C_mono, S, unsharded_plan, slice_stats):
         cold_buckets = [eng.cache.peek(shard_key(eng, A, s, n))
                         .plan.hash_schedule.fall_prod_bucket
                         for s in range(n)]
-        steady_ms = []
+        steady_ms, return_ms, observed_ms = [], [], []
+        hist = eng.telemetry.registry.get("opsparse_request_latency_seconds")
+        eng.flush_latencies(wait=True)        # the cold request's
         before = read_launches()
         for _ in range(STEADY_CALLS):
-            res, ms = time_host(lambda: eng.execute(A, A))
+            # The request-latency histogram observes a sharded request
+            # once the event after its merge has completed: the latency
+            # includes the merge, as the synchronized wall time does.
+            seen, count = hist.sum, hist.count
+            res, ret, ms = return_and_sync_ms(lambda: eng.execute(A, A))
+            eng.flush_latencies()
+            require(hist.count == count + 1,
+                    f"shards={n}: the request histogram observed "
+                    f"{hist.count - count} requests after a synchronize")
             steady_ms.append(ms)
+            return_ms.append(ret)
+            observed_ms.append((hist.sum - seen) * 1e3)
         launches = {k: v - before[k] for k, v in read_launches().items()}
+        require(all(r < o <= w + 1.0 for r, o, w in
+                    zip(return_ms, observed_ms, steady_ms)),
+                f"shards={n}: observed request latencies {observed_ms} ms "
+                f"do not lie between the return {return_ms} and the "
+                f"synchronized wall time {steady_ms}")
         peak = torch.cuda.max_memory_allocated()
         err = compare_on_card(f"shards={n} steady C vs the slice's C",
                               res.C, C_mono)
@@ -2223,6 +2308,7 @@ def phase_sharded(A, C_mono, S, unsharded_plan, slice_stats):
             merged_capacity=cap, cold_ms=cold_ms, steady_ms=steady_ms,
             steady_median_ms=statistics.median(steady_ms),
             merge_span_ms=merge_span_ms, merge_device_ms=merge_ms,
+            return_ms=return_ms, observed_latency_ms=observed_ms,
             peak_bytes=peak, held_bytes=held, cold_launches=cold_launches,
             steady_launches=launches,
             fused_bin_per_steady_call=fused_per_call,
@@ -2246,7 +2332,10 @@ def phase_sharded(A, C_mono, S, unsharded_plan, slice_stats):
             f"{statistics.median(steady_ms):.1f} ms "
             f"{['%.1f' % x for x in steady_ms]} (unsharded "
             f"{slice_stats['steady_median_ms']:.1f}, cold "
-            f"{slice_stats['cold_ms']:.1f}); shard_merge span "
+            f"{slice_stats['cold_ms']:.1f}); request latency observed "
+            f"{['%.1f' % x for x in observed_ms]} ms (return "
+            f"{['%.1f' % x for x in return_ms]}, synchronized "
+            f"{['%.1f' % x for x in steady_ms]}); shard_merge span "
             f"{['%.2f' % x for x in merge_span_ms]} ms (host), the merge "
             f"on the card {merge_ms:.2f} ms; peak {peak / 2**30:.2f} GiB "
             f"({held / 2**30:.2f} held before, the slice's C among it); "
@@ -2286,6 +2375,7 @@ def phase_sharded(A, C_mono, S, unsharded_plan, slice_stats):
     torch.cuda.synchronize()
     drain_ms = (time.perf_counter() - t0) * 1e3
     dpeak = torch.cuda.max_memory_allocated()
+    eng.flush_latencies()        # the merges are done: observe them
     for uid in uids["mono"]:
         compare_on_card(f"sharded drain request {uid} vs the slice's C",
                         results[uid].C, C_mono)
@@ -2433,6 +2523,46 @@ def _values_differing(C, D):
     return int((C.val[:nz] != D.val[:nz]).sum())
 
 
+def chaos_plan(seed):
+    """The reference's chaos FaultPlan (bench_engine.py's serve gate)."""
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    return FaultPlan([
+        FaultSpec(site="lease_denial", at=(5, 6)),
+        FaultSpec(site="lease_denial", probability=0.25),
+        FaultSpec(site="verify_overflow", probability=0.15),
+    ], seed=seed)
+
+
+def service_fixed_order(run_service, cfg, default_lats):
+    """The hash service stream, clean and under chaos, in the fixed-order
+    mode (torch.use_deterministic_algorithms(True)): every chaos C bitwise
+    equal to its clean twin, and the mode's cost per request beside the
+    default mode's clean run."""
+    with fixed_order():
+        _, clean, clean_lats = run_service(cfg)
+        plan = chaos_plan(SERVICE_SEED)
+        svc, chaos, chaos_lats = run_service(cfg, plan)
+        svc.close()
+    require(all(r.ok for r in clean + chaos),
+            f"fixed-order service stream: {[r.status for r in chaos]}")
+    for i, (r, c) in enumerate(zip(chaos, clean)):
+        require(_csr_bitwise(r.value.C, c.value.C),
+                f"fixed-order chaos request {i}: C not bitwise equal to "
+                f"its clean twin")
+    require(plan.total_injected > 0, "fixed-order chaos: no fault injected")
+    out = dict(clean_ms=[x * 1e3 for x in clean_lats],
+               chaos_ms=[x * 1e3 for x in chaos_lats],
+               injected=plan.snapshot()["injected"],
+               median_ms=statistics.median(clean_lats) * 1e3,
+               default_median_ms=statistics.median(default_lats) * 1e3)
+    log(f"service 1 (hash, fixed order): {len(clean)} requests, clean and "
+        f"under chaos ({plan.total_injected} faults injected), every chaos "
+        f"C bitwise equal to its clean twin; median request "
+        f"{out['median_ms']:.2f} ms vs {out['default_median_ms']:.2f} ms "
+        f"in the default mode (the first request is the cold call): ok")
+    return out
+
+
 def phase_service(A, C_mono, S):
     """The SpGEMM service on the card (the reference's serve gate at full
     size): a 16-request scircuit stream over two tenants, clean and under
@@ -2489,11 +2619,7 @@ def phase_service(A, C_mono, S):
                 f"clean stream ({method}): {[r.status for r in clean]}")
         scipy_check(stream[0][0], clean[0].value.C)
         svc_clean.close()
-        plan = FaultPlan([
-            FaultSpec(site="lease_denial", at=(5, 6)),
-            FaultSpec(site="lease_denial", probability=0.25),
-            FaultSpec(site="verify_overflow", probability=0.15),
-        ], seed=SERVICE_SEED)
+        plan = chaos_plan(SERVICE_SEED)
         svc, chaos, chaos_lats = run_service(cfg, plan)
         failed = [i for i, r in enumerate(chaos) if not r.ok]
         require(not failed, f"chaos stream ({method}): failed requests "
@@ -2522,6 +2648,9 @@ def phase_service(A, C_mono, S):
                f"tolerance, {differing} values not bitwise equal")
             + f"; p99 {p99_chaos * 1e3:.1f} ms chaos vs {p99_clean * 1e3:.1f} "
             f"ms clean (bound {bound * 1e3:.0f} ms): ok")
+        if method == "hash":
+            res["fixed_order"] = service_fixed_order(run_service, cfg,
+                                                     clean_lats)
 
         # -- 6. /metrics over loopback (the chaos service) --------------------
         server = svc.serve_http()
@@ -2762,6 +2891,347 @@ def phase_service(A, C_mono, S):
     return out
 
 
+# The reference's CI configurations of bench_engine.py (scripts/ci.sh), on
+# the port at the reference's default stream (24 requests, 256 x 256 x
+# 256, 4 a row), and the hash twins of its ESC gates (not --arena: hash
+# plans of this stream lease nothing, and the gate, like the reference's,
+# needs every plan to lease).  The hash serve gate takes SERVICE_SEED for
+# the same reason.
+ENGINE_GATES = (
+    ("esc", []),
+    ("hash", ["--method", "hash"]),
+    ("hash adaptive", ["--method", "hash", "--adaptive"]),
+    ("hash fused", ["--method", "hash", "--fused"]),
+    ("esc shards 2", ["--shards", "2"]),
+    ("esc arena", ["--arena"]),
+    ("hash estimate", ["--estimate", "--method", "hash"]),
+    ("esc estimate", ["--estimate"]),
+    ("esc shards 2 traced", ["--shards", "2", "--trace", "TRACE"]),
+    ("esc serve", ["--serve"]),
+    ("hash serve", ["--serve", "--method", "hash", "--seed",
+                    str(SERVICE_SEED)]),
+)
+# The vmem_extended table sizes of the two wrappers that build values:
+# fused_bin 65,536 (cluster), 262,144 and 1,048,576 (global); numeric_bin
+# 32,768 and 131,072 (cluster), 524,288 (global).
+FIXED_ORDER_EXTENDED = {"fused_bin": (65536, 262144, 1048576),
+                        "numeric_bin": (32768, 131072, 524288)}
+FIXED_ORDER_ROWS = 16          # rows of a mono rung held bit for bit
+
+
+def engine_gates():
+    """Every configuration of ENGINE_GATES through bench_engine.run, in
+    process on the card; its output goes to chiprun_out/engine_gates.log.
+    Correctness gates must hold; timing gates are printed with their
+    thresholds."""
+    import io
+    from benchmarks.torch import bench_engine
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    traj = outdir / "bench_engine_torch.json"
+    traj.unlink(missing_ok=True)     # the adaptive gate reads this run's
+    out = {}
+    with open(outdir / "engine_gates.log", "w") as logf:
+        for name, argv in ENGINE_GATES:
+            argv = [str(outdir / "engine_gates_trace.json") if a == "TRACE"
+                    else a for a in argv]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = bench_engine.run(["--device", "cuda", "--json",
+                                        str(traj)] + argv)
+            secs = time.perf_counter() - t0
+            logf.write(f"==== {name}: {' '.join(argv)}\n{buf.getvalue()}\n")
+            bad = [k for k, v in res["correctness"].items() if not v]
+            require(not bad, f"engine gate {name}: {bad} failed "
+                    f"(chiprun_out/engine_gates.log)")
+            timing = "; ".join(
+                f"{k} {v['value']:.4g} (target {v['target']}) "
+                f"{'PASS' if v['ok'] else 'MISS'}"
+                for k, v in res["timing"].items())
+            modes = ", ".join(f"{k}: {v}" for k, v in res["modes"].items())
+            log(f"  engine gate {name} ({secs:.1f} s): correctness "
+                f"{', '.join(res['correctness'])}: ok"
+                + (f"; modes {modes}" if modes else "")
+                + (f"; timing {timing}" if timing else ""))
+            out[name] = dict(argv=argv, seconds=secs,
+                             correctness=res["correctness"],
+                             timing=res["timing"], modes=res["modes"],
+                             entry=res["entry"])
+    return out
+
+
+def fixed_order_kernels(sh, errs):
+    """The fixed-order kernels against their plain versions, bit for bit:
+    phase_tiny's ladders (the shared-memory route), then FIXED_ORDER_ROWS'
+    eight heaviest rows of that pair on every extended table size (the
+    cluster and global routes)."""
+    from repro_torch.core import nprod_into_rpt
+    with fixed_order():
+        A, B = phase_tiny(sh, errs, bitwise=True)
+        nprod = nprod_into_rpt(A, B)[:A.nrows]
+        rows = torch.argsort(nprod, descending=True)[:8].to(torch.int32)
+        count = torch.tensor([8], dtype=torch.int32, device=A.device)
+        valid = torch.ones(8, dtype=torch.bool, device=A.device)
+        routes = {}
+        for kind, sizes in FIXED_ORDER_EXTENDED.items():
+            for t_size in sizes:
+                before = getattr(sh, kind + "_call").launches_ordered
+                k = run_bin(sh, kind, False, A, B, rows, count, t_size, 8)
+                torch.cuda.synchronize()
+                require(getattr(sh, kind + "_call").launches_ordered
+                        == before + 1, f"{kind} t={t_size}: no fixed-order "
+                        f"launch")
+                p = run_bin(sh, kind, True, A, B, rows, count, t_size, 8)
+                route = route_of(sh, kind, t_size)
+                errs[kind] = max(errs[kind], compare(
+                    f"fixed-order {kind} t={t_size} ({route})", k, p,
+                    nprod[rows.long()].long(), valid, bitwise=True))
+                routes.setdefault(kind, set()).add(route)
+                del k, p
+    for kind, seen in routes.items():
+        require(seen == {"cluster", "global"},
+                f"fixed-order {kind}: extended routes {seen}")
+    log("phase fixed-order kernels: fused_bin and numeric_bin on the "
+        "shared-memory, cluster and global routes, tables bitwise equal to "
+        "the plain versions': ok")
+    return {k: sorted(v | {"smem"}) for k, v in routes.items()}
+
+
+def fixed_order_main_shapes(sh, A, jobs, atomic):
+    """The fixed-order fused_bin and numeric_bin at the rungs the main path
+    gave the atomic kernels (``jobs``): each rung's time at its full bin
+    (CUDA events, the wrapper's launch alone), and FIXED_ORDER_ROWS of its
+    rows bitwise against the plain version.  The bound and the plain
+    version are the atomic kernels' (the same work)."""
+    from repro_torch.core import nprod_into_rpt
+    nprod = nprod_into_rpt(A, A)
+    out = {}
+    with fixed_order():
+        for kind in ("fused_bin", "numeric_bin"):
+            binning, ladder, buckets = jobs[kind]
+            ms, rungs = 0.0, []
+            for b, t_size in enumerate(ladder.table_sizes):
+                rows_cap = buckets[b]
+                if not rows_cap or route_of(sh, kind, t_size) != "smem":
+                    continue
+                rows, count, valid = bin_inputs(binning, b, rows_cap)
+                kms = time_cuda(lambda: bin_call(
+                    sh, kind, False, A, A, rows, count, t_size, rows_cap), 3)
+                lrows, lcount, lvalid = bin_inputs(binning, b, rows_cap,
+                                                   FIXED_ORDER_ROWS)
+                k = run_bin(sh, kind, False, A, A, lrows, lcount, t_size,
+                            rows_cap)
+                p = run_bin(sh, kind, True, A, A, lrows, lcount, t_size,
+                            rows_cap)
+                compare(f"fixed-order main shape {kind} rung {b}", k, p,
+                        nprod[lrows.long()].long().masked_fill(~lvalid, 0),
+                        lvalid, bitwise=True)
+                del k, p
+                ms += kms
+                rungs.append(dict(rung=b, t_size=t_size, rows=int(count),
+                                  rows_cap=rows_cap, ms=kms))
+                log(f"  fixed-order {kind} rung {b} (t={t_size}, rows "
+                    f"{int(count)}/{rows_cap}): {kms:.3f} ms (atomic "
+                    f"{next(r['ms'] for r in atomic[kind]['rungs'] if r['rung'] == b):.3f}"
+                    f" ms); {FIXED_ORDER_ROWS} rows bitwise: ok")
+                torch.cuda.empty_cache()
+            out[kind] = dict(ms=ms, rungs=rungs,
+                             atomic_ms=atomic[kind]["ms"],
+                             plain_ms=atomic[kind]["plain_ms"],
+                             bound_ms=atomic[kind]["bound_ms"],
+                             bound_share=atomic[kind]["bound_ms"] / ms)
+            log(f"phase fixed-order main shapes {kind}: {len(rungs)} rungs, "
+                f"{ms:.3f} ms against the atomic kernel's "
+                f"{atomic[kind]['ms']:.3f} ms, bound "
+                f"{atomic[kind]['bound_ms']:.3f} ms: ok")
+    return out
+
+
+def capture_largest(owner, name, call):
+    """The arguments of the call of ``owner.<name>`` with the largest
+    second argument in ``call()`` (the function is patched on ``owner``
+    for the call)."""
+    real, seen = getattr(owner, name), []
+
+    def spy(*args, **kw):
+        if not seen or args[1].numel() > seen[0][1].numel():
+            seen[:] = [args, kw]
+        return real(*args, **kw)
+    # The wrapper counts its launches on the function its module's global
+    # names, which is the spy while it is patched there.
+    spy.launches = real.launches
+    setattr(owner, name, spy)
+    try:
+        call()
+    finally:
+        setattr(owner, name, real)
+        if real.__module__ == owner.__name__:
+            real.launches = spy.launches
+    require(seen, f"no {name} launch in a fixed-order steady call")
+    return seen[0], seen[1]
+
+
+def order_kernel_at_main_shape(name, args, kw):
+    """One of the kernels of the port's torch-op code (segment_sum,
+    scatter_kept, count_into) at the largest shape a steady mono_500Hz
+    call gave it, outside the fixed-order mode: bitwise against its plain
+    version, its time, the plain version's, the torch call it replaces
+    (the library yardstick) and its bound (the bytes the function needs:
+    every index, each kept value or addend read once, each output written
+    once)."""
+    from repro_torch.kernels import scatter, segment_sum as ss
+    if name == "segment_sum":
+        (vals, offsets), n_real = args, kw["n_real"]
+        n_out = offsets.shape[0] - 1
+        kernel = timed = lambda: ss.segment_sum(vals, offsets, n_real=n_real)
+        plain = lambda: ss.segment_sum_plain(vals, offsets, n_real=n_real)
+        library = lambda: torch.segment_reduce(vals, "sum", offsets=offsets,
+                                               unsafe=True)
+        cut = n_real
+        nbytes = 4 * int(offsets[n_real]) + 8 * (n_real + 1) + 4 * n_out
+        shape = f"{int(offsets[n_real])} products in {n_real} segments"
+    else:
+        (dst, index, src), limit = args, kw["limit"]
+        fn = getattr(scatter, name)
+        plain_fn = getattr(scatter, name + "_plain")
+        fresh = (lambda: dst.clone()) if name == "scatter_kept" else (
+            lambda: torch.zeros_like(dst))
+        kernel = lambda: fn(fresh(), index, src, limit=limit)
+        plain = lambda: plain_fn(fresh(), index, src, limit=limit)
+        # Timed in place: a repeated write of the same values, or counts
+        # added again, costs what the first did.
+        timed = lambda: fn(dst, index, src, limit=limit)
+        library = lambda: plain_fn(dst, index, src, limit=limit)
+        cut = limit
+        kept = int((index < limit).sum())
+        out_bytes = 4 * (kept if name == "scatter_kept" else limit)
+        nbytes = 8 * index.numel() + 4 * kept + out_bytes
+        shape = f"{index.numel()} writes, {kept} kept below {limit}"
+    got = kernel()
+    want, plain_ms = time_host(plain)
+    require(torch.equal(got[:cut].view(torch.int32),
+                        want[:cut].view(torch.int32)),
+            f"{name} at the main shape: not bitwise equal to the plain "
+            f"version")
+    del got, want
+    ms = time_cuda(timed, 3)
+    library_ms = time_cuda(library, 3)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {name} at the main shape ({shape}): {ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_ms / ms:.1%}), plain {plain_ms:.1f} "
+        f"ms, the torch call {library_ms:.3f} ms; bitwise equal to the "
+        f"plain version: ok")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+                bound_share=bound_ms / ms)
+
+
+def fixed_order_mono(sh, A, C_mono):
+    """spgemm(method="hash") on mono_500Hz in the fixed-order mode, the
+    counts set to 0 just before and read just after: the cold call and two
+    steady calls give bitwise-equal C (equal to the atomic slice's within
+    tolerance); the steady ms with torch's fill of uninitialised memory on
+    and off, beside the atomic kernels' steady calls on the same engine."""
+    import torch.utils.deterministic as tud
+    from repro_torch import SpgemmConfig
+    from repro_torch.engine import Arena, SpgemmEngine
+    cfg = SpgemmConfig(method="hash")
+    eng = SpgemmEngine(cfg, arena=Arena())
+    eng.execute(A, A)                                    # atomic cold
+    atomic_ms = [time_host(lambda: eng.execute(A, A))[1] for _ in range(2)]
+    eng.arena.reclaim()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fns = (sh.symbolic_bin_call, sh.numeric_bin_call, sh.fused_bin_call)
+    reset_launches()
+    for fn in fns:
+        fn.launches_ordered = 0
+    eng = SpgemmEngine(cfg, arena=Arena())
+    with fixed_order():
+        res, cold_ms = time_host(lambda: eng.execute(A, A))
+        C_cold = res.C
+        steady_ms = []
+        for i in range(2):
+            res, ms = time_host(lambda: eng.execute(A, A))
+            steady_ms.append(ms)
+            require(_csr_bitwise(res.C, C_cold),
+                    f"fixed-order mono steady call {i}: C not bitwise equal "
+                    f"to the cold call's")
+        del res
+        from repro_torch.core import esc
+        from repro_torch.kernels import scatter
+        captured = {}
+
+        def steady():
+            captured["segment_sum"] = capture_largest(
+                esc, "segment_sum", lambda: eng.execute(A, A))
+        captured["scatter_kept"] = capture_largest(scatter, "scatter_kept",
+                                                   steady)
+        captured["count_into"] = capture_largest(
+            scatter, "count_into", lambda: eng.execute(A, A))
+        ordered = {fn.__name__.removesuffix("_call"): fn.launches_ordered
+                   for fn in fns}
+        launches = read_launches()
+        require(all(launches[k] > 0 for k in SCATTER_KERNELS),
+                f"fixed-order mono: one of {SCATTER_KERNELS} never ran: "
+                f"{launches}")
+        err = compare_on_card("fixed-order mono C vs the atomic slice's",
+                              C_cold, C_mono)
+        was_fill = tud.fill_uninitialized_memory
+        tud.fill_uninitialized_memory = False
+        try:
+            nofill_ms = []
+            for _ in range(2):
+                res, ms = time_host(lambda: eng.execute(A, A))
+                nofill_ms.append(ms)
+                require(_csr_bitwise(res.C, C_cold),
+                        "fixed-order mono steady call without the fill: C "
+                        "not bitwise equal to the cold call's")
+                del res
+        finally:
+            tud.fill_uninitialized_memory = was_fill
+    require(ordered["fused_bin"] > 0 and ordered["numeric_bin"] > 0
+            and ordered["fused_bin"] == launches["fused_bin"]
+            and ordered["numeric_bin"] == launches["numeric_bin"],
+            f"fixed-order mono: launches {launches}, fixed-order {ordered}")
+    eng.arena.reclaim()
+    del eng, C_cold
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(cold_ms=cold_ms, steady_ms=steady_ms,
+               steady_nofill_ms=nofill_ms, atomic_steady_ms=atomic_ms,
+               launches=launches, launches_ordered=ordered,
+               max_abs_err_vs_atomic=err,
+               kernels={k: order_kernel_at_main_shape(k, *captured[k])
+                        for k in SCATTER_KERNELS})
+    log(f"phase fixed-order mono_500Hz: cold {cold_ms:.1f} ms, steady "
+        f"{['%.1f' % x for x in steady_ms]} ms with torch's fill of "
+        f"uninitialised memory, {['%.1f' % x for x in nofill_ms]} ms "
+        f"without, atomic kernels {['%.1f' % x for x in atomic_ms]} ms on "
+        f"the same card; cold and steady C bitwise equal (atomic C within "
+        f"{err:.3e}); launches {ordered} fixed-order of {launches}: ok")
+    return out
+
+
+def phase_engine_gates(sh, A, C_mono, jobs, atomic_stats, errs):
+    """The reference's engine gates on the card, and the fixed-order mode:
+    its kernels bitwise on every route, at the main path's rungs, and on
+    mono_500Hz end to end."""
+    from repro_torch.engine import default_arena, reset_default_engine
+    reset_default_engine()
+    default_arena().reclaim()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(gates=engine_gates())
+    out["kernel_routes"] = fixed_order_kernels(sh, errs)
+    out["main_shapes"] = fixed_order_main_shapes(sh, A, jobs, atomic_stats)
+    out["mono"] = fixed_order_mono(sh, A, C_mono)
+    return out
+
+
 def run():
     import numpy as np
     from repro_torch.kernels import build
@@ -2789,6 +3259,7 @@ def run():
     log("ptxas: " + ", ".join(k for _, k in NO_SPILLS) + " spill nothing: ok")
 
     errs = {k: 0.0 for k in REPLACES}
+    fixed_errs = {k: 0.0 for k in REPLACES}   # bitwise: stays 0.0
     cluster_sass = phase_cluster_sass()
     phase_tiny(sh, errs)
     A = table3_matrix(MONO)
@@ -2830,6 +3301,13 @@ def run():
     t_svc = time.perf_counter()
     service = phase_service(A, res.C, S)
     log(f"phase service: {time.perf_counter() - t_svc:.1f} s")
+    t_gates = time.perf_counter()
+    gates = phase_engine_gates(sh, A, res.C, main_path_jobs(plan, res),
+                               stats, fixed_errs)
+    log(f"phase engine gates: {time.perf_counter() - t_gates:.1f} s")
+    for name in SCATTER_KERNELS:
+        stats[name] = dict(gates["mono"]["kernels"][name],
+                           launches=launches[name])
 
     kernels = []
     for name in REPLACES:
@@ -2843,6 +3321,14 @@ def run():
                                           "bound_by", "library_ms")})
         if name in HASH_KERNELS:
             entry.update(service_launches=service["launches"][name])
+        if name in gates["main_shapes"]:
+            fo = gates["main_shapes"][name]
+            entry["fixed_order"] = dict(
+                launches=gates["mono"]["launches_ordered"][name],
+                max_abs_err=fixed_errs[name], ms=fo["ms"],
+                plain_ms=fo["plain_ms"], bound_ms=fo["bound_ms"],
+                bound_by="bytes", library_ms=None,
+                routes=gates["kernel_routes"][name])
         if name in CLUSTER_KERNELS + GLOBAL_KERNELS:
             entry.update(bound_share=s["bound_share"])
         if name == "binning_histogram":
@@ -2862,7 +3348,7 @@ def run():
         slice=slice_stats, extended=ext_stats, extended_top=top_path,
         esc=esc_stats,
         main_shapes=stats, request_path=request, governor=governor,
-        sharded=sharded, service=service,
+        sharded=sharded, service=service, engine_gates=gates,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)
 

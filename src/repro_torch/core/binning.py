@@ -8,8 +8,9 @@ scatter (``argsort(bin_of_row, stable)`` writes the row ids to their bin's
 slice and keeps the in-bin row-id order).  The Alg-3 fast path is kept:
 when ``max(sizes) <= upper[0]`` the ``bins`` array is the identity.
 
-No step here syncs the host: the histogram is a ``scatter_add_`` into
-``num_bins`` slots (``bincount`` on CUDA reads the max to size its output),
+No step here syncs the host: the histogram is a count into ``num_bins``
+slots (``kernels/scatter.count_into``; ``bincount`` on CUDA reads the max
+to size its output),
 and the rung bounds are Python ints compared one at a time, so no host
 list is copied to the device.  The steady state bins with ``bin_rows``
 and keeps its single host sync for finalize.
@@ -20,6 +21,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels import scatter
 
 from .binning_ranges import BinLadder
 
@@ -82,7 +85,8 @@ def bin_rows(sizes: torch.Tensor, *, upper: Tuple[int, ...],
     m = sizes.shape[0]
     bin_of_row = classify(sizes, upper)
     bin_size = torch.zeros(num_bins, dtype=torch.int32, device=dev)
-    bin_size.scatter_add_(0, bin_of_row.long(), torch.ones_like(bin_of_row))
+    scatter.count_into(bin_size, bin_of_row.long(),
+                       torch.ones_like(bin_of_row), limit=num_bins)
     bin_offset = torch.zeros_like(bin_size)
     bin_offset[1:] = torch.cumsum(bin_size, 0)[:-1]
     max_size = sizes.max() if m else torch.zeros((), dtype=sizes.dtype,

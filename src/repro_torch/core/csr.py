@@ -230,6 +230,39 @@ def gather_rows(A: CSR, rows: torch.Tensor, valid: torch.Tensor,
                val=A.val[src].masked_fill(pad, 0), shape=(r_cap, A.ncols))
 
 
+def _threefry2x32(key: Tuple[int, int], count: Tuple[int, int]):
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011), as JAX computes
+    it: two uint32 words of ``count`` under ``key``."""
+    mask = 0xFFFFFFFF
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & mask
+
+    ks = (key[0], key[1], key[0] ^ key[1] ^ 0x1BD11BDA)
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = (count[0] + ks[0]) & mask, (count[1] + ks[1]) & mask
+    for i in range(5):
+        for r in rotations[i % 2]:
+            x0 = (x0 + x1) & mask
+            x1 = rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & mask
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & mask
+    return x0, x1
+
+
+def prng_key_seed(s: int) -> int:
+    """The int seed that the reference's ``random_csr`` draws from
+    ``jax.random.PRNGKey(s)``: ``jax.random.bits(key, uint32)`` with
+    ``jax_threefry_partitionable`` on (JAX's default), computed without
+    JAX, for 0 <= s < 2^32 (the key is then the words (0, s)).
+    ``random_csr(prng_key_seed(s), ...)`` is the reference's
+    ``random_csr(jax.random.PRNGKey(s), ...)``."""
+    if not 0 <= s < 2 ** 32:
+        raise ValueError(f"seed {s} outside [0, 2^32)")
+    b0, b1 = _threefry2x32((0, int(s)), (0, 0))
+    return b0 ^ b1
+
+
 def random_csr(seed: int, m: int, n: int, *, avg_nnz_per_row: float,
                max_nnz_per_row: Optional[int] = None,
                dtype: torch.dtype = torch.float32,

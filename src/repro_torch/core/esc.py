@@ -11,9 +11,11 @@ oracle for the hash kernels.
 Shapes are static: the expansion size is a caller-chosen bucket
 ``prod_capacity >= total_nprod``; padding products carry row id M / col id
 N and sort to the end.  Duplicate values are reduced by a segment sum over
-the sorted products (``torch.segment_reduce``): each output entry sums its
-products in sorted order, so the result is the same on every run (CUDA
-``index_add_`` on floats adds in a different order each run).
+the sorted products (``kernels/segment_sum``), each key's products added
+in order as the reference's scatter-add adds them, so the values are the
+reference's bit for bit and the same on every run (CUDA ``index_add_`` on
+floats adds in a different order each run, ``torch.segment_reduce`` in a
+tree).
 
 ``workspace=(i32, val)`` hands the expansion its storage: an arena lease
 (``core/workspace.Arena``) of at least ``2 * prod_capacity`` int32 cells
@@ -26,6 +28,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import scatter
+from repro_torch.kernels.segment_sum import segment_sum
 
 from .analysis import nprod_per_entry
 from .csr import CSR
@@ -132,7 +137,8 @@ def symbolic(A: CSR, B: CSR, *, prod_capacity: int,
     rows, cols, _ = _sort_products(rows, cols, None)
     is_new, _ = _is_new(rows, cols, A.nrows)
     buf = torch.zeros(A.nrows + 1, dtype=torch.int32, device=A.device)
-    return buf.index_add_(0, rows.long(), is_new.to(torch.int32))
+    return scatter.count_into(buf, rows.long(), is_new.to(torch.int32),
+                              limit=A.nrows)
 
 
 def _compress(rows, cols, vals, is_new, is_real, nnz_capacity: int):
@@ -144,10 +150,11 @@ def _compress(rows, cols, vals, is_new, is_real, nnz_capacity: int):
     # last; both past-capacity keys and padding go to the dump slot.
     seg = torch.where(is_real, out_idx, nnz_capacity).clamp(max=nnz_capacity)
     col_out = torch.zeros(nnz_capacity + 1, dtype=torch.int32, device=dev)
-    col_out[seg.long()] = cols.masked_fill(~is_real, 0)
+    scatter.scatter_kept(col_out, seg.long(), cols.masked_fill(~is_real, 0),
+                         limit=nnz_capacity)
     bounds = torch.arange(nnz_capacity + 2, dtype=seg.dtype, device=dev)
     offsets = torch.searchsorted(seg, bounds)
-    val_out = torch.segment_reduce(vals, "sum", offsets=offsets, unsafe=True)
+    val_out = segment_sum(vals, offsets, n_real=nnz_capacity)
     return col_out[:nnz_capacity], val_out[:nnz_capacity]
 
 
@@ -176,7 +183,8 @@ def spgemm_fused(A: CSR, B: CSR, *, prod_capacity: int,
     rows, cols, vals = _sort_products(rows, cols, vals)
     is_new, is_real = _is_new(rows, cols, m)
     nnz_buf = torch.zeros(m + 1, dtype=torch.int32, device=A.device)
-    nnz_buf.index_add_(0, rows.long(), is_new.to(torch.int32))
+    scatter.count_into(nnz_buf, rows.long(), is_new.to(torch.int32),
+                       limit=m)
     rpt = torch.zeros_like(nnz_buf)
     rpt[1:] = torch.cumsum(nnz_buf[:-1], 0)
     col, val = _compress(rows, cols, vals, is_new, is_real, nnz_capacity)

@@ -69,6 +69,33 @@ class SpgemmConfig:
                                vmem_extended=self.vmem_extended))
 
 
+@dataclasses.dataclass(frozen=True)
+class Completion:
+    """When a result's C is complete, on the host's clock
+    (``time.perf_counter``), for C still in flight at return (a sharded
+    merge on the card).
+
+    ``start`` / ``end`` are timing events that bracket the request's last
+    device work on its stream, and ``t_start`` is the wall clock at which
+    ``start`` was recorded.  The shards' verify reads drained that stream
+    just before, so ``start`` runs when it is recorded and C is complete
+    at ``t_start`` plus the events' elapsed time: what a caller reading C
+    waits for, read without a host sync.  Work that another thread
+    enqueues on the same stream between those reads and ``start`` (tenant
+    threads sharing the default stream) delays ``start``; that wait is
+    left out."""
+
+    t_start: float
+    start: "torch.cuda.Event"
+    end: "torch.cuda.Event"
+
+    def ready(self) -> bool:
+        return self.end.query()
+
+    def time(self) -> float:
+        return self.t_start + self.start.elapsed_time(self.end) / 1e3
+
+
 @dataclasses.dataclass
 class SpgemmResult:
     C: CSR
@@ -77,6 +104,8 @@ class SpgemmResult:
     sym_binning: Optional[Binning]
     num_binning: Optional[Binning]
     timings: Dict[str, float]
+    # Set when C was still in flight at return; None: complete at return.
+    completion: Optional[Completion] = None
 
     @property
     def compression_ratio(self) -> float:

@@ -45,6 +45,14 @@ pow-2-bucketed slice signature (shards with the same buckets share one
 sub-plan), and a merge concatenates the shards' CSRs on the device.
 ``shards="auto"`` lets the adaptive policy (``engine/autotune``) choose N
 per plan from the flop estimate and revise it from finalize telemetry.
+
+A request's latency ends when its C is complete on the device.  An
+unsharded request's is complete when finalize returns (its one host read
+waited for it).  A sharded request's merge is still in flight then: on
+the card its result carries the merge's :class:`Completion`, and its
+latency is observed once the event after the merge has completed, at the
+engine's next finalize, drain or ``report()``, or at
+:meth:`SpgemmEngine.flush_latencies`; the dispatch path never waits.
 """
 from __future__ import annotations
 
@@ -64,10 +72,11 @@ from repro_torch.core.analysis import (estimate_result,
 from repro_torch.core.binning import bin_rows, bin_rows_for_ladder
 from repro_torch.core.csr import CSR
 from repro_torch.core.faults import FaultPlan, InjectedFault, resolve_faults
-from repro_torch.core.spgemm import AUTO_SHARDS, SpgemmConfig, SpgemmResult
+from repro_torch.core.spgemm import (AUTO_SHARDS, Completion, SpgemmConfig,
+                                     SpgemmResult)
 from repro_torch.core.workspace import (Arena, ArenaPressureError, Lease,
                                         default_arena, next_bucket)
-from repro_torch.kernels import spgemm_hash
+from repro_torch.kernels import scatter, spgemm_hash
 
 from . import autotune, stats as stats_mod
 from .autotune import AdaptivePolicy, MemoryGovernor, PolicyState
@@ -370,8 +379,8 @@ def _build_merge_executable(spec: ShardSpec, m: int, n: int) -> Callable:
             idx = torch.arange(C.capacity, dtype=torch.int32, device=dev)
             tgt = torch.where(idx < nnzs[i], offs[i] + idx,
                               torch.full_like(idx, out_cap)).long()
-            col.scatter_(0, tgt, C.col)
-            val.scatter_(0, tgt, C.val)
+            scatter.scatter_kept(col, tgt, C.col, limit=out_cap)
+            scatter.scatter_kept(val, tgt, C.val, limit=out_cap)
         return CSR(rpt=rpt, col=col[:out_cap], val=val[:out_cap],
                    shape=(m, n))
 
@@ -454,6 +463,16 @@ def _record_done(device: torch.device) -> Optional[torch.cuda.Event]:
     if device.type != "cuda":
         return None
     event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _timing_event(device: torch.device) -> Optional[torch.cuda.Event]:
+    """A timing event recorded now on ``device``'s current stream (None on
+    the CPU)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event(enable_timing=True)
     event.record(torch.cuda.current_stream(device))
     return event
 
@@ -565,6 +584,10 @@ class SpgemmEngine:
         # stale replicas do not pin device memory.
         self._b_src = None
         self._b_placed: Dict[torch.device, CSR] = {}
+        # (completion, sink) of results whose C was still in flight at
+        # finalize (sharded, on the card), observed once complete.
+        self._in_flight: List[Tuple[Completion, Callable[[float], None]]] = []
+        self._in_flight_lock = threading.Lock()
 
     # -- public API ---------------------------------------------------------
     def _effective_config(self, config: Optional[SpgemmConfig]
@@ -728,10 +751,45 @@ class SpgemmEngine:
                                                len(pending))
             while pending:
                 self._reap_one(pending, results)
+        self.flush_latencies()
         return results
 
     def report(self) -> str:
+        self.flush_latencies()
         return stats_mod.render(self)
+
+    def on_complete(self, result: SpgemmResult,
+                    sink: Callable[[float], None]) -> None:
+        """Call ``sink`` with the wall clock (``time.perf_counter``) at
+        which ``result``'s C was complete on the device: now when it was
+        complete at return, else once its :class:`Completion` is (at the
+        next finalize, drain, ``report()`` or :meth:`flush_latencies`)."""
+        done = result.completion
+        if done is None:
+            sink(time.perf_counter())
+            return
+        with self._in_flight_lock:
+            self._in_flight.append((done, sink))
+        self.flush_latencies()
+
+    def flush_latencies(self, *, wait: bool = False) -> int:
+        """Hand every :meth:`on_complete` sink whose C has completed since
+        its completion time; ``wait=True`` waits for those still in
+        flight.  Returns how many sinks still wait."""
+        with self._in_flight_lock:
+            pending, self._in_flight = self._in_flight, []
+        keep = []
+        for done, sink in pending:
+            if wait:
+                done.end.synchronize()
+            if done.ready():
+                sink(done.time())
+            else:
+                keep.append((done, sink))
+        if keep:
+            with self._in_flight_lock:
+                self._in_flight[:0] = keep
+        return len(keep)
 
     # -- internals ----------------------------------------------------------
     def _reap_one(self, pending: List[Record],
@@ -1207,19 +1265,23 @@ class SpgemmEngine:
 
     def _finalize(self, rec: Record) -> SpgemmResult:
         tel = self.telemetry
+        self.flush_latencies()
         with tel.span("finalize", parent=rec.span, uid=rec.uid) as fin:
             result = self._finalize_record(rec)
         if rec.auto_entry is not None:
             self._note_auto(rec.auto_entry, result)
+        span = rec.span
         if tel.enabled:
             self._hist_finalize.observe(fin.dur)
-            span = rec.span
             if isinstance(span, Span):
                 # Close the request/shard span the dispatch left open;
-                # only requests feed the request-latency histogram.
+                # only requests feed the request-latency histogram, with
+                # the time their C took to complete.
                 tel.end_span(span)
                 if span.name == "request" and rec.t0 is not None:
-                    self._hist_request.observe(span.t1 - rec.t0)
+                    t0, hist = rec.t0, self._hist_request
+                    self.on_complete(result,
+                                     lambda t: hist.observe(t - t0))
         return result
 
     def _discard(self, rec: Record) -> None:
@@ -1282,13 +1344,18 @@ class SpgemmEngine:
                 rec.spec, m=rec.spec.bounds[-1], n=rec.B.ncols)
             rec.entry.executable = merge
         parts = tuple(r.C for r in shard_results)
+        home = rec.A.device
         with tel.span("shard_merge", uid=rec.uid, n_shards=spec.n_shards):
+            # The merge is the request's last device work: its events give
+            # the time the request's C is complete (see Completion).
+            start = _timing_event(home)
+            t_merge = time.perf_counter()
             if self.mesh is not None:
                 # Shard results live on their shard's device: gather them
                 # where the operands are before concatenating.
-                home = rec.A.device
                 parts = tuple(C.to(home) for C in parts)
             C = merge(parts)
+            end = _timing_event(home)
         timings: Dict[str, float] = {}
         for r in shard_results:
             for k, v in r.timings.items():
@@ -1300,7 +1367,9 @@ class SpgemmEngine:
             C=C,
             total_nprod=sum(r.total_nprod for r in shard_results),
             total_nnz=sum(r.total_nnz for r in shard_results),
-            sym_binning=None, num_binning=None, timings=timings)
+            sym_binning=None, num_binning=None, timings=timings,
+            completion=(None if end is None
+                        else Completion(t_merge, start, end)))
 
     def _finalize_record(self, rec: Record) -> SpgemmResult:
         if isinstance(rec, _ShardedPending):

@@ -165,6 +165,10 @@ class SpgemmPlan:
         shapes: the cached pipeline stays valid)."""
         return dataclasses.replace(self, policy=state)
 
+    def admits(self, A: CSR, B: CSR) -> bool:
+        """Whether (A, B) land in this plan's shape buckets."""
+        return MatrixSig.of(A) == self.a_sig and MatrixSig.of(B) == self.b_sig
+
     def workspace_spec(self) -> Optional[LeaseSpec]:
         """Size class of the arena lease this plan's steady state takes, or
         ``None`` when the plan has nothing leasable: not yet specialized,
@@ -194,7 +198,8 @@ def plan(a_sig: MatrixSig, b_sig: MatrixSig,
          config: SpgemmConfig = SpgemmConfig()) -> SpgemmPlan:
     """The pre-data plan for a signature pair; buckets stay unlearned."""
     if a_sig.ncols != b_sig.nrows:
-        raise ValueError(f"inner dimensions differ: {a_sig} @ {b_sig}")
+        # The reference asserts; raised explicitly so it holds under -O.
+        raise AssertionError((a_sig, b_sig))
     if config.method not in ("esc", "hash"):
         raise ValueError(f"unknown method {config.method!r}")
     if config.plan_mode not in ("exact", "estimate"):

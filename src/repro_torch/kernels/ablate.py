@@ -77,7 +77,7 @@ from . import build
 ABLATE_DIR = build.BUILD_DIR / "ablate"
 MATRICES = {"mono_500Hz": (169410, 29.7, 719), "scircuit": (170998, 5.6, 353)}
 
-_INSERT = '''          accesses += insert<SINGLE_ACCESS, WITH_VALUES>(
+_INSERT = '''          accesses += insert<SINGLE_ACCESS, WITH_VALUES && !ORDERED>(
               row_keys, row_vals, b_col[j], prod, t_size, pow2, guard,
               &inserted);'''
 _CAS_HIT = '''      if (old == kEmpty || old == key) {
@@ -144,7 +144,8 @@ SLOT_VARIANTS: Dict[str, Callable[[str], str]] = {
     # every load of the insert loop stays, no table access
     "loads_only": _replace("""\
           accesses += insert_slot<SINGLE_ACCESS>(
-              row_slots, b_col[j], a * b_val[j], t_size, pow2, mod, guard);
+              row_slots, b_col[j], ORDERED ? 0.0f : a * b_val[j], t_size,
+              pow2, mod, guard);
 """, "          accesses += (b_col[j] ^ __float_as_int(a * b_val[j])) & 1;\n"),
     # the 64-bit slot read and written without an atomic (wrong sums under
     # races, the same probes)
@@ -186,7 +187,8 @@ PACK_TIMED = (("slot", "base"), ("slot", "unpacked"),
 _CLUSTER_INSERT = """\
         accesses += cluster_insert<SINGLE_ACCESS, WITH_VALUES>(
             table, rank_shift, b_col[j],
-            WITH_VALUES ? entry_av()[e] * b_val[j] : 0.0f, t_size, &inserted);
+            WITH_VALUES && !ORDERED ? entry_av()[e] * b_val[j] : 0.0f, t_size,
+            &inserted);
 """
 _CLUSTER_CHUNKS = "         g < chunks; g += warps) {\n"
 

@@ -42,15 +42,30 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                         _U, _I, _U, _P, _P, _P, _P),
         "fused_bin": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                       _P, _P, _P, _P),
+        "numeric_bin_ordered": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _U, _I, _U, _P, _P, _P, _P),
+        "fused_bin_ordered": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P, _P, _P, _P, _P),
         "hash_global_ctas_per_sm": (_I, _I, _I, _P),
         "hash_bin_global": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _P, _P, _P, _P, _P),
+        "hash_bin_global_ordered": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _P, _P, _P, _P, _P),
         "hash_cluster_occupancy": (_I, _I, _I, _I, _I, _P),
         "hash_bin_cluster": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P, _P, _P, _P, _P),
+        "hash_bin_cluster_ordered": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _P, _P, _P, _P, _P),
     },
     "binning_histogram": {
         "binning_histogram": (_P, _L, _I, _P, _I, _I, _P, _P, _P),
+    },
+    "scatter": {
+        "scatter_kept": (_P, _P, _P, _L, _L, _I, _P),
+        "count_into": (_P, _P, _P, _L, _L, _P),
+    },
+    "segment_sum": {
+        "segment_sum": (_P, _P, _L, _L, _P, _I, _P),
     },
     "bsr_spmm": {
         "bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

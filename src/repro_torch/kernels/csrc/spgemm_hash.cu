@@ -140,6 +140,13 @@
 // A entry -> B row pointers -> B entries -> shared (or, on the global rungs,
 // L2) atomics.
 //
+// The fixed-order value mode (the *_ordered entry points, which the
+// wrappers launch under torch.use_deterministic_algorithms(True)): an
+// ORDERED instance of each body that builds values (hash_rows_kernel with
+// values, slot_rows_kernel, global_rows_kernel, cluster_rows_kernel) adds
+// a row's products in the reference's order, so its values are the plain
+// version's bit for bit, run after run.  See ordered_values below.
+//
 // Every entry point returns cudaGetLastError() right after its launch (or
 // the error of the shared-memory opt-in); the Python wrapper raises on
 // anything but 0.
@@ -166,6 +173,127 @@ __device__ __forceinline__ int hash_init(int key, int t_size, bool pow2) {
 __device__ __forceinline__ int hash_next(int h, int t_size) {
   return h + 1 == t_size ? 0 : h + 1;
 }
+
+// ---------------------------------------------------------------------------
+// The fixed-order value pass of the ORDERED instances.
+//
+// The row's keys go in first, in parallel, as in the atomic kernels (the
+// same probes, so the same access counts), with no values.  After a
+// barrier one warp walks the row's products in the reference's order -- A's
+// entries in order, each entry's B row in order -- 32 at a time, a product
+// a lane.  Each lane finds its product's slot by a read-only probe of the
+// final keys; then the lanes of each slot add their products onto its
+// value one at a time, in lane order.  So every value is the plain
+// version's left fold ((0 + p1) + p2) + ..., bit for bit: each product is
+// __fmul_rn(a, b) and each add __fadd_rn, which round every step and which
+// nvcc never contracts into an FMA.  Where a slot lands does not matter,
+// since the epilogue sorts each row by column.  The lookups of this pass
+// are not the reference's table transactions and are not counted.
+//
+// A table type gives find(key) (the slot holding the key, or -1 when this
+// warp adds nothing for it) and load / store of a slot's value.
+// ---------------------------------------------------------------------------
+
+// Adds each lane's product to its slot (slot < 0: nothing to add); the
+// products of one slot are summed by its lowest lane, in lane order.
+template <class Table>
+__device__ __forceinline__ void add_in_lane_order(const Table& table,
+                                                  int slot, float prod,
+                                                  int lane) {
+  const unsigned lanes = __ballot_sync(0xffffffffu, slot >= 0);
+  if (lanes == 0) return;  // warp uniform
+  const unsigned peers =
+      __match_any_sync(0xffffffffu, slot >= 0 ? slot : -1 - lane);
+  const bool leader = slot >= 0 && __ffs(peers) - 1 == lane;
+  float acc = leader ? table.load(slot) : 0.0f;
+  const int last = 31 - __clz(lanes);
+  for (int i = 0; i <= last; ++i) {
+    const float p = __shfl_sync(0xffffffffu, prod, i);
+    if (leader && ((peers >> i) & 1u)) acc = __fadd_rn(acc, p);
+  }
+  if (leader) table.store(slot, acc);
+  __syncwarp();  // the next batch's leaders read these values
+}
+
+// One warp adds every product of a row (A entries [a_lo, a_hi)) in the
+// reference's order.  Lane l holds A entry base + l of each batch of 32, an
+// inclusive scan of their B rows' lengths places every product, and lane l
+// takes product q + l of the batch's products.
+template <class Table>
+__device__ __forceinline__ void ordered_values(
+    const Table& table, const int* __restrict__ a_col,
+    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
+    const int* __restrict__ b_col, const float* __restrict__ b_val,
+    int a_lo, int a_hi, int lane) {
+  for (int base = a_lo; base < a_hi; base += 32) {
+    const int e = base + lane;
+    int lo = 0, len = 0;
+    float av = 0.0f;
+    if (e < a_hi) {
+      const int k = a_col[e];
+      av = a_val[e];
+      lo = b_rpt[k];
+      len = b_rpt[k + 1] - lo;
+    }
+    int end = len;  // where this entry's products end in the batch
+    for (int o = 1; o < 32; o *= 2) {
+      const int t = __shfl_up_sync(0xffffffffu, end, o);
+      if (lane >= o) end += t;
+    }
+    const int total = __shfl_sync(0xffffffffu, end, 31);
+    for (int q = 0; q < total; q += 32) {
+      const int t = q + lane;
+      // The product's entry: the number of entries that end at or before
+      // it (a binary search over the lanes' ends).
+      int s = 0;
+      for (int step = 16; step > 0; step /= 2) {
+        const int at = __shfl_sync(0xffffffffu, end, s + step - 1);
+        if (at <= t) s += step;
+      }
+      s = min(s, 31);
+      const int s_end = __shfl_sync(0xffffffffu, end, s);
+      const int s_len = __shfl_sync(0xffffffffu, len, s);
+      const int s_lo = __shfl_sync(0xffffffffu, lo, s);
+      const float s_a = __shfl_sync(0xffffffffu, av, s);
+      int slot = -1;
+      float prod = 0.0f;
+      if (t < total) {
+        const int j = s_lo + t - (s_end - s_len);
+        prod = __fmul_rn(s_a, b_val[j]);
+        slot = table.find(b_col[j]);
+      }
+      add_in_lane_order(table, slot, prod, lane);
+    }
+  }
+}
+
+// A row's table as keys[] and vals[] side by side (hash_rows_kernel in
+// shared memory, global_rows_kernel in device memory), probed with the
+// reference's hash and linear probing.  Volatile: the keys were written by
+// other warps' atomics, the values by other lanes.
+struct KeyValTable {
+  const int* keys;
+  float* vals;
+  int t_size;
+  bool pow2;
+
+  __device__ int find(int key) const {
+    int h = hash_init(key, t_size, pow2);
+    for (int probed = 0; probed < kGuardFactor * t_size; ++probed) {
+      const int k = reinterpret_cast<const volatile int*>(keys)[h];
+      if (k == key) return h;
+      if (k == kEmpty) return -1;
+      h = hash_next(h, t_size);
+    }
+    return -1;
+  }
+  __device__ float load(int h) const {
+    return reinterpret_cast<volatile float*>(vals)[h];
+  }
+  __device__ void store(int h, float v) const {
+    reinterpret_cast<volatile float*>(vals)[h] = v;
+  }
+};
 
 // Inserts one product into a row's table; returns the table accesses it
 // took and sets *inserted when it claimed an empty slot.
@@ -232,7 +360,7 @@ __device__ __forceinline__ void dump_words(int* __restrict__ dst,
     dst[i] = src[i];
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
 __global__ void hash_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
@@ -303,7 +431,7 @@ __global__ void hash_rows_kernel(
         const float a = WITH_VALUES ? __shfl_sync(0xffffffffu, av, s) : 0.0f;
         for (int j = lo + lane; j < hi; j += 32) {
           const float prod = WITH_VALUES ? a * b_val[j] : 0.0f;
-          accesses += insert<SINGLE_ACCESS, WITH_VALUES>(
+          accesses += insert<SINGLE_ACCESS, WITH_VALUES && !ORDERED>(
               row_keys, row_vals, b_col[j], prod, t_size, pow2, guard,
               &inserted);
         }
@@ -311,6 +439,16 @@ __global__ void hash_rows_kernel(
     }
     if (inserted) atomicAdd(&row_nnz[local], inserted);
     if (accesses) atomicAdd(&row_acc[local], accesses);
+  }
+  if (ORDERED) {
+    __syncthreads();  // every key of the block's rows is in place
+    if (idx < n_valid && tid < 32) {  // the row's first warp
+      const int r = rows[idx];
+      const KeyValTable table{keys + local * t_size, vals + local * t_size,
+                              t_size, pow2};
+      ordered_values(table, a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
+                     a_rpt[r + 1], lane);
+    }
   }
   __syncthreads();
 
@@ -333,14 +471,14 @@ size_t smem_bytes(int t_size, int rows_per_cta, bool with_values) {
   return entries * (with_values ? 8 : 4) + 2 * sizeof(int) * rows_per_cta;
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
 int launch(const int* rows, const int* count, const int* a_rpt,
            const int* a_col, const float* a_val, const int* b_rpt,
            const int* b_col, const float* b_val, int t_size, int rows_cap,
            int rows_per_cta, int threads_per_row, int* nnz_out, int* col_out,
            float* val_out, int* acc_out, cudaStream_t stream) {
   if (rows_cap == 0) return 0;
-  auto kernel = hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES>;
+  auto kernel = hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED>;
   const size_t smem = smem_bytes(t_size, rows_per_cta, WITH_VALUES);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -354,7 +492,7 @@ int launch(const int* rows, const int* count, const int* a_rpt,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool WITH_VALUES>
+template <bool WITH_VALUES, bool ORDERED = false>
 int dispatch(int single_access, const int* rows, const int* count,
              const int* a_rpt, const int* a_col, const float* a_val,
              const int* b_rpt, const int* b_col, const float* b_val,
@@ -363,11 +501,11 @@ int dispatch(int single_access, const int* rows, const int* count,
              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (single_access)
-    return launch<true, WITH_VALUES>(
+    return launch<true, WITH_VALUES, ORDERED>(
         rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
         rows_cap, rows_per_cta, threads_per_row, nnz_out, col_out, val_out,
         acc_out, s);
-  return launch<false, WITH_VALUES>(
+  return launch<false, WITH_VALUES, ORDERED>(
       rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
       rows_cap, rows_per_cta, threads_per_row, nnz_out, col_out, val_out,
       acc_out, s);
@@ -463,6 +601,32 @@ __device__ __forceinline__ int insert_slot(unsigned long long* slots, int key,
   return txn;
 }
 
+// slot_rows_kernel's table for the ordered value pass: the key in a slot's
+// low word, the value in its high word.
+struct SlotTable {
+  unsigned long long* slots;
+  int t_size;
+  bool pow2;
+  HashMod mod;
+
+  __device__ int find(int key) const {
+    int h = hash_slot(key, t_size, pow2, mod);
+    for (int probed = 0; probed < kGuardFactor * t_size; ++probed) {
+      const int k = reinterpret_cast<const volatile int*>(slots + h)[0];
+      if (k == key) return h;
+      if (k == kEmpty) return -1;
+      h = hash_next(h, t_size);
+    }
+    return -1;
+  }
+  __device__ float load(int h) const {
+    return reinterpret_cast<volatile float*>(slots + h)[1];
+  }
+  __device__ void store(int h, float v) const {
+    reinterpret_cast<volatile float*>(slots + h)[1] = v;
+  }
+};
+
 // Splits n (key, value) slots into dst_cols / dst_vals: word by word up to
 // the first 16-byte boundary of dst_cols, then four slots a thread with
 // 16-byte stores into both (the two outputs share their alignment), then
@@ -499,9 +663,10 @@ __device__ __forceinline__ void dump_slots(int* __restrict__ dst_cols,
 }
 
 // At most 32 registers a thread, so that two 1024-thread CTAs (the top
-// rungs) fit an SM as with hash_rows_kernel.
-template <bool SINGLE_ACCESS>
-__global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
+// rungs) fit an SM as with hash_rows_kernel; the ORDERED instance may take
+// 64.
+template <bool SINGLE_ACCESS, bool ORDERED = false>
+__global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) slot_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
     const float* __restrict__ a_val, const int* __restrict__ b_rpt,
@@ -564,11 +729,21 @@ __global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
         const float a = __shfl_sync(0xffffffffu, av, s);
         for (int j = lo + lane; j < hi; j += 32) {
           accesses += insert_slot<SINGLE_ACCESS>(
-              row_slots, b_col[j], a * b_val[j], t_size, pow2, mod, guard);
+              row_slots, b_col[j], ORDERED ? 0.0f : a * b_val[j], t_size,
+              pow2, mod, guard);
         }
       }
     }
     if (accesses) atomicAdd(&row_acc[local], accesses);
+  }
+  if (ORDERED) {
+    __syncthreads();  // every key of the block's rows is in place
+    if (local < rows_here && idx < n_valid && tid < 32) {
+      const int r = rows[idx];
+      const SlotTable table{slots + local * t_size, t_size, pow2, mod};
+      ordered_values(table, a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
+                     a_rpt[r + 1], lane);
+    }
   }
   __syncthreads();
 
@@ -580,7 +755,7 @@ __global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
   dump_slots(col_out + base, val_out + base, slots, cta_entries);
 }
 
-template <bool SINGLE_ACCESS>
+template <bool SINGLE_ACCESS, bool ORDERED = false>
 int launch_slot(HashMod mod, const int* rows, const int* count,
                 const int* a_rpt, const int* a_col, const float* a_val,
                 const int* b_rpt, const int* b_col, const float* b_val,
@@ -588,7 +763,7 @@ int launch_slot(HashMod mod, const int* rows, const int* count,
                 int threads_per_row, int* col_out, float* val_out,
                 int* acc_out, cudaStream_t stream) {
   if (rows_cap == 0) return 0;
-  auto kernel = slot_rows_kernel<SINGLE_ACCESS>;
+  auto kernel = slot_rows_kernel<SINGLE_ACCESS, ORDERED>;
   const size_t smem = smem_bytes(t_size, rows_per_cta, true);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -603,6 +778,7 @@ int launch_slot(HashMod mod, const int* rows, const int* count,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool ORDERED = false>
 int slot_dispatch(HashMod mod, int single_access, const int* rows,
                   const int* count, const int* a_rpt, const int* a_col,
                   const float* a_val, const int* b_rpt, const int* b_col,
@@ -611,10 +787,10 @@ int slot_dispatch(HashMod mod, int single_access, const int* rows,
                   float* val_out, int* acc_out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (single_access)
-    return launch_slot<true>(mod, rows, count, a_rpt, a_col, a_val, b_rpt,
+    return launch_slot<true, ORDERED>(mod, rows, count, a_rpt, a_col, a_val, b_rpt,
                              b_col, b_val, t_size, rows_cap, rows_per_cta,
                              threads_per_row, col_out, val_out, acc_out, s);
-  return launch_slot<false>(mod, rows, count, a_rpt, a_col, a_val, b_rpt,
+  return launch_slot<false, ORDERED>(mod, rows, count, a_rpt, a_col, a_val, b_rpt,
                             b_col, b_val, t_size, rows_cap, rows_per_cta,
                             threads_per_row, col_out, val_out, acc_out, s);
 }
@@ -641,8 +817,8 @@ __device__ __forceinline__ void fill_words(int* dst, int value, int n) {
 // then built there with `insert`, so nothing is dumped.  val_tabs ==
 // nullptr with WITH_VALUES false (symbolic_bin: the keys go to a scratch
 // table the wrapper allocates); nnz_out may be nullptr (numeric_bin).
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
-__global__ void __launch_bounds__(1024, 2) global_rows_kernel(
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
+__global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) global_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
     const float* __restrict__ a_val, const int* __restrict__ b_rpt,
@@ -698,7 +874,7 @@ __global__ void __launch_bounds__(1024, 2) global_rows_kernel(
       const float a = WITH_VALUES ? __shfl_sync(0xffffffffu, av, s) : 0.0f;
       for (int j = lo + lane; j < hi; j += 32) {
         const float prod = WITH_VALUES ? a * b_val[j] : 0.0f;
-        accesses += insert<SINGLE_ACCESS, WITH_VALUES>(
+        accesses += insert<SINGLE_ACCESS, WITH_VALUES && !ORDERED>(
             table_keys, table_vals, b_col[j], prod, t_size, pow2, guard,
             &inserted);
       }
@@ -706,21 +882,26 @@ __global__ void __launch_bounds__(1024, 2) global_rows_kernel(
   }
   if (inserted) atomicAdd(&row_nnz, inserted);
   if (accesses) atomicAdd(&row_acc, accesses);
-  __syncthreads();
+  __syncthreads();  // (ORDERED: every key of the row is in place)
+  if (ORDERED && warp == 0) {
+    const KeyValTable table{table_keys, table_vals, t_size, pow2};
+    ordered_values(table, a_col, a_val, b_rpt, b_col, b_val, a_lo, a_hi,
+                   lane);
+  }
   if (threadIdx.x == 0) {
     if (nnz_out) nnz_out[row] = row_nnz;
     acc_out[row] = row_acc;
   }
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
 int launch_global(const int* rows, const int* count, const int* a_rpt,
                   const int* a_col, const float* a_val, const int* b_rpt,
                   const int* b_col, const float* b_val, int t_size,
                   int rows_cap, int threads, int* nnz_out, int* col_tabs,
                   float* val_tabs, int* acc_out, cudaStream_t stream) {
   if (rows_cap == 0) return 0;
-  global_rows_kernel<SINGLE_ACCESS, WITH_VALUES>
+  global_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED>
       <<<rows_cap, threads, 0, stream>>>(rows, count, a_rpt, a_col, a_val,
                                          b_rpt, b_col, b_val, t_size,
                                          nnz_out, col_tabs, val_tabs,
@@ -926,6 +1107,40 @@ __device__ __forceinline__ int* row_counters() {
   return reinterpret_cast<int*>(cluster_smem + kCountersOffset);
 }
 
+// cluster_rows_kernel's table for the ordered value pass: the key of slot h
+// is read from its block through distributed shared memory; find returns
+// the slot's offset in this block's slice when this block holds it, else
+// -1 (the block that holds it adds its products).
+struct ClusterTable {
+  uint32_t table;  // this block's slice, a shared::cta address
+  int rank_shift;  // log2 of the slots a block
+  int t_size;
+  int rank;
+
+  __device__ int find(int key) const {
+    int h = static_cast<int>(static_cast<unsigned>(key) * kHashScale) &
+            (t_size - 1);
+    const int mask = (1 << rank_shift) - 1;
+    for (int probed = 0; probed < kGuardFactor * t_size; ++probed) {
+      const int k = dsmem_load32(cluster_addr(
+          table + (static_cast<uint32_t>(h & mask) << 3),
+          static_cast<uint32_t>(h >> rank_shift)));
+      if (k == key) return (h >> rank_shift) == rank ? (h & mask) : -1;
+      if (k == kEmpty) return -1;
+      h = (h + 1) & (t_size - 1);
+    }
+    return -1;
+  }
+  __device__ float load(int i) const {
+    return reinterpret_cast<volatile float*>(cluster_smem +
+                                             kSliceOffset)[2 * i + 1];
+  }
+  __device__ void store(int i, float v) const {
+    reinterpret_cast<volatile float*>(cluster_smem + kSliceOffset)[2 * i + 1] =
+        v;
+  }
+};
+
 // Loads A entries [first, first + n) of the row (n <= blockDim.x) into the
 // list, with each entry's first chunk: an exclusive scan of the entries'
 // chunk counts over the block.  Returns the window's chunks.  Every thread
@@ -995,8 +1210,8 @@ __device__ __forceinline__ int entry_of_chunk(const int* chunk, int n, int g,
 // nnz_out may be nullptr (numeric_bin); without values nothing is dumped
 // (symbolic_bin), with values col_tabs / val_tabs get the table at
 // row * t_size.
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
-__global__ void __launch_bounds__(1024, 2) cluster_rows_kernel(
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
+__global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) cluster_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
     const float* __restrict__ a_val, const int* __restrict__ b_rpt,
@@ -1053,7 +1268,8 @@ __global__ void __launch_bounds__(1024, 2) cluster_rows_kernel(
       if (j < entry_hi()[e]) {
         accesses += cluster_insert<SINGLE_ACCESS, WITH_VALUES>(
             table, rank_shift, b_col[j],
-            WITH_VALUES ? entry_av()[e] * b_val[j] : 0.0f, t_size, &inserted);
+            WITH_VALUES && !ORDERED ? entry_av()[e] * b_val[j] : 0.0f, t_size,
+            &inserted);
       }
     }
     first += n;
@@ -1081,6 +1297,21 @@ __global__ void __launch_bounds__(1024, 2) cluster_rows_kernel(
   // Every insert and count has landed; after this no block touches a
   // peer's shared memory, so each may dump its own slice and leave.
   cluster.sync();
+  if (ORDERED) {
+    // Each block's first warp adds, in the reference's order, the products
+    // whose slots its slice holds, reading the other blocks' keys; the
+    // barrier after it keeps every block (and its keys) until all are done.
+    if (threadIdx.x < 32) {
+      const int r = rows[row];
+      const ClusterTable table_now{
+          static_cast<uint32_t>(
+              __cvta_generic_to_shared(cluster_smem + kSliceOffset)),
+          __ffs(slice_now) - 1, t_size, static_cast<int>(rank)};
+      ordered_values(table_now, a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
+                     a_rpt[r + 1], lane);
+    }
+    cluster.sync();
+  }
 
   if (rank == 0 && threadIdx.x == 0) {
     if (nnz_out) nnz_out[row] = row_counters()[0];
@@ -1138,7 +1369,7 @@ bool cluster_shape_ok(int t_size, int cluster, int threads) {
          threads <= kEntryWindow;
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
 int launch_cluster(const int* rows, const int* count, const int* a_rpt,
                    const int* a_col, const float* a_val, const int* b_rpt,
                    const int* b_col, const float* b_val, int t_size,
@@ -1148,7 +1379,7 @@ int launch_cluster(const int* rows, const int* count, const int* a_rpt,
   if (!cluster_shape_ok(t_size, cluster, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows_cap == 0) return 0;
-  auto kernel = cluster_rows_kernel<SINGLE_ACCESS, WITH_VALUES>;
+  auto kernel = cluster_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED>;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t config = cluster_config(
       t_size, rows_cap, cluster, threads, WITH_VALUES, &attr, stream);
@@ -1274,6 +1505,24 @@ int hash_bin_cluster(int with_values, int single_access, const int* rows,
 // val_tabs (rows_cap x t_size).  val_tabs == nullptr builds keys only
 // (symbolic_bin, col_tabs then a scratch table); nnz_out == nullptr skips
 // the nnz (numeric_bin).
+// The fixed-order instance of hash_bin_cluster (with values only).
+int hash_bin_cluster_ordered(int with_values, int single_access,
+                             const int* rows, const int* count,
+                             const int* a_rpt, const int* a_col,
+                             const float* a_val, const int* b_rpt,
+                             const int* b_col, const float* b_val, int t_size,
+                             int rows_cap, int cluster, int threads,
+                             int* nnz_out, int* col_tabs, float* val_tabs,
+                             int* acc_out, void* stream) {
+  if (!with_values || !val_tabs) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto fn = single_access ? &launch_cluster<true, true, true>
+                          : &launch_cluster<false, true, true>;
+  return fn(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
+            rows_cap, cluster, threads, nnz_out, col_tabs, val_tabs, acc_out,
+            s);
+}
+
 int hash_bin_global(int single_access, const int* rows, const int* count,
                     const int* a_rpt, const int* a_col, const float* a_val,
                     const int* b_rpt, const int* b_col, const float* b_val,
@@ -1285,6 +1534,22 @@ int hash_bin_global(int single_access, const int* rows, const int* count,
                                       : &launch_global<false, true>)
                      : (single_access ? &launch_global<true, false>
                                       : &launch_global<false, false>);
+  return fn(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
+            rows_cap, threads, nnz_out, col_tabs, val_tabs, acc_out, s);
+}
+
+// The fixed-order instance of hash_bin_global (with values only).
+int hash_bin_global_ordered(int single_access, const int* rows,
+                            const int* count, const int* a_rpt,
+                            const int* a_col, const float* a_val,
+                            const int* b_rpt, const int* b_col,
+                            const float* b_val, int t_size, int rows_cap,
+                            int threads, int* nnz_out, int* col_tabs,
+                            float* val_tabs, int* acc_out, void* stream) {
+  if (!val_tabs) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto fn = single_access ? &launch_global<true, true, true>
+                          : &launch_global<false, true, true>;
   return fn(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
             rows_cap, threads, nnz_out, col_tabs, val_tabs, acc_out, s);
 }
@@ -1313,6 +1578,22 @@ int numeric_bin(const int* rows, const int* count, const int* a_rpt,
                        threads_per_row, col_out, val_out, acc_out, stream);
 }
 
+// The fixed-order instance of numeric_bin.
+int numeric_bin_ordered(const int* rows, const int* count, const int* a_rpt,
+                        const int* a_col, const float* a_val,
+                        const int* b_rpt, const int* b_col,
+                        const float* b_val, int t_size, int rows_cap,
+                        int rows_per_cta, int threads_per_row,
+                        int single_access, unsigned hash_magic,
+                        int hash_shift, unsigned hash_wrap, int* col_out,
+                        float* val_out, int* acc_out, void* stream) {
+  const HashMod mod{hash_magic, hash_shift, hash_wrap};
+  return slot_dispatch<true>(mod, single_access, rows, count, a_rpt, a_col,
+                             a_val, b_rpt, b_col, b_val, t_size, rows_cap,
+                             rows_per_cta, threads_per_row, col_out, val_out,
+                             acc_out, stream);
+}
+
 int fused_bin(const int* rows, const int* count, const int* a_rpt,
               const int* a_col, const float* a_val, const int* b_rpt,
               const int* b_col, const float* b_val, int t_size, int rows_cap,
@@ -1323,6 +1604,19 @@ int fused_bin(const int* rows, const int* count, const int* a_rpt,
                         b_rpt, b_col, b_val, t_size, rows_cap, rows_per_cta,
                         threads_per_row, nnz_out, col_out, val_out, acc_out,
                         stream);
+}
+
+// The fixed-order instance of fused_bin.
+int fused_bin_ordered(const int* rows, const int* count, const int* a_rpt,
+                      const int* a_col, const float* a_val, const int* b_rpt,
+                      const int* b_col, const float* b_val, int t_size,
+                      int rows_cap, int rows_per_cta, int threads_per_row,
+                      int single_access, int* nnz_out, int* col_out,
+                      float* val_out, int* acc_out, void* stream) {
+  return dispatch<true, true>(single_access, rows, count, a_rpt, a_col,
+                              a_val, b_rpt, b_col, b_val, t_size, rows_cap,
+                              rows_per_cta, threads_per_row, nnz_out, col_out,
+                              val_out, acc_out, stream);
 }
 
 }  // extern "C"

@@ -18,9 +18,10 @@ order, with the reference's hash (key*107 in int32, AND or floor mod),
 linear probing, probe guard (2*t_size) and access accounting, so they
 reproduce the reference's tables slot for slot and its access counts
 exactly.  On the card, concurrent inserts change slot positions, access
-counts and the order of float sums: a kernel matches its plain version in
-nnz and in each row's sorted columns exactly, in values within a
-tolerance, and in accesses by invariants only.
+counts and, in the atomic kernels, the order of float sums: a kernel
+matches its plain version in nnz and in each row's sorted columns exactly,
+in values within a tolerance (bit for bit in the fixed-order mode below),
+and in accesses by invariants only.
 
 Probe disciplines (paper §5.2, Fig. 9):
   * ``single_access=True``: Algorithms 4/5, one table transaction per
@@ -54,6 +55,18 @@ its table built in its own output row, or for ``symbolic_bin`` in a
 scratch table).  The shared-memory rungs keep their kernels.  Each
 wrapper counts its launches (``launches``) and, of those, the cluster
 ones (``launches_cluster``) and the global ones (``launches_global``).
+
+The fixed-order value mode: under ``torch.use_deterministic_algorithms
+(True)`` :func:`fused_bin_call` and :func:`numeric_bin_call` launch the
+ORDERED instance of their kernel on every route (the ``*_ordered`` entry
+points).  It inserts the keys in parallel as the atomic kernels do, then
+adds each row's products in the reference's order (A entry by A entry,
+each B row in order, a rounded multiply and a rounded add per product), so
+its tables are the plain version's value for value, bit for bit, on every
+run.  Those launches are also counted in ``launches_ordered``.  The
+atomic kernels stay the default; ``symbolic_bin`` builds no values.  On
+the CPU the plain versions already add in that order and serve both
+modes.
 """
 from __future__ import annotations
 
@@ -71,7 +84,7 @@ from repro_torch.core.binning_ranges import BinLadder
 from repro_torch.core.csr import CSR, gather_rows
 from repro_torch.core.workspace import next_bucket
 
-from . import build
+from . import build, scatter
 
 HASH_SCALE = 107  # nsparse's multiplicative constant, kept (§5.2 "same way")
 _PROBE_GUARD_FACTOR = 2  # safety: bail after 2*t_size probes (misuse guard)
@@ -470,12 +483,14 @@ def rung_route(t_size: int, rows_per_cta: int, with_values: bool,
 
 def _launch_extended(fn, route, dev, rows, count, a_rpt, a_col, a_val,
                      b_rpt, b_col, b_val, *, t_size, rows_cap, threads,
-                     single_access, nnz, col_tabs, val_tabs, acc) -> None:
+                     single_access, nnz, col_tabs, val_tabs, acc,
+                     ordered: bool = False) -> None:
     """One launch of a rung past a block's shared memory, counted on the
     wrapper ``fn``: ``route`` ``"cluster"`` takes ``hash_bin_cluster``
     (``val_tabs`` None: keys only, nothing dumped), ``"global"``
     ``hash_bin_global`` (``val_tabs`` None: keys only, built in
-    ``col_tabs``, a scratch table).  ``nnz`` None skips the nnz.  A
+    ``col_tabs``, a scratch table).  ``nnz`` None skips the nnz.
+    ``ordered`` takes their fixed-order instances (values only).  A
     refused launch raises; nothing falls back."""
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -484,20 +499,22 @@ def _launch_extended(fn, route, dev, rows, count, a_rpt, a_col, a_val,
     inputs = (rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
               a_col.data_ptr(), ptr(a_val), b_rpt.data_ptr(),
               b_col.data_ptr(), ptr(b_val), t_size, rows_cap)
+    entry = f"hash_bin_{route}" + ("_ordered" if ordered else "")
     with torch.cuda.device(dev):
         if route == "cluster":
-            err = lib.hash_bin_cluster(
+            err = getattr(lib, entry)(
                 int(with_values), int(single_access), *inputs,
                 cluster_size(t_size, with_values, _smem_limit(dev)),
                 threads, ptr(nnz), ptr(col_tabs), ptr(val_tabs),
                 acc.data_ptr(), _stream(dev))
         else:
-            err = lib.hash_bin_global(
+            err = getattr(lib, entry)(
                 int(single_access), *inputs, threads, ptr(nnz),
                 col_tabs.data_ptr(), ptr(val_tabs), acc.data_ptr(),
                 _stream(dev))
-    build.check(err, f"hash_bin_{route}")
+    build.check(err, entry)
     fn.launches += 1
+    fn.launches_ordered += int(ordered)
     if route == "cluster":
         fn.launches_cluster += 1
     else:
@@ -574,7 +591,7 @@ def symbolic_bin_call(rows, count, a_rpt, a_col, b_rpt, b_col, *,
 
 
 symbolic_bin_call.launches = symbolic_bin_call.launches_global = 0
-symbolic_bin_call.launches_cluster = 0
+symbolic_bin_call.launches_cluster = symbolic_bin_call.launches_ordered = 0
 
 
 def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
@@ -599,7 +616,8 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     constants of :func:`hash_mod`, with the reference's slots.  A rung
     whose tables exceed shared memory (the extended ladder's 32,768 and
     up) runs on the cluster or the global-memory kernel instead
-    (:func:`hash_route`).
+    (:func:`hash_route`).  Under ``torch.use_deterministic_algorithms(True)``
+    every route takes its fixed-order instance.
     """
     if not rows.is_cuda:
         return numeric_bin_plain(rows, count, a_rpt, a_col, a_val, b_rpt,
@@ -615,6 +633,7 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     val_tabs = torch.empty((rows_cap, t_size), dtype=torch.float32,
                            device=dev)
     acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
+    ordered = torch.are_deterministic_algorithms_enabled()
     route = rung_route(t_size, rows_per_cta, True, dev) if rows_cap \
         else "smem"
     if route != "smem":
@@ -622,23 +641,26 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                          a_col, a_val, b_rpt, b_col, b_val, t_size=t_size,
                          rows_cap=rows_cap, threads=threads,
                          single_access=single_access, nnz=None,
-                         col_tabs=col_tabs, val_tabs=val_tabs, acc=acc)
+                         col_tabs=col_tabs, val_tabs=val_tabs, acc=acc,
+                         ordered=ordered)
     elif rows_cap:
+        entry = "numeric_bin_ordered" if ordered else "numeric_bin"
         with torch.cuda.device(dev):
-            err = build.library("spgemm_hash").numeric_bin(
+            err = getattr(build.library("spgemm_hash"), entry)(
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
                 a_col.data_ptr(), a_val.data_ptr(), b_rpt.data_ptr(),
                 b_col.data_ptr(), b_val.data_ptr(), t_size, rows_cap,
                 rows_per_cta, threads, int(single_access), *hash_mod(t_size),
                 col_tabs.data_ptr(), val_tabs.data_ptr(), acc.data_ptr(),
                 _stream(dev))
-        build.check(err, "numeric_bin")
+        build.check(err, entry)
         numeric_bin_call.launches += 1
+        numeric_bin_call.launches_ordered += int(ordered)
     return col_tabs, val_tabs, acc
 
 
 numeric_bin_call.launches = numeric_bin_call.launches_global = 0
-numeric_bin_call.launches_cluster = 0
+numeric_bin_call.launches_cluster = numeric_bin_call.launches_ordered = 0
 
 
 def fused_outputs(rows_cap: int, t_size: int, device) -> Tuple:
@@ -665,6 +687,8 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     (their blocks exit first); the plain version writes them empty.
     ``out`` (CUDA only) takes the four outputs from :func:`fused_outputs`,
     so a caller can allocate them on another stream than the launch's.
+    Under ``torch.use_deterministic_algorithms(True)`` every route takes
+    its fixed-order instance.
     """
     if not rows.is_cuda:
         return fused_bin_plain(rows, count, a_rpt, a_col, a_val, b_rpt,
@@ -679,6 +703,7 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     rows_per_cta, threads = launch_geometry(t_size, pack)
     nnz, col_tabs, val_tabs, acc = (fused_outputs(rows_cap, t_size, dev)
                                     if out is None else out)
+    ordered = torch.are_deterministic_algorithms_enabled()
     route = rung_route(t_size, rows_per_cta, True, dev) if rows_cap \
         else "smem"
     if route != "smem":
@@ -686,32 +711,36 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                          a_col, a_val, b_rpt, b_col, b_val, t_size=t_size,
                          rows_cap=rows_cap, threads=threads,
                          single_access=single_access, nnz=nnz,
-                         col_tabs=col_tabs, val_tabs=val_tabs, acc=acc)
+                         col_tabs=col_tabs, val_tabs=val_tabs, acc=acc,
+                         ordered=ordered)
     elif rows_cap:
+        entry = "fused_bin_ordered" if ordered else "fused_bin"
         with torch.cuda.device(dev):
-            err = build.library("spgemm_hash").fused_bin(
+            err = getattr(build.library("spgemm_hash"), entry)(
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
                 a_col.data_ptr(), a_val.data_ptr(), b_rpt.data_ptr(),
                 b_col.data_ptr(), b_val.data_ptr(), t_size, rows_cap,
                 rows_per_cta, threads, int(single_access), nnz.data_ptr(),
                 col_tabs.data_ptr(), val_tabs.data_ptr(), acc.data_ptr(),
                 _stream(dev))
-        build.check(err, "fused_bin")
+        build.check(err, entry)
         fused_bin_call.launches += 1
+        fused_bin_call.launches_ordered += int(ordered)
     return nnz, col_tabs, val_tabs, acc
 
 
 fused_bin_call.launches = fused_bin_call.launches_global = 0
-fused_bin_call.launches_cluster = 0
+fused_bin_call.launches_cluster = fused_bin_call.launches_ordered = 0
 
 KERNELS = (symbolic_bin_call, numeric_bin_call, fused_bin_call)
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch counts (all, cluster, global) to
-    0."""
+    """Set every kernel wrapper's launch counts (all, cluster, global,
+    fixed-order) to 0."""
     for fn in KERNELS:
         fn.launches = fn.launches_cluster = fn.launches_global = 0
+        fn.launches_ordered = 0
 
 
 # ---------------------------------------------------------------------------
@@ -740,8 +769,10 @@ def numeric_epilogue(col_tabs, val_tabs, bin_rows, count, rpt, c_col, c_val,
     start = rpt[bin_rows.long().masked_fill(~valid_row, 0)].long()[:, None]
     target = torch.where(mask, start + lane, nnz_capacity)
     target = target.clamp(max=nnz_capacity).view(-1)
-    c_col[target] = col_sorted.view(-1)
-    c_val[target] = val_sorted.view(-1)
+    scatter.scatter_kept(c_col, target, col_sorted.view(-1),
+                         limit=nnz_capacity)
+    scatter.scatter_kept(c_val, target, val_sorted.view(-1),
+                         limit=nnz_capacity)
     return c_col, c_val
 
 
@@ -759,8 +790,8 @@ def scatter_sub_rows(subC: CSR, orig_rows, valid, rpt, c_col, c_val, *,
     target = rpt[orig.clamp(max=rpt.shape[0] - 2)] + offs
     target = torch.where(row_ok, target, nnz_capacity)
     target = target.clamp(max=nnz_capacity)
-    c_col[target] = subC.col
-    c_val[target] = subC.val
+    scatter.scatter_kept(c_col, target, subC.col, limit=nnz_capacity)
+    scatter.scatter_kept(c_val, target, subC.val, limit=nnz_capacity)
     return c_col, c_val
 
 
@@ -802,7 +833,8 @@ def _fallback_sub_prod(A: CSR, B: CSR, rows, valid) -> torch.Tensor:
 
 def _scatter_nnz(nnz_buf, rows, valid, nnz_rows, m: int) -> None:
     """nnz_buf[rows] = nnz_rows for valid rows; the rest go to slot m+1."""
-    nnz_buf[rows.long().masked_fill(~valid, m + 1)] = nnz_rows
+    scatter.scatter_kept(nnz_buf, rows.long().masked_fill(~valid, m + 1),
+                         nnz_rows, limit=m + 1)
 
 
 def symbolic_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder,

@@ -305,6 +305,7 @@ class SpgemmService:
         """Conservative latency prediction for deadline admission;
         ``None`` = no basis to predict, admit blind."""
         reg = ten.engine.telemetry.registry
+        ten.engine.flush_latencies()
         entry = self._plan_entry(ten, A, B, config)
         if entry is not None and entry.plan.is_specialized:
             return histogram_quantile(
@@ -315,9 +316,8 @@ class SpgemmService:
         return histogram_quantile(reg.get("opsparse_cold_steps_seconds"),
                                   self.deadline_quantile)
 
-    def _calibrate_cold(self, ten: _Tenant, A: CSR, B: CSR,
-                        dt: float) -> None:
-        per_flop = dt / self._flops(A, B)
+    def _calibrate_cold(self, ten: _Tenant, flops: int, dt: float) -> None:
+        per_flop = dt / flops
         prev = ten.cold_s_per_flop
         ten.cold_s_per_flop = (per_flop if prev is None
                                else 0.7 * prev + 0.3 * per_flop)
@@ -418,9 +418,14 @@ class SpgemmService:
                     continue
 
                 # Success path.
-                dt = time.perf_counter() - t_call
                 if not was_hot:
-                    self._calibrate_cold(ten, A, B, dt)
+                    # Calibrated with the time the request's C took to
+                    # complete: for a sharded request on the card that
+                    # lands after its merge, without waiting for it here.
+                    flops = self._flops(A, B)
+                    ten.engine.on_complete(
+                        value, lambda done, t=t_call, f=flops:
+                        self._calibrate_cold(ten, f, done - t))
                 if deadline is not None \
                         and time.perf_counter() > deadline:
                     # Completed, but past its budget: the client stopped
@@ -463,8 +468,11 @@ class SpgemmService:
         registry.  This is what ``GET /metrics`` returns verbatim."""
         with self._lock:
             tenants = list(self._tenants.values())
-        blocks = [engine_sample_blocks(t.engine, f'tenant="{t.name}"')
-                  for t in tenants]
+        blocks = []
+        for t in tenants:
+            t.engine.flush_latencies()   # sharded merges finished since
+            blocks.append(engine_sample_blocks(t.engine,
+                                               f'tenant="{t.name}"'))
         blocks.append(self.registry.sample_blocks())
         return merge_sample_blocks(blocks)
 

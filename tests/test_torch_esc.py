@@ -125,3 +125,214 @@ def test_all_zero_rows_and_empty_product():
     At = _port(jcsr.CSR.from_dense(d.T))
     tC = tesc.spgemm_fused(_port(A), At, prod_capacity=64, nnz_capacity=64)
     np.testing.assert_allclose(_np(tC.to_dense()), d @ d.T, **VAL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Each key's products summed in order, in either mode.
+# ---------------------------------------------------------------------------
+
+def _segments(seed=0, n=400):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 40, size=n)
+    vals = (rng.standard_normal(int(lens.sum()))
+            * 10.0 ** rng.integers(-3, 4, int(lens.sum()))).astype(np.float32)
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    return vals, offs
+
+
+def test_segment_sum_is_the_references_scatter_add():
+    """segment_sum (the plain version on the CPU) gives every segment the
+    reference's in-order scatter-add sum bit for bit, and 0 past n_real."""
+    import jax.numpy as jnp
+    from repro_torch.kernels.segment_sum import segment_sum
+    vals, offs = _segments()
+    n = offs.shape[0] - 1
+    seg = np.repeat(np.arange(n), np.diff(offs))
+    want = np.asarray(jnp.zeros(n, jnp.float32).at[seg].add(vals))
+    got = segment_sum(torch.from_numpy(vals), torch.from_numpy(offs),
+                      n_real=n - 1)
+    np.testing.assert_array_equal(_np(got)[:n - 1].view(np.int32),
+                                  want[:n - 1].view(np.int32))
+    assert float(got[n - 1]) == 0.0
+
+
+@pytest.mark.parametrize("deterministic", [False, True],
+                         ids=["default", "deterministic"])
+@pytest.mark.parametrize("shape", SHAPES[1:])
+def test_esc_matches_reference_bitwise(shape, deterministic):
+    """With or without torch.use_deterministic_algorithms(True) the port's
+    ESC values are the reference's bit for bit (its scatter-add's
+    order)."""
+    A, B = _pair(5, *shape)
+    cap = 8192
+    jC = jesc.spgemm_fused(A, B, prod_capacity=cap, nnz_capacity=cap)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        tC = tesc.spgemm_fused(_port(A), _port(B), prod_capacity=cap,
+                               nnz_capacity=cap)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    nnz = int(jC.rpt[-1])
+    np.testing.assert_array_equal(_np(tC.rpt), np.asarray(jC.rpt))
+    np.testing.assert_array_equal(_np(tC.col)[:nnz], np.asarray(jC.col)[:nnz])
+    np.testing.assert_array_equal(_np(tC.val)[:nnz].view(np.int32),
+                                  np.asarray(jC.val)[:nnz].view(np.int32))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: segment_sum's kernel has no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_segment_sum_matches_plain_bitwise(cuda_device):
+    from repro_torch.kernels.segment_sum import (segment_sum,
+                                                 segment_sum_plain)
+    vals, offs = _segments(1, 5000)
+    v, o = torch.from_numpy(vals), torch.from_numpy(offs)
+    n = o.shape[0] - 1
+    before = segment_sum.launches
+    got = segment_sum(v.to(cuda_device), o.to(cuda_device), n_real=n - 1)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    want = segment_sum_plain(v, o, n_real=n - 1)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_esc_fixed_order_matches_cpu_bitwise(cuda_device):
+    """ESC on the card in the fixed-order mode: C bit for bit the CPU's."""
+    A, B = _pair(5, *SHAPES[3])
+    TA, TB = _port(A), _port(B)
+    GA, GB = TA.to(cuda_device), TB.to(cuda_device)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        C = tesc.spgemm_fused(TA, TB, prod_capacity=8192, nnz_capacity=8192)
+        G = tesc.spgemm_fused(GA, GB, prod_capacity=8192, nnz_capacity=8192)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    nnz = int(C.rpt[-1])
+    assert torch.equal(G.rpt.cpu(), C.rpt)
+    assert torch.equal(G.col.cpu()[:nnz], C.col[:nnz])
+    assert torch.equal(G.val.cpu()[:nnz].view(torch.int32),
+                       C.val[:nnz].view(torch.int32))
+
+
+def _drop_scatter_case(seed=2, n=20000, limit=5000):
+    """Writes to distinct targets below ``limit`` and dropped writes aimed
+    at the dump slot ``limit`` (the port's pattern)."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random(n) < 0.2
+    targets = rng.permutation(limit)
+    index = np.full(n, limit, np.int64)
+    kept = np.flatnonzero(keep)[:limit]
+    index[kept] = targets[:kept.size]
+    return (torch.from_numpy(index),
+            torch.from_numpy(rng.standard_normal(n).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)))
+
+
+def test_scatter_kept_and_count_into_match_the_torch_ops_in_both_modes():
+    """kernels/scatter on the CPU, with or without
+    torch.use_deterministic_algorithms(True): the values of the torch ops
+    below the dump slot."""
+    from repro_torch.kernels import scatter
+    index, vals, counts = _drop_scatter_case()
+    limit = 5000
+    want_v = torch.zeros(limit + 1)
+    want_v[index] = vals
+    want_c = torch.zeros(limit + 1, dtype=torch.int32).index_add_(
+        0, index, counts)
+    was = torch.are_deterministic_algorithms_enabled()
+    try:
+        for mode in (False, True):
+            torch.use_deterministic_algorithms(mode)
+            got_v = scatter.scatter_kept(torch.zeros(limit + 1), index,
+                                         vals, limit=limit)
+            got_c = scatter.count_into(
+                torch.zeros(limit + 1, dtype=torch.int32), index, counts,
+                limit=limit)
+            assert torch.equal(got_v[:limit], want_v[:limit])
+            assert torch.equal(got_c[:limit], want_c[:limit])
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.gpu
+def test_cuda_scatter_kernels_match_plain(cuda_device):
+    """scatter_kept and count_into on the card against their plain
+    versions below the dump slot, each launch counted."""
+    from repro_torch.kernels import scatter
+    index, vals, counts = _drop_scatter_case(3, 200000, 40000)
+    limit = 40000
+    for fn, plain, src, dtype in (
+            (scatter.scatter_kept, scatter.scatter_kept_plain, vals,
+             torch.float32),
+            (scatter.count_into, scatter.count_into_plain, counts,
+             torch.int32)):
+        want = plain(torch.zeros(limit + 1, dtype=dtype), index, src,
+                     limit=limit)
+        before = fn.launches
+        got = fn(torch.zeros(limit + 1, dtype=dtype, device=cuda_device),
+                 index.to(cuda_device), src.to(cuda_device), limit=limit)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(got[:limit].cpu(), want[:limit])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16,
+                                   torch.int16])
+def test_cuda_scatter_kept_moves_each_element_width(cuda_device, dtype):
+    """scatter_kept on 8- and 2-byte elements, as bits."""
+    from repro_torch.kernels import scatter
+    index, vals, _ = _drop_scatter_case(4, 50000, 10000)
+    limit = 10000
+    src = (vals * 100).to(dtype)
+    want = scatter.scatter_kept_plain(torch.zeros(limit + 1, dtype=dtype),
+                                      index, src, limit=limit)
+    got = scatter.scatter_kept(
+        torch.zeros(limit + 1, dtype=dtype, device=cuda_device),
+        index.to(cuda_device), src.to(cuda_device), limit=limit)
+    assert torch.equal(got[:limit].cpu(), want[:limit])
+
+
+@pytest.mark.gpu
+def test_cuda_count_into_on_sorted_runs(cuda_device):
+    """count_into on sorted indices (runs of one target across and within
+    warps, the dropped ones at the end), as ESC's counts arrive."""
+    from repro_torch.kernels import scatter
+    rng = np.random.default_rng(5)
+    limit = 2048
+    index = np.sort(rng.integers(0, limit + 1, 300001)).astype(np.int64)
+    counts = rng.integers(0, 2, index.shape[0]).astype(np.int32)
+    idx, src = torch.from_numpy(index), torch.from_numpy(counts)
+    want = scatter.count_into_plain(
+        torch.zeros(limit + 1, dtype=torch.int32), idx, src, limit=limit)
+    got = scatter.count_into(
+        torch.zeros(limit + 1, dtype=torch.int32, device=cuda_device),
+        idx.to(cuda_device), src.to(cuda_device), limit=limit)
+    assert torch.equal(got[:limit].cpu(), want[:limit])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_segment_sum_other_dtypes_match_plain_bitwise(cuda_device,
+                                                          dtype):
+    from repro_torch.kernels.segment_sum import (segment_sum,
+                                                 segment_sum_plain)
+    vals, offs = _segments(2, 3000)
+    v = torch.from_numpy(vals / 1000).to(dtype)
+    o = torch.from_numpy(offs)
+    n = o.shape[0] - 1
+    got = segment_sum(v.to(cuda_device), o.to(cuda_device), n_real=n - 1)
+    want = segment_sum_plain(v, o, n_real=n - 1)
+    assert got.dtype == dtype
+    assert torch.equal(got.cpu(), want)
