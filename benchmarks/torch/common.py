@@ -10,7 +10,8 @@ import torch
 REPS = 3          # the paper uses 10
 
 
-def _sync() -> None:
+def sync() -> None:
+    """Wait for the card (nothing on the CPU), before a clock read."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
@@ -18,11 +19,11 @@ def _sync() -> None:
 def timeit(fn: Callable, *args, reps: int = REPS, **kw) -> float:
     """Mean seconds per call: one warmup, then ``reps`` timed runs."""
     fn(*args, **kw)                               # warmup (cold plan)
-    _sync()
+    sync()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn(*args, **kw)
-    _sync()
+    sync()
     return (time.perf_counter() - t0) / reps
 
 

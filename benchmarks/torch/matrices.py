@@ -63,6 +63,8 @@ TABLE3: List[MatrixSpec] = [
 ]
 
 BY_NAME = {m.name: m for m in TABLE3}
+NORMAL = [m for m in TABLE3 if not m.large]
+LARGE = [m for m in TABLE3 if m.large]
 
 DEFAULT_SCALE = 32
 LARGE_SCALE = 512

@@ -63,14 +63,14 @@ Phases, in order; any failure exits non-zero:
      torch.bincount(torch.bucketize(...)), with the kernel's time alone
      (its C entry point) and the wrapper's host cost per call beside the
      wrapper's time.
-  6. bsr_spmm: the bfloat16 kernel's SASS must hold tensor-core MMA
-     instructions and the float32 kernel's 16-byte shared loads (LDS.128,
-     cuobjdump -sass); each kernel's CTAs per SM; edge cases against the
-     plain version
-     (empty block row, padding blocks, bm != bk, N not a multiple of the
-     tile, several blocks per block row) in float32 and bfloat16, then one
-     block-sparse weight layer (M = K = 8192 in 128 x 128 blocks, 10 %
-     stored, N = 4096) in both types, timed against
+  6. bsr_spmm: the bfloat16 and float16 kernels' SASS must hold
+     tensor-core MMA instructions and the float32 kernel's 16-byte shared
+     loads (LDS.128, cuobjdump -sass); each kernel's CTAs per SM; edge
+     cases against the plain version (empty block row, padding blocks,
+     bm != bk, N not a multiple of the tile, several blocks per block
+     row) in float32, bfloat16 and float16, then one block-sparse weight
+     layer (M = K = 8192 in 128 x 128 blocks, 10 % stored, N = 4096) in
+     the three types, timed against
      torch.sparse_bsr_tensor(...) @ dense; then blocks of 96 x 40 with N
      = 37 and block rows of 1 to 13 blocks.
   7. the request path: a fresh SpgemmEngine(telemetry=True) with
@@ -159,6 +159,30 @@ Phases, in order; any failure exits non-zero:
      mono_500Hz in the mode (counts set to 0 just before): the cold call
      and two steady calls bitwise equal, steady ms with and without
      torch's fill of uninitialised memory beside the atomic kernels'.
+  7f. 16-bit values (phase_dtypes): fused_bin and numeric_bin in bfloat16
+     and float16 on every route (DTYPE_CASES: shared memory, cluster,
+     global memory), both disciplines, against their plain versions on
+     the card: fixed order bitwise, atomic within 3 n (u S + e); then
+     scircuit and mono_500Hz A·A through spgemm(method="hash") in both
+     types on a fresh engine (one cold and STEADY_CALLS steady calls, the
+     counts set to 0 just before; C's pattern equal to torch.sparse's
+     float32 product of the same 16-bit inputs, values within
+     2 n (u S + e); times and peak GiB), each 16-bit kernel at scircuit's
+     main shapes (time, plain version, bound), and the fused rungs of
+     mono's steady call timed alone in each type.  bsr_spmm's float16
+     layer runs in phase 6 beside the other two types.
+  7g. the paper's figure benches (phase_figures): benchmarks.torch.run
+     --reference-cut (all six benches, rows printed); Fig. 9's and Figs.
+     10/11's per-case functions on the scircuit and mono_500Hz analogs,
+     the CUDA kernels held to the figure's invariants (single access
+     below check-then-CAS on each kernel, at least one access a product
+     on every row of a launched bin, fused below symbolic + numeric);
+     both examples in
+     examples/torch on the card.
+  7h. one olmoe-1b-7b MoE layer at its published width (phase_moe): 2,048
+     tokens in one group at capacity factor 8, float32 (binning equal to
+     dense, rtol 2e-2 / atol 2e-3) and bfloat16 (both, and the int8
+     payload, against the exact expert mix in norm), each form timed.
   8. output: a "kernels" JSON line (all five kernels; the cluster kernel
      once for each of the three hash wrappers, named <kernel>_cluster,
      its launches those of the extended phase; the global kernel once for
@@ -168,7 +192,11 @@ Phases, in order; any failure exits non-zero:
      "fixed_order", its launches those of the fixed-order mono run;
      segment_sum, scatter_kept and count_into, their launches those of
      the slice phase, their times at the largest shape a steady mono
-     call gives them),
+     call gives them; fused_bin and numeric_bin in bfloat16 and float16
+     as <kernel>_bf16 / _f16, their launches those of scircuit's 16-bit
+     product and their times at its main shapes; bsr_spmm (float32,
+     with its bfloat16 layer) and bsr_spmm_f16, each its own type's
+     launches in the layer's run, counted by C entry point),
      the card line, and the result line.
 
 Needs one card.  Exits 2 without printing a result when no card is visible
@@ -182,6 +210,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -204,6 +233,10 @@ HASH_KERNELS = ("symbolic_bin", "numeric_bin", "fused_bin")
 # counts) and the global-memory kernel (launches_global).
 CLUSTER_KERNELS = tuple(k + "_cluster" for k in HASH_KERNELS)
 GLOBAL_KERNELS = tuple(k + "_global" for k in HASH_KERNELS)
+# The value-building kernels in 16-bit values (phase_dtypes), named by
+# their C entry points' suffix (spgemm_hash.VALUE_TYPES).
+VALUE_KERNELS = tuple(k + sfx for sfx in ("_bf16", "_f16")
+                      for k in ("fused_bin", "numeric_bin"))
 ROUTE_SUFFIX = {"smem": "", "cluster": "_cluster", "global": "_global"}
 SOURCES = {
     "symbolic_bin": CSRC + "spgemm_hash.cu",
@@ -212,6 +245,8 @@ SOURCES = {
     "binning_histogram": CSRC + "binning_histogram.cu",
     "bsr_spmm": CSRC + "bsr_spmm.cu",
     **{k: CSRC + "spgemm_hash.cu" for k in CLUSTER_KERNELS + GLOBAL_KERNELS},
+    **{k: CSRC + "spgemm_hash.cu" for k in VALUE_KERNELS},
+    "bsr_spmm_f16": CSRC + "bsr_spmm.cu",
     "segment_sum": CSRC + "segment_sum.cu",
     "scatter_kept": CSRC + "scatter.cu",
     "count_into": CSRC + "scatter.cu",
@@ -228,6 +263,9 @@ REPLACES = {
     "bsr_spmm": "src/repro/kernels/bsr_spmm.py:32",
     **{k + "_cluster": v for k, v in _HASH_TPU.items()},
     **{k + "_global": v for k, v in _HASH_TPU.items()},
+    # The 16-bit value types (phase_dtypes).
+    **{k: _HASH_TPU[k.rsplit("_", 1)[0]] for k in VALUE_KERNELS},
+    "bsr_spmm_f16": "src/repro/kernels/bsr_spmm.py:32",
     # The ESC accumulator's in-order sum and the dump-slot writes; the
     # reference's are jnp scatters (the lines named), with no Pallas
     # kernel behind them.
@@ -259,11 +297,33 @@ DELAUNAY_AVG = 6.0
 VAL_RTOL = VAL_ATOL = 1e-5    # kernel vs plain: few products per entry
 # bsr_spmm at 8192 x 8192 x 4096: each output sums ~820 float32 products
 # of magnitude ~1 in another order than cuBLAS does (partial sums ~30,
-# rounding ~2e-6 per add); bfloat16 outputs may round to either side of
-# one bf16 step (2^-7 relative).
+# rounding ~2e-6 per add); bfloat16 and float16 outputs may round to
+# either side of one step (2^-7, 2^-10 relative).
 BSR_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),
-           "bfloat16": dict(rtol=2 ** -7, atol=1e-2)}
+           "bfloat16": dict(rtol=2 ** -7, atol=1e-2),
+           "float16": dict(rtol=2 ** -10, atol=1e-2)}
 STEADY_CALLS = 5
+# The hash kernels' and bsr_spmm's 16-bit value types: the unit roundoff
+# u that bounds their rounding (a product or sum rounded to the type lands
+# within u of it, relatively).
+UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+# The spacing of each 16-bit type's subnormals: a rounding lands within u
+# of its value or within half this of it, whichever is more (float16's
+# products of two values below ~8e-3 are subnormal).
+SUBNORMAL_STEP = {torch.bfloat16: 2.0 ** -133, torch.float16: 2.0 ** -24}
+# phase_dtypes' kernel cases, one per route of each 16-bit kernel:
+# (kind, t_size, pack, valid rows): the shared-memory rungs (packed and
+# not; numeric's mod-hashed sizes), fused 32,768 (shared memory in 16-bit
+# values, a cluster in float32), and the cluster and global-memory rungs of
+# the extended ladders.
+DTYPE_CASES = (("fused_bin", 256, 1, 96), ("fused_bin", 256, 4, 96),
+               ("fused_bin", 32768, 1, 8), ("fused_bin", 65536, 1, 8),
+               ("fused_bin", 262144, 1, 8), ("numeric_bin", 255, 1, 96),
+               ("numeric_bin", 1023, 1, 96), ("numeric_bin", 32768, 1, 8),
+               ("numeric_bin", 131072, 1, 8), ("numeric_bin", 524288, 1, 8))
+# phase_moe: one olmoe-1b-7b MoE layer at its published width, one group
+# of MOE_TOKENS tokens, capacity factor E / k = 8 (no assignment dropped).
+MOE_TOKENS = 2048
 # Kernels whose ptxas report must show no spill (source, kernel).
 NO_SPILLS = (("bsr_spmm", "bsr_spmm_f32_kernel"),
              ("binning_histogram", "binning_histogram_kernel"),
@@ -370,11 +430,13 @@ def run_bin(sh, kind, plain, A, B, rows, count, t_size, rows_cap, *,
     return dict(nnz=out[0], cols=out[1], vals=out[2], acc=out[3])
 
 
-def compare(what, k, p, nprod_rows, valid, *, bitwise=False):
+def compare(what, k, p, nprod_rows, valid, *, bitwise=False, bound=None):
     """Kernel result k against plain result p; returns max |val err|.
     nnz and accesses on every row, tables on the valid rows only (the
     kernels leave the padding rows' tables unwritten); ``bitwise`` holds
-    the values to the plain version's bits (the fixed-order kernels)."""
+    the values to the plain version's bits (the fixed-order kernels);
+    ``bound`` (the valid rows' entries sorted by column, as
+    :func:`order_bound` gives them) replaces VAL_ATOL + VAL_RTOL*|v|."""
     require(torch.equal(k["nnz"], p["nnz"]), f"{what}: nnz differs")
     err = 0.0
     if k["cols"] is not None:
@@ -384,14 +446,16 @@ def compare(what, k, p, nprod_rows, valid, *, bitwise=False):
         kv = k["vals"][valid].gather(1, ko)
         pv = p["vals"][valid].gather(1, po)
         used = pc >= 0
-        diff = (kv - pv).abs().masked_fill(~used, 0)
+        diff = (kv.float() - pv.float()).abs().masked_fill(~used, 0)
         err = float(diff.max()) if diff.numel() else 0.0
         if bitwise:
-            same = kv.view(torch.int32) == pv.view(torch.int32)
+            bits = torch.int16 if kv.element_size() == 2 else torch.int32
+            same = kv.view(bits) == pv.view(bits)
             require(bool((same | ~used).all()),
                     f"{what}: {int((~same & used).sum())} values not "
                     f"bitwise equal (up to {err:.3e} apart)")
-        bad = diff > VAL_ATOL + VAL_RTOL * pv.abs()
+        bad = diff > (VAL_ATOL + VAL_RTOL * pv.float().abs()
+                      if bound is None else bound)
         require(not bool(bad.any()),
                 f"{what}: values differ by up to {err:.3e}")
     acc = k["acc"].long()
@@ -586,17 +650,21 @@ def reset_launches():
         fn.launches = 0
         if hasattr(fn, "launches_global"):
             fn.launches_cluster = fn.launches_global = 0
+        if hasattr(fn, "launches_by_entry"):
+            fn.launches_by_entry = dict.fromkeys(fn.launches_by_entry, 0)
 
 
 def read_launches():
-    """Launches of every wrapper (all its kernels), and of the hash
-    wrappers' cluster and global-memory kernels apart (``<name>_cluster``,
-    ``<name>_global``)."""
+    """Launches of every wrapper (all its kernels), of the hash wrappers'
+    cluster and global-memory kernels apart (``<name>_cluster``,
+    ``<name>_global``), and of each of bsr_spmm's C entry points apart
+    (``bsr_spmm_f32``, ``_bf16``, ``_f16``)."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
     for name in HASH_KERNELS:
         out[name + "_cluster"] = wrappers[name].launches_cluster
         out[name + "_global"] = wrappers[name].launches_global
+    out.update(wrappers["bsr_spmm"].launches_by_entry)
     return out
 
 
@@ -668,21 +736,23 @@ def bound_bytes(kind, A, B, rows, count, t_size, rows_cap):
     mark[sub.col[:a_entries].long()] = True
     b_rows = int(mark.sum())
     b_entries = int(B.nnz_per_row()[mark].sum())
-    vb = 0 if kind == "symbolic_bin" else 4
+    vb = 0 if kind == "symbolic_bin" else A.val.element_size()
     read = (4 + 4 * n + 8 * n + a_entries * (4 + vb) + 8 * b_rows
             + b_entries * (4 + vb))
     per_row = 4 * (1 if kind == "numeric_bin" else 2)
     if kind != "symbolic_bin":
-        per_row += t_size * 8
+        per_row += t_size * (4 + vb)
     return read + n * per_row, (rows_cap - n) * per_row
 
 
-def route_of(sh, kind, t_size):
+def route_of(sh, kind, t_size, dtype=torch.float32):
     """The kernel the wrapper of ``kind`` launches on a rung of ``t_size``
-    entries (in its own launch geometry): "smem", "cluster" or "global"."""
+    entries (in its own launch geometry, with values of ``dtype``):
+    "smem", "cluster" or "global"."""
     rows_per_cta = (sh.numeric_launch_geometry(t_size)[0]
                     if kind == "numeric_bin" else 1)
-    return sh.rung_route(t_size, rows_per_cta, kind != "symbolic_bin")
+    return sh.rung_route(t_size, rows_per_cta, kind != "symbolic_bin",
+                         value_bytes=sh.table_value_bytes(kind, dtype))
 
 
 def main_path_jobs(plan, result):
@@ -711,15 +781,18 @@ def phase_main_shapes(sh, A, jobs, errs, *, B=None, route="smem",
     from repro_torch.core import nprod_into_rpt
     B = A if B is None else B
     nprod = nprod_into_rpt(A, B)
+    dtype = A.val.dtype
+    sums = entry_sums(A, B) if dtype in UNIT_ROUNDOFF else None
     stats = {}
     for kind, (binning, ladder, buckets) in jobs.items():
-        name = kind + ROUTE_SUFFIX[route]
+        name = (kind + (sh.VALUE_TYPES[dtype] if kind != "symbolic_bin"
+                        else "") + ROUTE_SUFFIX[route])
         ms = plain_ms = 0.0
         nbytes = pad_bytes = 0
         rungs = []
         for b, t_size in enumerate(ladder.table_sizes):
             rows_cap = buckets[b]
-            if not rows_cap or route_of(sh, kind, t_size) != route:
+            if not rows_cap or route_of(sh, kind, t_size, dtype) != route:
                 continue
             rows, count, valid = bin_inputs(binning, b, rows_cap, limit)
             nprod_rows = nprod[rows.long()].long().masked_fill(~valid, 0)
@@ -727,9 +800,14 @@ def phase_main_shapes(sh, A, jobs, errs, *, B=None, route="smem",
                 sh, kind, True, A, B, rows, count, t_size, rows_cap))
             k = run_bin(sh, kind, False, A, B, rows, count, t_size, rows_cap)
             torch.cuda.synchronize()
+            bound = (order_bound(sums, dtype, rows, valid,
+                                 p["cols"].shape[1])
+                     if sums is not None and kind != "symbolic_bin"
+                     else None)
             errs[name] = max(errs[name], compare(
                 f"{label} {name} rung {b} (t={t_size}, "
-                f"rows={int(count)}/{rows_cap})", k, p, nprod_rows, valid))
+                f"rows={int(count)}/{rows_cap})", k, p, nprod_rows, valid,
+                bound=bound))
             del p, k
             # The wrapper's launch alone: no reduction over its tables.
             kms = time_cuda(lambda: bin_call(
@@ -745,11 +823,12 @@ def phase_main_shapes(sh, A, jobs, errs, *, B=None, route="smem",
             if route == "cluster":
                 c = sh.cluster_size(t_size, kind != "symbolic_bin",
                                     sh._smem_limit(A.device))
-                resident = sh.clusters_in_flight(t_size, kernel=kind)
+                resident = sh.clusters_in_flight(t_size, kernel=kind,
+                                                 dtype=dtype)
                 rung.update(cluster=c, clusters_in_flight=resident)
                 where = f"C={c}, {resident} clusters in flight"
             else:
-                resident = sh.ctas_per_sm(t_size, kernel=kind)
+                resident = sh.ctas_per_sm(t_size, kernel=kind, dtype=dtype)
                 rung.update(ctas_per_sm=resident)
                 where = f"{resident} CTAs/SM"
             rungs.append(rung)
@@ -1521,9 +1600,10 @@ def phase_cluster_sass():
                                 or "SPIN" in op for op in counts),
                     f"{kernel}'s SASS holds no distributed-shared-memory "
                     f"CAS, or a device-memory atomic: {picked[kernel]}")
-    # Both disciplines, keys only and with values, and the two fixed-order
-    # instances (with values).
-    require(sum(k.startswith("cluster_rows_kernel") for k in picked) == 6,
+    # Both disciplines: keys only (float32 only), and with values and their
+    # fixed-order instances in each of the three value types.
+    require(sum(k.startswith("cluster_rows_kernel") for k in picked)
+            == 2 + 3 * 4,
             f"the SASS lacks an instance of cluster_rows_kernel: "
             f"{sorted(picked)}")
     log(f"phase cluster SASS (cuobjdump): table atomics {picked}: ok")
@@ -1539,19 +1619,21 @@ def phase_bsr(errs):
     from repro_torch.kernels.ref import bsr_spmm_ref
     torch.backends.cuda.matmul.allow_tf32 = False    # plain in full fp32
     sass = sass_counts("bsr_spmm")
-    tc = sass.get("bsr_spmm_bf16_kernel", {})
-    require(tc.get("HGMMA", 0) + tc.get("HMMA", 0) > 0,
-            f"the bfloat16 kernel's SASS holds no tensor-core MMA: {sass}")
+    for f16 in (0, 1):     # bsr_spmm_tc_kernel<F16>: bfloat16, float16
+        tc = sass.get(f"bsr_spmm_tc_kernel<{f16}>", {})
+        require(tc.get("HGMMA", 0) + tc.get("HMMA", 0) > 0,
+                f"the {('bfloat16', 'float16')[f16]} kernel's SASS holds no "
+                f"tensor-core MMA: {sass}")
     require(sass.get("bsr_spmm_f32_kernel", {}).get("LDS.128", 0) > 0,
             f"the float32 kernel's SASS holds no LDS.128: {sass}")
-    occ = {name: occupancy(dt) for name, dt in (("float32", torch.float32),
-                                                ("bfloat16", torch.bfloat16))}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
+    occ = {name: occupancy(dt) for name, dt in dtypes.items()}
     log(f"phase bsr_spmm SASS (cuobjdump): {sass}; dynamic shared memory "
         f"and CTAs per SM: " + ", ".join(f"{name} {smem} B, {ctas}"
                                          for name, (smem, ctas) in occ.items())
         + ": ok")
     rng = np.random.default_rng(zlib.crc32(b"bsr_spmm"))
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     err = {name: 0.0 for name in dtypes}
 
     def edge_case(what, nbr, nbc, bm, bk, n, empty, pad, density=0.5):
@@ -1568,7 +1650,7 @@ def phase_bsr(errs):
                 require(not bool(got[empty * bm:(empty + 1) * bm].any()),
                         f"bsr_spmm {what} ({name}): the empty block row is "
                         "not zero")
-        log(f"phase bsr_spmm edge case {what}: float32 and bfloat16: ok")
+        log(f"phase bsr_spmm edge case {what}: {', '.join(dtypes)}: ok")
 
     cases = {  # nbr, nbc, bm, bk, n, empty_row, padding
         "empty block row + padding": (6, 5, 16, 16, 48, 2, 2),
@@ -1595,9 +1677,14 @@ def phase_bsr(errs):
     outs = {name: bsr_spmm(*t, n_block_rows=nbr)
             for name, t in inputs.items()}
     torch.cuda.synchronize()
-    launches = read_launches()["bsr_spmm"]
-    require(launches == len(dtypes),
-            f"bsr_spmm launched {launches} times for {len(dtypes)} calls")
+    counts = read_launches()
+    launches = {name: counts[entry] for name, entry in (
+        ("float32", "bsr_spmm_f32"), ("bfloat16", "bsr_spmm_bf16"),
+        ("float16", "bsr_spmm_f16"))}
+    require(counts["bsr_spmm"] == len(dtypes)
+            and all(n == 1 for n in launches.values()),
+            f"bsr_spmm launched {counts['bsr_spmm']} times for "
+            f"{len(dtypes)} calls, by type {launches}")
     stats = {}
     stripes = len(set(cols.tolist()))
     for name, t in inputs.items():
@@ -1633,6 +1720,7 @@ def phase_bsr(errs):
             bound_share=max(ops_ms, bytes_ms) / ms,
             ops_ms=ops_ms, bytes_ms=bytes_ms, flops=flops, bytes=nbytes,
             max_abs_err=e, library_max_abs_err=lib_err,
+            launches=launches[name],
             tflops=flops / ms / 1e9, smem_bytes=occ[name][0],
             ctas_per_sm=occ[name][1])
         log(f"phase bsr_spmm layer ({name}, {nnzb} blocks, {flops / 1e9:.1f}"
@@ -1651,6 +1739,7 @@ def phase_bsr(errs):
     edge_case("96 x 40 blocks, N = 37, rows of 1 to 13 blocks", 3, 13, 96,
               40, 37, None, 1, density=(0.0, 0.5, 1.0))
     errs["bsr_spmm"] = err["float32"]
+    errs["bsr_spmm_f16"] = err["float16"]
     return dict(launches=launches, nnzb=nnzb, m=nbr * bm, k=nbc * bk, n=n,
                 block=(bm, bk), edge_max_abs_err=err, sass=sass, **stats)
 
@@ -3232,6 +3321,444 @@ def phase_engine_gates(sh, A, C_mono, jobs, atomic_stats, errs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 16-bit values, the paper's figure benches, the MoE layer.
+# ---------------------------------------------------------------------------
+
+def _with_values(M, val):
+    from repro_torch.core import CSR
+    return CSR(M.rpt, M.col, val, M.shape)
+
+
+def entry_sums(A, B):
+    """For each entry of A·B, sorted by (row, col): the absolute sum S of
+    its products (torch.sparse's float32 |A|·|B|, within float32's
+    rounding) and their number n (ones·ones, exact) -> (crow, col, S,
+    n)."""
+    _, cols, S = sparse_product(A, B, lambda v: v.float().abs())
+    crow, cols_n, n = sparse_product(A, B, lambda v: torch.ones_like(
+        v, dtype=torch.float32))
+    require(torch.equal(cols, cols_n), "torch.sparse's |A|·|B| pattern "
+            "differs from its ones·ones")
+    return crow, cols, S, n
+
+
+def order_bound(sums, dtype, rows, valid, width):
+    """For each table entry of the valid rows (``width`` entries a row,
+    sorted by column, the empty ones first): 3 n (u S + e), the most that
+    two summation orders of the entry's n products (absolute sum S) can
+    differ by when each product and sum is rounded to ``dtype`` (unit
+    roundoff u, subnormal step e).  ``sums``: :func:`entry_sums` of the
+    product."""
+    crow, _, S, n = sums
+    r = rows.long()[valid]
+    start, nnz = crow[r], crow[r + 1] - crow[r]
+    j = torch.arange(width, device=S.device) - (width - nnz)[:, None]
+    used = j >= 0
+    at = (start[:, None] + j).masked_fill(~used, 0)
+    bound = 3 * n[at] * (UNIT_ROUNDOFF[dtype] * S[at] * (1 + 1e-5)
+                         + SUBNORMAL_STEP[dtype])
+    return bound.masked_fill(~used, 0)
+
+
+def dtype_kernel_routes(sh, errs):
+    """Each 16-bit kernel on every route (DTYPE_CASES), both disciplines,
+    atomic and fixed-order, against its plain version on the card: a 96 x
+    96 power-law pair in the type, its heaviest rows and 8 padding rows.
+    Fixed order: tables bitwise equal; atomic: within order_bound."""
+    from repro_torch.core import nprod_into_rpt, random_csr
+    seen = {}
+    for dtype in UNIT_ROUNDOFF:
+        A, B = (random_csr(seed, 96, 96, avg_nnz_per_row=avg,
+                           distribution="powerlaw", dtype=dtype,
+                           device="cuda")
+                for seed, avg in ((3, 5.0), (103, 4.0)))
+        nprod = nprod_into_rpt(A, B)[:96]
+        heavy = torch.argsort(nprod, descending=True, stable=True)
+        sums = entry_sums(A, B)
+        for kind, t_size, pack, n in DTYPE_CASES:
+            name = kind + sh.VALUE_TYPES[dtype]
+            rows_cap = n + 8
+            rows = torch.zeros(rows_cap, dtype=torch.int32, device="cuda")
+            rows[:n] = heavy[:n].to(torch.int32)
+            count = torch.tensor([n], dtype=torch.int32, device="cuda")
+            valid = torch.arange(rows_cap, device="cuda") < n
+            nprod_rows = nprod[rows.long()].long().masked_fill(~valid, 0)
+            plain = run_bin(sh, kind, True, A, B, rows, count, t_size,
+                            rows_cap)
+            bound = order_bound(sums, dtype, rows, valid,
+                                plain["cols"].shape[1])
+            route = route_of(sh, kind, t_size, dtype)
+            seen.setdefault(name, set()).add(route)
+            totals = {}
+            for ordered in (False, True):
+                for sa in (True, False):
+                    what = (f"{name} t={t_size} pack={pack} ({route}, "
+                            f"single_access={sa}, "
+                            f"{'fixed order' if ordered else 'atomic'})")
+                    with (fixed_order() if ordered
+                          else contextlib.nullcontext()):
+                        k = run_bin(sh, kind, False, A, B, rows, count,
+                                    t_size, rows_cap, pack=pack,
+                                    single_access=sa)
+                        torch.cuda.synchronize()
+                    require(k["vals"].dtype == dtype,
+                            f"{what}: tables in {k['vals'].dtype}")
+                    e = compare(what, k, plain, nprod_rows, valid,
+                                bitwise=ordered, bound=bound)
+                    if not ordered:
+                        errs[name] = max(errs[name], e)
+                    totals[sa] = int(k["acc"].long().sum())
+                require(totals[True] < totals[False],
+                        f"{name} t={t_size}: single access took "
+                        f"{totals[True]} accesses, check-then-CAS "
+                        f"{totals[False]}")
+    for name, routes in seen.items():
+        require(routes == {"smem", "cluster", "global"},
+                f"{name}: routes {routes}")
+    log("phase dtypes kernels: fused_bin and numeric_bin in bfloat16 and "
+        "float16 on the shared-memory, cluster and global routes, both "
+        "disciplines: fixed order bitwise equal to the plain versions, "
+        "atomic within 3 n (u S + e): ok")
+    return {name: sorted(r) for name, r in seen.items()}
+
+
+def sparse_product(A, B, f):
+    """torch.sparse's float32 product of A and B with values f(val), its
+    rows sorted by column -> (crow, col, val)."""
+    from benchmarks.torch.bench_overall import _sorted_rows, library_tensor
+    TA, TB = (library_tensor(M, f(M.val[:int(M.rpt[-1])])) for M in (A, B))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        R = TA @ TB
+    crow = R.crow_indices()
+    col, val = _sorted_rows(crow, R.col_indices(), B.ncols, R.values())
+    return crow, col, val
+
+
+def dtype_product(name, M, dtype):
+    """spgemm(method="hash") on M·M with M's values in ``dtype``, on a
+    fresh engine: one cold call and STEADY_CALLS steady calls, the counts
+    set to 0 just before; C's pattern equal to torch.sparse's float32
+    pattern of the same 16-bit inputs, values within 2 n (u S + e) of its
+    float32 values (n products of absolute sum S into the entry, unit
+    roundoff u, subnormal step e: each of the n products and n - 1 sums
+    rounds by at most u S + e / 2; the factor 2 covers the float32
+    reference's own rounding and second-order terms).  -> (stats,
+    launches, plan, result)."""
+    from repro_torch import SpgemmConfig
+    from repro_torch.engine import SpgemmEngine, plan_key
+    A = _with_values(M, M.val.to(dtype))
+    cfg = SpgemmConfig(method="hash")
+    engine = SpgemmEngine(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, cold_ms = time_host(lambda: engine.execute(A, A))
+    steady = []
+    for _ in range(STEADY_CALLS):
+        del res
+        res, ms = time_host(lambda: engine.execute(A, A))
+        steady.append(ms)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    entry = engine.cache.get(plan_key(A, A, cfg))
+    require(entry.stats.steps_calls == 1
+            and entry.stats.hot_calls == STEADY_CALLS,
+            f"{name} {dtype}: expected 1 cold + {STEADY_CALLS} steady calls:"
+            f" {entry.stats}")
+    require(launches["fused_bin"] > 0 and launches["numeric_bin"] > 0,
+            f"{name} {dtype}: the hash kernels were not launched: "
+            f"{launches}")
+    C = res.C
+    require(C.val.dtype == dtype, f"{name}: C in {C.val.dtype}")
+    crow, col, absval, count = entry_sums(A, A)
+    crow_v, col_v, val = sparse_product(A, A, lambda v: v.float())
+    require(torch.equal(crow, crow_v) and torch.equal(col, col_v),
+            "torch.sparse's |A|·|A| pattern differs from its A·A")
+    nz = int(crow[-1])
+    require(torch.equal(C.rpt.long(), crow.long()),
+            f"{name} {dtype}: C.rpt differs from torch.sparse's")
+    require(torch.equal(C.col[:nz].long(), col.long()),
+            f"{name} {dtype}: C.col differs from torch.sparse's")
+    err = (C.val[:nz].float() - val).abs()
+    bound = 2 * count * (UNIT_ROUNDOFF[dtype] * absval * (1 + 1e-5)
+                         + SUBNORMAL_STEP[dtype])
+    share = float((err / bound).max()) if nz else 0.0
+    require(share <= 1.0, f"{name} {dtype}: values exceed 2 n (u S + e) by "
+            f"{share:.3f}x")
+    stats = dict(matrix=name, dtype=str(dtype).removeprefix("torch."),
+                 cold_ms=cold_ms, steady_ms=steady,
+                 steady_median_ms=statistics.median(steady),
+                 peak_gib=peak / 2 ** 30, nnz=nz,
+                 max_abs_err=float(err.max()) if nz else 0.0,
+                 bound_share=share, launches=launches)
+    log(f"phase dtypes {name} A·A in {stats['dtype']}: cold {cold_ms:.1f} "
+        f"ms, steady median {stats['steady_median_ms']:.1f} ms "
+        f"{['%.1f' % x for x in steady]}, peak {stats['peak_gib']:.2f} GiB, "
+        f"nnz {nz}, max |C - A·A| {stats['max_abs_err']:.3e} "
+        f"({share:.1%} of 2 n (u S + e)), pattern equal to torch.sparse's, "
+        f"launches {launches}: ok")
+    del val, absval, count, col, crow, col_v, crow_v
+    plan = entry.plan
+    del engine, entry
+    torch.cuda.empty_cache()
+    return stats, launches, plan, res
+
+
+def mono_fused_rungs_ms(sh, A, plan, res):
+    """The steady call's fused rungs on A·A timed alone, rung by rung (CUDA
+    events), with their byte bound (valid rows): the fused section of a
+    steady call in A's value type."""
+    binning, ladder, buckets = main_path_jobs(plan, res)["fused_bin"]
+    ms = nbytes = 0.0
+    for b, t_size in enumerate(ladder.table_sizes):
+        rows_cap = buckets[b]
+        if not rows_cap:
+            continue
+        rows, count, _ = bin_inputs(binning, b, rows_cap)
+        ms += time_cuda(lambda: bin_call(sh, "fused_bin", False, A, A, rows,
+                                         count, t_size, rows_cap), 3)
+        nbytes += bound_bytes("fused_bin", A, A, rows, count, t_size,
+                              rows_cap)[0]
+    return ms, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_dtypes(sh, A, S, errs, slice_stats):
+    """16-bit values (bfloat16, float16) in the hash kernels: every route
+    against the plain versions; scircuit and mono_500Hz A·A through
+    spgemm(method="hash") in both types (C against torch.sparse's float32
+    product of the same inputs); each 16-bit kernel at scircuit's main
+    shapes (its time, the plain version's, the bound); the fused section
+    of mono's steady call in each type.  bsr_spmm's float16 layer runs in
+    phase_bsr beside the other two types."""
+    t0 = time.perf_counter()
+    out = dict(routes=dtype_kernel_routes(sh, errs), products={},
+               mono_fused={})
+    stats = {}
+    for dtype in UNIT_ROUNDOFF:
+        sfx = sh.VALUE_TYPES[dtype]
+        s_stats, s_launches, plan, res = dtype_product(SCIRCUIT["name"], S,
+                                                       dtype)
+        S16 = _with_values(S, S.val.to(dtype))
+        jobs = {k: v for k, v in main_path_jobs(plan, res).items()
+                if k != "symbolic_bin"}
+        shapes = phase_main_shapes(sh, S16, jobs, errs,
+                                   label=f"{dtype} scircuit main shape")
+        for kind in ("fused_bin", "numeric_bin"):
+            stats[kind + sfx] = dict(shapes[kind + sfx],
+                                     launches=s_launches[kind],
+                                     library_ms=None, bound_by="bytes",
+                                     matrix=SCIRCUIT["name"])
+        del res, S16
+        m_stats, _, plan, res = dtype_product(MONO["name"], A, dtype)
+        A16 = _with_values(A, A.val.to(dtype))
+        fused_ms, fused_bound = mono_fused_rungs_ms(sh, A16, plan, res)
+        del res, A16
+        torch.cuda.empty_cache()
+        key = str(dtype).removeprefix("torch.")
+        out["products"][key] = dict(scircuit=s_stats, mono=m_stats)
+        out["mono_fused"][key] = dict(ms=fused_ms, bound_ms=fused_bound)
+        log(f"phase dtypes mono_500Hz {key}: steady median "
+            f"{m_stats['steady_median_ms']:.1f} ms against float32's "
+            f"{slice_stats['steady_median_ms']:.1f} ms (slice phase); the "
+            f"fused rungs alone {fused_ms:.3f} ms per steady call, bound "
+            f"{fused_bound:.3f} ms ({fused_bound / fused_ms:.1%})")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase dtypes: {out['seconds']:.1f} s")
+    return out, stats
+
+
+def phase_figures(A, S):
+    """The paper's figure benches on the card: benchmarks.torch.run at the
+    reference's sizes (every bench, rows printed); then Fig. 9's and Figs.
+    10/11's per-case functions on the scircuit and mono_500Hz analogs,
+    holding the CUDA kernels to the figure's invariants (single access
+    below check-then-CAS on every kernel, at least one access a product
+    on every row, fused below symbolic + numeric); then both spgemm
+    examples on the card."""
+    import io
+    from benchmarks.torch import bench_binning_ranges, bench_hashing, run
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run.main(["--reference-cut"])
+    rows = buf.getvalue().splitlines()
+    for row in rows:
+        log(f"  {row}")
+    require(rc == 0, "benchmarks.torch.run failed")
+    names = {r.split(",")[0].split("/")[0] for r in rows[1:]}
+    require(names == {"bench_overall", "bench_binning", "bench_hashing",
+                      "bench_binning_ranges", "bench_overlap",
+                      "bench_moe_dispatch"},
+            f"benchmarks.torch.run printed rows of {sorted(names)}")
+    harness_s = time.perf_counter() - t0
+    out = dict(run_rows=rows, harness_s=harness_s, hashing={},
+               ranges={})
+    for name, M in ((SCIRCUIT["name"], S), (MONO["name"], A)):
+        row, n = bench_hashing.case(name, M, M)
+        log(f"  {row}")
+        for step in ("sym", "num", "fused"):
+            require(n[f"{step}_accesses_single"]
+                    < n[f"{step}_accesses_multi"],
+                    f"Fig. 9 {name} {step}: single access "
+                    f"{n[f'{step}_accesses_single']} not below "
+                    f"check-then-CAS {n[f'{step}_accesses_multi']}")
+        for sa in ("single", "multi"):
+            require(n[f"fused_accesses_{sa}"] < n[f"sym_accesses_{sa}"]
+                    + n[f"num_accesses_{sa}"],
+                    f"Fig. 9 {name}: fused accesses not below symbolic + "
+                    f"numeric ({sa})")
+        for kind in ("symbolic_bin", "numeric_bin", "fused_bin"):
+            for sa in (True, False):
+                acc, nprod, built = bench_hashing.row_accesses(M, M, kind,
+                                                               sa)
+                require(bool(built.any())
+                        and bool((acc[built] >= nprod[built]).all()),
+                        f"Fig. 9 {name} {kind} (single_access={sa}): a row "
+                        f"of a launched bin took fewer accesses than "
+                        f"products")
+        sweep = bench_binning_ranges.sweep(M, M, name=name)
+        for r, _ in sweep:
+            log(f"  {r}")
+        out["hashing"][name] = dict(row=row, **n)
+        out["ranges"][name] = [dict(row=r, **v) for r, v in sweep]
+        torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for script, last in (("quickstart.py", "dense-oracle check: OK"),
+                         ("graph_analytics.py", "sharded hop: nnz=")):
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch" / script)],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+        require(proc.returncode == 0 and last in proc.stdout,
+                f"examples/torch/{script} failed: {proc.stderr[-2000:]}")
+        log(f"  examples/torch/{script} on the card: "
+            f"{time.perf_counter() - t1:.1f} s, last line "
+            f"{proc.stdout.strip().splitlines()[-1]!r}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase figures: benchmarks.torch.run {harness_s:.1f} s, all "
+        f"{out['seconds']:.1f} s: Fig. 9 invariants hold on the CUDA "
+        f"kernels: ok")
+    return out
+
+
+def moe_oracle(layer, x):
+    """The exact weighted expert mix of one group (nothing dropped), expert
+    by expert in float32 from the layer's weights, with the router as the
+    layer runs it."""
+    from repro_torch.models import moe as M
+    p, cfg = layer.params(), layer.cfg
+    x_flat = x.reshape(-1, x.shape[-1])
+    weights, experts, _ = M.route(p, x_flat, cfg)
+    xf = x_flat.float()
+    out = torch.zeros_like(xf)
+    for e in range(cfg.num_experts):
+        tok, slot = torch.nonzero(experts == e, as_tuple=True)
+        if not tok.numel():
+            continue
+        h = xf[tok]
+        g = h @ p["w_gate"][e].float()
+        y = ((g * torch.sigmoid(g)) * (h @ p["w_up"][e].float())) \
+            @ p["w_down"][e].float()
+        out.index_add_(0, tok, weights[tok, slot][:, None] * y)
+    return out.reshape(x.shape)
+
+
+def _rel(y, ref):
+    """||y - ref|| / ||ref|| (Frobenius)."""
+    return float((y.float() - ref).norm() / ref.norm())
+
+
+def phase_moe():
+    """One olmoe-1b-7b MoE layer at its published width (d_model 2048, 64
+    experts, top-8, d_ff 1024), one group (B = 1) of MOE_TOKENS tokens at
+    capacity factor 8 (= E / k: nothing dropped), weights and tokens from
+    seeded torch.Generators.  In float32 the binning dispatch equals the
+    dense one within rtol 2e-2 / atol 2e-3, entry by entry
+    (tests/test_property.py:99's check).  In bfloat16, the model's type,
+    the two dispatches round at other places (the binning form adds a
+    token's 8 weighted contributions in bfloat16, the dense one in float32)
+    and an expert's output is itself a sum of 1,024 rounded terms, so an
+    entry whose terms cancel differs by more than any rtol of it; there
+    both, and the int8 payload, are held to the exact weighted expert mix
+    (moe_oracle) in norm: ||y - mix|| / ||mix|| <= 2e-2 (int8: 4e-2, its
+    payload rounding each activation to 1/254 of its token's largest), and
+    the binning form to the dense one alike.  Binning, dense and the int8
+    payload are timed (CUDA events) with their peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import MoE
+    from repro_torch.models import moe as M
+    t0 = time.perf_counter()
+    base = get_arch("olmoe-1b-7b").replace(moe_capacity_factor=8.0)
+    require(base.num_experts / base.experts_per_token == 8.0,
+            f"olmoe-1b-7b: E / k = {base.num_experts}/"
+            f"{base.experts_per_token}")
+    out = dict(d_model=base.d_model, experts=base.num_experts,
+               top_k=base.experts_per_token, d_ff=base.d_ff,
+               tokens=MOE_TOKENS)
+    gen = torch.Generator(device="cuda")
+    for dtype_name in ("float32", "bfloat16"):
+        cfg = base.replace(dtype=dtype_name)
+        q = cfg.replace(moe_dispatch_dtype="int8")
+        dt = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+        layer = MoE(cfg, generator=gen.manual_seed(0), device="cuda")
+        x = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=gen,
+                        device="cuda").to(dt)
+        with torch.inference_mode():
+            binned, aux = layer(x)
+            dense, aux_d = layer.dense_dispatch(x)
+            quant, _ = M.moe(layer.params(), x, q)
+            ref = moe_oracle(layer, x)
+            torch.cuda.synchronize()
+            b32, d32 = binned.float(), dense.float()
+            stats = dict(aux=float(aux), aux_dense=float(aux_d),
+                         max_abs_diff=float((b32 - d32).abs().max()),
+                         max_abs=float(d32.abs().max()),
+                         rel_binning=_rel(b32, ref), rel_dense=_rel(d32, ref),
+                         rel_int8=_rel(quant, ref),
+                         rel_binning_dense=_rel(b32, d32))
+            if dt == torch.float32:
+                bad = (b32 - d32).abs() > 2e-3 + 2e-2 * d32.abs()
+                require(not bool(bad.any()),
+                        f"MoE float32: binning and dense dispatch differ "
+                        f"on {int(bad.sum())} entries (up to "
+                        f"{stats['max_abs_diff']:.3e})")
+            for key, lim in (("rel_binning", 2e-2), ("rel_dense", 2e-2),
+                             ("rel_binning_dense", 2e-2),
+                             ("rel_int8", 4e-2)):
+                require(stats[key] <= lim, f"MoE {dtype_name}: {key} "
+                        f"{stats[key]:.3e} > {lim}")
+            del ref, quant, b32, d32
+            stats["binning_ms"] = time_cuda(lambda: layer(x), 5)
+            stats["dense_ms"] = time_cuda(lambda: layer.dense_dispatch(x), 5)
+            stats["int8_ms"] = time_cuda(lambda: M.moe(layer.params(), x, q),
+                                         5)
+            for form, fn in (("binning", lambda: layer(x)),
+                             ("dense", lambda: layer.dense_dispatch(x))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                stats[f"{form}_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                             / 2 ** 30)
+        out[dtype_name] = stats
+        log(f"phase moe {dtype_name}: binning {stats['binning_ms']:.3f} ms "
+            f"(peak {stats['binning_peak_gib']:.2f} GiB), dense "
+            f"{stats['dense_ms']:.3f} ms (peak {stats['dense_peak_gib']:.2f}"
+            f" GiB), int8 payload {stats['int8_ms']:.3f} ms; against the "
+            f"exact mix ||y - mix|| / ||mix||: binning "
+            f"{stats['rel_binning']:.2e}, dense {stats['rel_dense']:.2e}, "
+            f"int8 {stats['rel_int8']:.2e}; max |binning - dense| "
+            f"{stats['max_abs_diff']:.3e} of |out| <= {stats['max_abs']:.1f}"
+            f": ok")
+        del layer, x, binned, dense
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase moe: {out['seconds']:.1f} s")
+    return out
+
+
 def run():
     import numpy as np
     from repro_torch.kernels import build
@@ -3308,17 +3835,22 @@ def run():
     for name in SCATTER_KERNELS:
         stats[name] = dict(gates["mono"]["kernels"][name],
                            launches=launches[name])
+    dtypes, dtype_stats = phase_dtypes(sh, A, S, errs, slice_stats)
+    stats.update(dtype_stats)
+    stats["bsr_spmm_f16"] = stats["bsr_spmm"]["float16"]
+    figures = phase_figures(A, S)
+    moe = phase_moe()
 
     kernels = []
     for name in REPLACES:
         s = stats[name]
         entry = dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=s["launches"],
-            max_abs_err=errs[name])
+            replaces=REPLACES[name], max_abs_err=errs[name])
         top = s["float32"] if name == "bsr_spmm" else s
-        entry.update({k: top[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")})
+        entry.update({k: top[k] for k in ("launches", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")})
         if name in HASH_KERNELS:
             entry.update(service_launches=service["launches"][name])
         if name in gates["main_shapes"]:
@@ -3331,6 +3863,12 @@ def run():
                 routes=gates["kernel_routes"][name])
         if name in CLUSTER_KERNELS + GLOBAL_KERNELS:
             entry.update(bound_share=s["bound_share"])
+        if name in VALUE_KERNELS:
+            entry.update(bound_share=s["bound_share"], matrix=s["matrix"],
+                         routes=dtypes["routes"][name])
+        if name == "bsr_spmm_f16":
+            entry.update(dtype="float16", bound_share=s["bound_share"],
+                         ctas_per_sm=s["ctas_per_sm"])
         if name == "binning_histogram":
             entry.update(library_calls=s["library_calls"],
                          kernel_ms=s["kernel_ms"], host_us=s["host_us"],
@@ -3339,8 +3877,8 @@ def run():
             entry.update(dtype="float32", bound_share=top["bound_share"],
                          ctas_per_sm=top["ctas_per_sm"])
             entry["bfloat16"] = {k: s["bfloat16"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err")}
+                "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
         kernels.append(entry)
     return dict(
         card=card, kernels=kernels, build_s=secs, ptxas=ptxas,
@@ -3349,6 +3887,7 @@ def run():
         esc=esc_stats,
         main_shapes=stats, request_path=request, governor=governor,
         sharded=sharded, service=service, engine_gates=gates,
+        dtypes=dtypes, figures=figures, moe=moe,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)
 

@@ -1,16 +1,18 @@
 """Carry CSR data across the two packages as numpy arrays.
 
 The reference package (JAX) and the port share no code; tests and tools
-move operands and results between them as host arrays.  Matrices play the
-part here that weights play in a model port.
+move operands, parameters and results between them as host arrays.
+Matrices play the part here that weights play in a model port; the MoE
+layer's weights cross with :func:`params_from_reference`.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.csr import CSR, Device
+from repro_torch.core.csr import CSR, Device, resolve_device
 
 
 def csr_from_reference(rpt, col, val, shape, *,
@@ -27,3 +29,18 @@ def csr_to_numpy(C: CSR) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
     :func:`csr_from_reference`, so the round trip is exact."""
     rpt, col, val = C.to_numpy()
     return rpt, col, val, C.shape
+
+
+def params_from_reference(tree, device: Device = "cuda"):
+    """The reference's parameter tree (nested dicts of numpy arrays, as
+    ``jax.device_get`` returns them) as torch tensors on ``device``, value
+    for value.  bfloat16 arrays (numpy's ``ml_dtypes`` type, which torch
+    does not read) cross as float32, which holds them exactly, and are
+    cast back."""
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=resolve_device(device), dtype=torch.bfloat16)
+    return torch.from_numpy(arr.copy()).to(resolve_device(device))

@@ -7,7 +7,7 @@ Public API:
   symbolic_ladder/numeric_ladder — bin ladders + range selection (§5.7)
 """
 from .csr import CSR, gather_rows, random_csr, resolve_device
-from .binning import (Binning, bin_rows, bin_rows_for_ladder,
+from .binning import (Binning, bin_by_id, bin_rows, bin_rows_for_ladder,
                       bin_rows_identity, classify)
 from .binning_ranges import (BinLadder, make_ladder, numeric_ladder,
                              symbolic_ladder, SYMBOLIC_SWEEP, NUMERIC_SWEEP)
@@ -22,7 +22,7 @@ from . import esc
 
 __all__ = [
     "CSR", "gather_rows", "random_csr", "resolve_device", "Binning",
-    "bin_rows", "bin_rows_for_ladder", "bin_rows_identity", "classify",
+    "bin_by_id", "bin_rows", "bin_rows_for_ladder", "bin_rows_identity", "classify",
     "BinLadder", "make_ladder", "numeric_ladder", "symbolic_ladder",
     "SYMBOLIC_SWEEP", "NUMERIC_SWEEP", "compression_ratio",
     "exclusive_sum_in_place", "nprod_into_rpt", "nprod_per_entry",

@@ -114,6 +114,38 @@ def bin_rows_identity(sizes: torch.Tensor, num_bins: int) -> Binning:
     )
 
 
+def bin_by_id(ids: torch.Tensor, num_bins: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-pass binning where the bin of each item IS its id.
+
+    The MoE token router (``models/moe.py``): routing T*k assignments to E
+    experts is the paper's binning problem with ``bin_of_row := ids``.  A
+    stable counting sort: ``order`` lists the items grouped by id, in
+    their original order within an id; ``counts`` is the histogram and
+    ``offsets`` its exclusive sum (where each id's group starts in
+    ``order``).  ``ids`` is (n,) or a (G, n) batch of groups binned one by
+    one (the reference's ``jax.vmap``), ints in ``[0, num_bins)``.
+
+    Returns (order, counts, offsets), int32, of shape ids.shape,
+    (..., num_bins) and (..., num_bins).  The counts are read off the
+    sorted ids (``searchsorted``), so no step syncs the host or needs an
+    atomic.
+    """
+    batch = ids.dim() == 2
+    x = ids if batch else ids[None]
+    dev = x.device
+    order = torch.argsort(x, dim=1, stable=True)
+    sorted_ids = torch.gather(x, 1, order).contiguous()
+    edges = torch.arange(num_bins + 1, dtype=sorted_ids.dtype, device=dev)
+    edges = torch.searchsorted(
+        sorted_ids, edges.expand(x.shape[0], num_bins + 1).contiguous(),
+        out_int32=True)
+    counts = edges[:, 1:] - edges[:, :-1]
+    offsets = edges[:, :-1].contiguous()
+    out = (order.to(torch.int32), counts, offsets)
+    return out if batch else tuple(t[0] for t in out)
+
+
 def bin_rows_for_ladder(sizes: torch.Tensor, ladder: BinLadder,
                         *, allow_fast_path: bool = True) -> Binning:
     """Cold-path entry: host-checks the Alg-3 fast path, then bins.

@@ -107,7 +107,7 @@ HASH_VARIANTS: Dict[str, Callable[[str], str]] = {
                                "  if (idx < n_valid && t_size < 0) {"),
     # every load of the insert loop stays, no table access
     "loads_only": _replace(_INSERT, "          accesses += (b_col[j] ^ "
-                                    "__float_as_int(prod)) & 1;"),
+                                    "__float_as_int(Ops::to_f(prod))) & 1;"),
     # values added without atomics (wrong sums, same probes)
     "plain_value_add": _replace(
         "if (WITH_VALUES) atomicAdd(&vals[h], prod);",
@@ -119,9 +119,11 @@ HASH_VARIANTS: Dict[str, Callable[[str], str]] = {
 }
 
 _NUMERIC_LAUNCH = """\
-  return slot_dispatch(mod, single_access, rows, count, a_rpt, a_col, a_val,
-                       b_rpt, b_col, b_val, t_size, rows_cap, rows_per_cta,
-                       threads_per_row, col_out, val_out, acc_out, stream);
+  return slot_dispatch<ORDERED, VT>(
+      mod, single_access, rows, count, a_rpt, a_col,
+      static_cast<const V*>(a_val), b_rpt, b_col,
+      static_cast<const V*>(b_val), t_size, rows_cap, rows_per_cta,
+      threads_per_row, col_out, static_cast<V*>(val_out), acc_out, stream);
 """
 # Edits of slot_rows_kernel (numeric_bin).
 SLOT_VARIANTS: Dict[str, Callable[[str], str]] = {
@@ -129,10 +131,11 @@ SLOT_VARIANTS: Dict[str, Callable[[str], str]] = {
     # numeric_bin on hash_rows_kernel, one row to a block: the kernel it
     # ran before slot_rows_kernel, for a side-by-side time
     "hash_rows_only": _replace(_NUMERIC_LAUNCH, """\
-  return dispatch<true>(single_access, rows, count, a_rpt, a_col, a_val,
-                        b_rpt, b_col, b_val, t_size, rows_cap, 1,
-                        threads_per_row, nullptr, col_out, val_out, acc_out,
-                        stream);
+  return dispatch<true, ORDERED, VT>(
+      single_access, rows, count, a_rpt, a_col, static_cast<const V*>(a_val),
+      b_rpt, b_col, static_cast<const V*>(b_val), t_size, rows_cap, 1,
+      threads_per_row, nullptr, col_out, static_cast<V*>(val_out), acc_out,
+      stream);
 """),
     # valid CTAs keep their tables in shared memory: no dump
     "no_dump": _replace("  dump_slots(col_out + base",
@@ -143,19 +146,21 @@ SLOT_VARIANTS: Dict[str, Callable[[str], str]] = {
         "  if (local < rows_here && idx < n_valid && t_size < 0) {"),
     # every load of the insert loop stays, no table access
     "loads_only": _replace("""\
-          accesses += insert_slot<SINGLE_ACCESS>(
-              row_slots, b_col[j], ORDERED ? 0.0f : a * b_val[j], t_size,
+          accesses += insert_slot<SINGLE_ACCESS, VT>(
+              row_slots, b_col[j],
+              ORDERED ? 0.0f : Ops::round(a * Ops::to_f(b_val[j])), t_size,
               pow2, mod, guard);
-""", "          accesses += (b_col[j] ^ __float_as_int(a * b_val[j])) & 1;\n"),
+""", "          accesses += (b_col[j] ^ "
+       "__float_as_int(a * Ops::to_f(b_val[j]))) & 1;\n"),
     # the 64-bit slot read and written without an atomic (wrong sums under
     # races, the same probes)
     "plain_value_add": _replace("""\
       const unsigned long long old = atomicCAS(
-          &slots[h], seen, pack_slot(key, slot_val(seen) + prod));
+          &slots[h], seen, pack_slot<VT>(key, slot_val<VT>(seen) + prod));
 """, """\
       const unsigned long long old = slots[h];
       const bool mine = slot_key(old) == kEmpty || slot_key(old) == key;
-      if (mine) slots[h] = pack_slot(key, slot_val(old) + prod);
+      if (mine) slots[h] = pack_slot<VT>(key, slot_val<VT>(old) + prod);
       seen = mine ? old : ~old;
 """),
     # every product gives up after its first pass: no probe chains
@@ -185,10 +190,12 @@ PACK_TIMED = (("slot", "base"), ("slot", "unpacked"),
               ("slot", "hash_rows_only"))
 
 _CLUSTER_INSERT = """\
-        accesses += cluster_insert<SINGLE_ACCESS, WITH_VALUES>(
+        accesses += cluster_insert<SINGLE_ACCESS, WITH_VALUES, VT>(
             table, rank_shift, b_col[j],
-            WITH_VALUES && !ORDERED ? entry_av()[e] * b_val[j] : 0.0f, t_size,
-            &inserted);
+            WITH_VALUES && !ORDERED
+                ? Val<VT>::round(entry_av()[e] * Val<VT>::to_f(b_val[j]))
+                : 0.0f,
+            t_size, &inserted);
 """
 _CLUSTER_CHUNKS = "         g < chunks; g += warps) {\n"
 
@@ -199,7 +206,7 @@ CLUSTER_VARIANTS: Dict[str, Callable[[str], str]] = {
     # every load of the insert loop stays, no table access
     "no_inserts": _replace(_CLUSTER_INSERT, "        accesses += (b_col[j] ^ "
                            "__float_as_int(WITH_VALUES ? entry_av()[e] * "
-                           "b_val[j] : 0.0f)) & 1;\n"),
+                           "Val<VT>::to_f(b_val[j]) : 0.0f)) & 1;\n"),
     # each block keeps its slice in shared memory: no dump
     "no_dump": _replace("  if (WITH_VALUES) {\n    const long long off =",
                         "  if (WITH_VALUES && t_size < 0) {\n"

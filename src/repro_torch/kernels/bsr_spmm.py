@@ -10,8 +10,9 @@ summed in float32 into its block row's ``bm``-row stripe of the output.
 The kernels (``csrc/bsr_spmm.cu``) take one CTA per (block row, row
 slice, column tile) and walk the block row's blocks between row pointers
 that this wrapper builds on the device from the sorted ``blk_rows``
-(``torch.searchsorted``: no host read).  bfloat16 runs on the tensor cores
-(``wgmma`` over a ring of cp.async stages, 128 x 128 tiles); float32 on
+(``torch.searchsorted``: no host read).  bfloat16 and float16 run on the
+tensor cores (one kernel template, ``wgmma`` in the type's variant over a
+ring of cp.async stages, 128 x 128 tiles, float32 sums); float32 on
 the CUDA cores (8 x 8 sums a thread in 128 x 128 tiles over a ring of
 cp.async stages).  Block rows with no block come out zero, where the TPU
 kernel leaves them unwritten.  The plain version is
@@ -26,7 +27,8 @@ import torch
 from . import build
 from .ref import bsr_spmm_ref
 
-_ENTRY = {torch.float32: "bsr_spmm_f32", torch.bfloat16: "bsr_spmm_bf16"}
+_ENTRY = {torch.float32: "bsr_spmm_f32", torch.bfloat16: "bsr_spmm_bf16",
+          torch.float16: "bsr_spmm_f16"}
 
 
 def block_row_pointers(blk_rows: torch.Tensor,
@@ -41,7 +43,7 @@ def block_row_pointers(blk_rows: torch.Tensor,
 
 def occupancy(dtype: torch.dtype, device=None) -> Tuple[int, int]:
     """(dynamic shared memory bytes per CTA, CTAs per SM) of the kernel of
-    ``dtype`` (float32 or bfloat16) on the card."""
+    ``dtype`` (float32, bfloat16 or float16) on the card."""
     smem = torch.zeros(1, dtype=torch.int32)
     ctas = torch.zeros(1, dtype=torch.int32)
     entry = _ENTRY[dtype] + "_occupancy"
@@ -58,8 +60,8 @@ def bsr_spmm(blk_rows: torch.Tensor, blk_cols: torch.Tensor,
 
     ``blk_rows`` must be sorted (CSR block order); padding entries repeat
     the last row with a zero block.  ``dense`` is (K, N) with K a multiple
-    of bk.  CPU tensors run the plain version, CUDA tensors (float32 or
-    bfloat16) the kernel, which raises rather than fall back.
+    of bk.  CPU tensors run the plain version, CUDA tensors (float32,
+    bfloat16 or float16) the kernel, which raises rather than fall back.
     """
     nnzb, bm, bk = blocks.shape
     if dense.dim() != 2 or dense.shape[0] % bk:
@@ -75,7 +77,8 @@ def bsr_spmm(blk_rows: torch.Tensor, blk_cols: torch.Tensor,
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     entry = _ENTRY.get(blocks.dtype)
     if entry is None or dense.dtype != blocks.dtype or dense.device != dev:
-        raise ValueError(f"the kernel takes float32 or bfloat16 blocks and "
+        raise ValueError(f"the kernel takes float32, bfloat16 or float16 "
+                         f"blocks and "
                          f"dense of one type on {dev}; got {blocks.dtype} "
                          f"and {dense.dtype} on {dense.device}")
     n = dense.shape[1]
@@ -93,7 +96,11 @@ def bsr_spmm(blk_rows: torch.Tensor, blk_cols: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, entry)
     bsr_spmm.launches += 1
+    bsr_spmm.launches_by_entry[entry] += 1
     return out
 
 
+# Launches of all three kernels, and of each C entry point apart (by its
+# name in _ENTRY).
 bsr_spmm.launches = 0
+bsr_spmm.launches_by_entry = dict.fromkeys(_ENTRY.values(), 0)

@@ -70,10 +70,20 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "bsr_spmm": {
         "bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "bsr_spmm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "bsr_spmm_f16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "bsr_spmm_f32_occupancy": (_P, _P),
         "bsr_spmm_bf16_occupancy": (_P, _P),
+        "bsr_spmm_f16_occupancy": (_P, _P),
     },
 }
+# The hash kernels' entry points of the 16-bit value types: the float32
+# ones' signatures under the suffixes _bf16 and _f16.
+VALUE_SUFFIXES = ("_bf16", "_f16")
+SIGNATURES["spgemm_hash"].update({
+    fn + suffix: sig
+    for fn, sig in list(SIGNATURES["spgemm_hash"].items())
+    if fn not in ("hash_max_smem_bytes", "symbolic_bin")
+    for suffix in VALUE_SUFFIXES})
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

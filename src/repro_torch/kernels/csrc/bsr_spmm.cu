@@ -18,7 +18,9 @@
 //     row outside [0, n_block_rows) fall outside every row pointer range
 //     and add nothing; padding entries with zero blocks add zeros.
 //
-// bfloat16 (bsr_spmm_bf16): tensor cores.  What bounds it on the card is
+// bfloat16 and float16 (bsr_spmm_bf16, bsr_spmm_f16: one kernel template,
+// bsr_spmm_tc_kernel<F16>, whose two instances differ in the wgmma type and
+// the output's rounding only): tensor cores.  What bounds it on the card is
 // the operations, 2*nnzb*bm*bk*N at 989 TFLOP/s; the bytes (blocks, dense
 // stripes and output once each) come second.  One CTA computes a 128 x 128
 // output tile with two consumer warpgroups, each issuing
@@ -65,6 +67,7 @@
 // Python wrapper raises on anything but 0.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -329,40 +332,50 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
   return d;
 }
 
-// D(64 x 128, f32) += A(64 x 16, K-major) * B(16 x 128, N-major).
+// D(64 x 128, f32) += A(64 x 16, K-major) * B(16 x 128, N-major), A and B
+// in bf16 (F16 false) or f16 (F16 true).
+#define WGMMA_M64N128K16(TYPE)                                   \
+  asm volatile(                                                  \
+      "{\n"                                                      \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "%64, %65, 1, 1, 1, 0, 1;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db))
+
+template <bool F16>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db) {
-  asm volatile(
-      "{\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, 1, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db));
+  if constexpr (F16) {
+    WGMMA_M64N128K16("f16");
+  } else {
+    WGMMA_M64N128K16("bf16");
+  }
 }
+#undef WGMMA_M64N128K16
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -403,13 +416,34 @@ __device__ __forceinline__ void copy_chunk(uint32_t dst,
                : "memory");
 }
 
+// The output type of the tensor-core kernel: bf16, or f16 with F16.
+template <bool F16>
+struct TcOut {
+  using T = __nv_bfloat16;
+  using T2 = __nv_bfloat162;
+  __device__ static T one(float v) { return __float2bfloat16_rn(v); }
+  __device__ static T2 two(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
+
+template <>
+struct TcOut<true> {
+  using T = __half;
+  using T2 = __half2;
+  __device__ static T one(float v) { return __float2half_rn(v); }
+  __device__ static T2 two(float a, float b) { return __floats2half2_rn(a, b); }
+};
+
+template <bool F16>
 __global__ void __launch_bounds__(kTcThreads, 2)
-bsr_spmm_bf16_kernel(const int* __restrict__ ptr,
-                     const int* __restrict__ blk_cols,
-                     const unsigned short* __restrict__ blocks,
-                     const unsigned short* __restrict__ dense,
-                     __nv_bfloat16* __restrict__ out, int bm, int bk, int n,
-                     int m_tiles, int k_steps) {
+bsr_spmm_tc_kernel(const int* __restrict__ ptr,
+                   const int* __restrict__ blk_cols,
+                   const unsigned short* __restrict__ blocks,
+                   const unsigned short* __restrict__ dense,
+                   typename TcOut<F16>::T* __restrict__ out, int bm, int bk,
+                   int n, int m_tiles, int k_steps) {
+  using Out = TcOut<F16>;
   extern __shared__ uint8_t smem_raw[];
   // The swizzle is a function of the address bits, so each tile starts on
   // a 1024-byte boundary.
@@ -476,7 +510,7 @@ bsr_spmm_bf16_kernel(const int* __restrict__ ptr,
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kBK / 16; ++j)
-      wgmma_m64n128k16(acc, wgmma_desc(sa + 32 * j, kALbo, kASbo),
+      wgmma_m64n128k16<F16>(acc, wgmma_desc(sa + 32 * j, kALbo, kASbo),
                        wgmma_desc(sb + 16 * kRowBytes * j, kBLbo, kBSbo));
     wgmma_commit();
     wgmma_wait_all();
@@ -492,35 +526,35 @@ bsr_spmm_bf16_kernel(const int* __restrict__ ptr,
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= bm) continue;
-    __nv_bfloat16* dst = out + (static_cast<size_t>(r) * bm + row) * n;
+    typename Out::T* dst = out + (static_cast<size_t>(r) * bm + row) * n;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = col0 + 8 * j;
       const float v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
       if (col + 1 < n && (reinterpret_cast<uintptr_t>(dst + col) & 3) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + col) =
-            __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<typename Out::T2*>(dst + col) = Out::two(v0, v1);
       } else {
-        if (col < n) dst[col] = __float2bfloat16(v0);
-        if (col + 1 < n) dst[col + 1] = __float2bfloat16(v1);
+        if (col < n) dst[col] = Out::one(v0);
+        if (col + 1 < n) dst[col + 1] = Out::one(v1);
       }
     }
   }
 }
 
-// The bf16 kernel's opt-in above 48 KB of dynamic shared memory, and the
-// largest shared-memory carveout so that two CTAs share an SM.
-cudaError_t set_bf16_attributes() {
+// The tensor-core kernel's opt-in above 48 KB of dynamic shared memory,
+// and the largest shared-memory carveout so that two CTAs share an SM.
+template <bool F16>
+cudaError_t set_tc_attributes() {
   cudaError_t err = cudaFuncSetAttribute(
-      bsr_spmm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bsr_spmm_tc_kernel<F16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kTcSmemBytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(bsr_spmm_bf16_kernel,
+  return cudaFuncSetAttribute(bsr_spmm_tc_kernel<F16>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// The bf16 kernel's grid: (block row x row slice, column tile).
+// The tensor-core kernel's grid: (block row x row slice, column tile).
 bool grid_of(int n_block_rows, int bm, int n, int* m_tiles, dim3* grid) {
   *m_tiles = (bm + kBM - 1) / kBM;
   const long long gx = static_cast<long long>(n_block_rows) * *m_tiles;
@@ -528,6 +562,39 @@ bool grid_of(int n_block_rows, int bm, int n, int* m_tiles, dim3* grid) {
   if (gx > 0x7fffffffLL || gy > 65535) return false;
   *grid = dim3(static_cast<unsigned>(gx), gy);
   return true;
+}
+
+template <bool F16>
+int bsr_spmm_tc(const int* ptr, const int* blk_cols, const void* blocks,
+                const void* dense, void* out, int n_block_rows, int bm, int bk,
+                int n, void* stream) {
+  if (n_block_rows < 0 || bm < 1 || bk < 1 || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_block_rows == 0 || n == 0) return 0;
+  int m_tiles;
+  dim3 grid;
+  if (!grid_of(n_block_rows, bm, n, &m_tiles, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = set_tc_attributes<F16>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int k_steps = (bk + kBK - 1) / kBK;
+  bsr_spmm_tc_kernel<F16><<<grid, kTcThreads, kTcSmemBytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      ptr, blk_cols, static_cast<const unsigned short*>(blocks),
+      static_cast<const unsigned short*>(dense),
+      static_cast<typename TcOut<F16>::T*>(out), bm, bk, n, m_tiles, k_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core kernel's dynamic shared memory per CTA, and how many of
+// its CTAs fit on one SM at once (the runtime's occupancy calculator).
+template <bool F16>
+int tc_occupancy(int* smem_bytes, int* ctas_per_sm) {
+  *smem_bytes = kTcSmemBytes;
+  const cudaError_t err = set_tc_attributes<F16>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, bsr_spmm_tc_kernel<F16>, kTcThreads, kTcSmemBytes));
 }
 
 }  // namespace
@@ -559,22 +626,15 @@ int bsr_spmm_f32(const int* ptr, const int* blk_cols, const float* blocks,
 int bsr_spmm_bf16(const int* ptr, const int* blk_cols, const void* blocks,
                   const void* dense, void* out, int n_block_rows, int bm,
                   int bk, int n, void* stream) {
-  if (n_block_rows < 0 || bm < 1 || bk < 1 || n < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_block_rows == 0 || n == 0) return 0;
-  int m_tiles;
-  dim3 grid;
-  if (!grid_of(n_block_rows, bm, n, &m_tiles, &grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = set_bf16_attributes();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int k_steps = (bk + kBK - 1) / kBK;
-  bsr_spmm_bf16_kernel<<<grid, kTcThreads, kTcSmemBytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      ptr, blk_cols, static_cast<const unsigned short*>(blocks),
-      static_cast<const unsigned short*>(dense),
-      static_cast<__nv_bfloat16*>(out), bm, bk, n, m_tiles, k_steps);
-  return static_cast<int>(cudaGetLastError());
+  return bsr_spmm_tc<false>(ptr, blk_cols, blocks, dense, out, n_block_rows,
+                            bm, bk, n, stream);
+}
+
+int bsr_spmm_f16(const int* ptr, const int* blk_cols, const void* blocks,
+                 const void* dense, void* out, int n_block_rows, int bm,
+                 int bk, int n, void* stream) {
+  return bsr_spmm_tc<true>(ptr, blk_cols, blocks, dense, out, n_block_rows,
+                           bm, bk, n, stream);
 }
 
 // The f32 kernel's dynamic shared memory per CTA, and how many of its CTAs
@@ -585,14 +645,12 @@ int bsr_spmm_f32_occupancy(int* smem_bytes, int* ctas_per_sm) {
       ctas_per_sm, bsr_spmm_f32_kernel, kFThreads, kFSmemBytes));
 }
 
-// The bf16 kernel's dynamic shared memory per CTA, and how many of its
-// CTAs fit on one SM at once (the runtime's occupancy calculator).
 int bsr_spmm_bf16_occupancy(int* smem_bytes, int* ctas_per_sm) {
-  *smem_bytes = kTcSmemBytes;
-  const cudaError_t err = set_bf16_attributes();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, bsr_spmm_bf16_kernel, kTcThreads, kTcSmemBytes));
+  return tc_occupancy<false>(smem_bytes, ctas_per_sm);
+}
+
+int bsr_spmm_f16_occupancy(int* smem_bytes, int* ctas_per_sm) {
+  return tc_occupancy<true>(smem_bytes, ctas_per_sm);
 }
 
 }  // extern "C"

@@ -147,17 +147,88 @@
 // a row's products in the reference's order, so its values are the plain
 // version's bit for bit, run after run.  See ordered_values below.
 //
+// Value types: every body that builds values is a template on its value
+// type V, float, __nv_bfloat16 or __half (template argument VT = 0, 1, 2;
+// the entry points of the 16-bit types end in _bf16 / _f16).  Tables hold
+// V, and each product is rounded to V and added in V, as the reference's
+// tables in a_val.dtype are: a 16-bit value is never widened to float32
+// in a table.  The products and sums are taken in float32 and rounded to V
+// once (exact for the product of two 16-bit values; for the sum, float32
+// has more than twice V's digits plus two, so the one rounding of the
+// float32 sum to V is V's correctly rounded sum), so the ORDERED instances
+// are the plain version's value for value in every type.  Where a type
+// changes a table's size: hash_rows_kernel keeps keys and values side by
+// side (4 + sizeof(V) bytes an entry, the value array padded to a word);
+// slot_rows_kernel and cluster_rows_kernel keep their 64-bit key+value
+// slot in every type (the 16-bit value's bits in bits 32-47), so the one
+// 64-bit CAS still claims a slot and adds; global_rows_kernel's tables are
+// its outputs (int32 keys, V values).  The value atomics of hash_rows_kernel
+// and global_rows_kernel are atomicAdd on V, native on sm_90 for all three.
+//
 // Every entry point returns cudaGetLastError() right after its launch (or
 // the error of the shared-memory opt-in); the Python wrapper raises on
 // anything but 0.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+// A value type's conversions: to and from float32 (from: rounded to
+// nearest even), and its bits.  round(f) is f rounded to V and back.
+template <int VT>
+struct Val;
+
+template <>
+struct Val<0> {
+  using T = float;
+  using Bits = unsigned;
+  __device__ static float to_f(float v) { return v; }
+  __device__ static float from_f(float f) { return f; }
+  __device__ static Bits bits(float f) { return __float_as_uint(f); }
+  __device__ static float of_bits(Bits b) { return __uint_as_float(b); }
+  __device__ static float round(float f) { return f; }
+};
+
+template <>
+struct Val<1> {
+  using T = __nv_bfloat16;
+  using Bits = unsigned short;
+  __device__ static float to_f(T v) { return __bfloat162float(v); }
+  __device__ static T from_f(float f) { return __float2bfloat16_rn(f); }
+  __device__ static Bits bits(float f) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+  }
+  __device__ static float of_bits(Bits b) {
+    return __bfloat162float(__ushort_as_bfloat16(b));
+  }
+  __device__ static float round(float f) { return of_bits(bits(f)); }
+};
+
+template <>
+struct Val<2> {
+  using T = __half;
+  using Bits = unsigned short;
+  __device__ static float to_f(T v) { return __half2float(v); }
+  __device__ static T from_f(float f) { return __float2half_rn(f); }
+  __device__ static Bits bits(float f) {
+    return __half_as_ushort(__float2half_rn(f));
+  }
+  __device__ static float of_bits(Bits b) {
+    return __half2float(__ushort_as_half(b));
+  }
+  __device__ static float round(float f) { return of_bits(bits(f)); }
+};
+
+template <int VT>
+using ValT = typename Val<VT>::T;
 
 constexpr int kEmpty = -1;
 constexpr unsigned kHashScale = 107u;
@@ -186,12 +257,14 @@ __device__ __forceinline__ int hash_next(int h, int t_size) {
 // value one at a time, in lane order.  So every value is the plain
 // version's left fold ((0 + p1) + p2) + ..., bit for bit: each product is
 // __fmul_rn(a, b) and each add __fadd_rn, which round every step and which
-// nvcc never contracts into an FMA.  Where a slot lands does not matter,
+// nvcc never contracts into an FMA, each rounded to the value type V
+// (Val<VT>::round; nothing for float).  Where a slot lands does not matter,
 // since the epilogue sorts each row by column.  The lookups of this pass
 // are not the reference's table transactions and are not counted.
 //
 // A table type gives find(key) (the slot holding the key, or -1 when this
-// warp adds nothing for it) and load / store of a slot's value.
+// warp adds nothing for it) and load / store of a slot's value (as float,
+// a V value exactly), and its value type VT.
 // ---------------------------------------------------------------------------
 
 // Adds each lane's product to its slot (slot < 0: nothing to add); the
@@ -200,6 +273,7 @@ template <class Table>
 __device__ __forceinline__ void add_in_lane_order(const Table& table,
                                                   int slot, float prod,
                                                   int lane) {
+  using Ops = Val<Table::VT>;
   const unsigned lanes = __ballot_sync(0xffffffffu, slot >= 0);
   if (lanes == 0) return;  // warp uniform
   const unsigned peers =
@@ -209,7 +283,7 @@ __device__ __forceinline__ void add_in_lane_order(const Table& table,
   const int last = 31 - __clz(lanes);
   for (int i = 0; i <= last; ++i) {
     const float p = __shfl_sync(0xffffffffu, prod, i);
-    if (leader && ((peers >> i) & 1u)) acc = __fadd_rn(acc, p);
+    if (leader && ((peers >> i) & 1u)) acc = Ops::round(__fadd_rn(acc, p));
   }
   if (leader) table.store(slot, acc);
   __syncwarp();  // the next batch's leaders read these values
@@ -222,16 +296,17 @@ __device__ __forceinline__ void add_in_lane_order(const Table& table,
 template <class Table>
 __device__ __forceinline__ void ordered_values(
     const Table& table, const int* __restrict__ a_col,
-    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
-    const int* __restrict__ b_col, const float* __restrict__ b_val,
+    const ValT<Table::VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
+    const int* __restrict__ b_col, const ValT<Table::VT>* __restrict__ b_val,
     int a_lo, int a_hi, int lane) {
+  using Ops = Val<Table::VT>;
   for (int base = a_lo; base < a_hi; base += 32) {
     const int e = base + lane;
     int lo = 0, len = 0;
     float av = 0.0f;
     if (e < a_hi) {
       const int k = a_col[e];
-      av = a_val[e];
+      av = Ops::to_f(a_val[e]);
       lo = b_rpt[k];
       len = b_rpt[k + 1] - lo;
     }
@@ -259,7 +334,7 @@ __device__ __forceinline__ void ordered_values(
       float prod = 0.0f;
       if (t < total) {
         const int j = s_lo + t - (s_end - s_len);
-        prod = __fmul_rn(s_a, b_val[j]);
+        prod = Ops::round(__fmul_rn(s_a, Ops::to_f(b_val[j])));
         slot = table.find(b_col[j]);
       }
       add_in_lane_order(table, slot, prod, lane);
@@ -271,9 +346,12 @@ __device__ __forceinline__ void ordered_values(
 // shared memory, global_rows_kernel in device memory), probed with the
 // reference's hash and linear probing.  Volatile: the keys were written by
 // other warps' atomics, the values by other lanes.
+template <int VT_>
 struct KeyValTable {
+  static constexpr int VT = VT_;
+  using Bits = typename Val<VT>::Bits;
   const int* keys;
-  float* vals;
+  ValT<VT>* vals;
   int t_size;
   bool pow2;
 
@@ -288,18 +366,19 @@ struct KeyValTable {
     return -1;
   }
   __device__ float load(int h) const {
-    return reinterpret_cast<volatile float*>(vals)[h];
+    return Val<VT>::of_bits(reinterpret_cast<volatile Bits*>(vals)[h]);
   }
   __device__ void store(int h, float v) const {
-    reinterpret_cast<volatile float*>(vals)[h] = v;
+    reinterpret_cast<volatile Bits*>(vals)[h] = Val<VT>::bits(v);
   }
 };
 
 // Inserts one product into a row's table; returns the table accesses it
-// took and sets *inserted when it claimed an empty slot.
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
-__device__ __forceinline__ int insert(int* keys, float* vals, int key,
-                                      float prod, int t_size, bool pow2,
+// took and sets *inserted when it claimed an empty slot.  The value is
+// added with atomicAdd on V (native on sm_90 for float, bf16 and half).
+template <bool SINGLE_ACCESS, bool WITH_VALUES, class V>
+__device__ __forceinline__ int insert(int* keys, V* vals, int key,
+                                      V prod, int t_size, bool pow2,
                                       int guard, int* inserted) {
   int h = hash_init(key, t_size, pow2);
   int probes = 0;
@@ -335,40 +414,56 @@ __device__ __forceinline__ int insert(int* keys, float* vals, int key,
   return probes;
 }
 
-// Copies n words from a shared-memory table to device memory: word by word
-// up to dst's first 16-byte boundary, then 16-byte stores, then the tail.
-__device__ __forceinline__ void dump_words(int* __restrict__ dst,
-                                           const int* src, int n) {
+// Copies n elements (4 or 2 bytes: W = unsigned or unsigned short) from a
+// shared-memory table to device memory: element by element up to dst's
+// first 16-byte boundary, then 16-byte stores, then the tail.
+template <class W>
+__device__ __forceinline__ void dump_words(W* __restrict__ dst, const W* src,
+                                           int n) {
+  constexpr int kPer = 16 / sizeof(W);
   const int head = min(
       n, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) &
-                          15) / 4);
+                          15) / static_cast<int>(sizeof(W)));
   for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
-  const int quads = (n - head) / 4;
+  const int quads = (n - head) / kPer;
   const bool src_aligned =
       (static_cast<uint32_t>(__cvta_generic_to_shared(src + head)) & 15) == 0;
   for (int i = threadIdx.x; i < quads; i += blockDim.x) {
-    const int j = head + 4 * i;
-    int4 v;
+    const int j = head + kPer * i;
+    union {
+      uint4 q;
+      W e[kPer];
+    } v;
     if (src_aligned) {
-      v = *reinterpret_cast<const int4*>(src + j);
+      v.q = *reinterpret_cast<const uint4*>(src + j);
     } else {
-      v = make_int4(src[j], src[j + 1], src[j + 2], src[j + 3]);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) v.e[k] = src[j + k];
     }
-    *reinterpret_cast<int4*>(dst + j) = v;
+    *reinterpret_cast<uint4*>(dst + j) = v.q;
   }
-  for (int i = head + 4 * quads + threadIdx.x; i < n; i += blockDim.x)
+  for (int i = head + kPer * quads + threadIdx.x; i < n; i += blockDim.x)
     dst[i] = src[i];
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
+// Words of shared memory a block's value tables take (V padded to a word).
+__host__ __device__ constexpr int value_words(int entries, int value_bytes) {
+  return (entries * value_bytes + 3) / 4;
+}
+
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
+          int VT = 0>
 __global__ void hash_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
-    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
-    const int* __restrict__ b_col, const float* __restrict__ b_val,
+    const ValT<VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
+    const int* __restrict__ b_col, const ValT<VT>* __restrict__ b_val,
     int t_size, int rows_per_cta, int threads_per_row,
     int* __restrict__ nnz_out, int* __restrict__ col_out,
-    float* __restrict__ val_out, int* __restrict__ acc_out) {
+    ValT<VT>* __restrict__ val_out, int* __restrict__ acc_out) {
+  using V = ValT<VT>;
+  using Ops = Val<VT>;
+  using Bits = typename Ops::Bits;
   const int n_valid = *count;
   const long long first = static_cast<long long>(blockIdx.x) * rows_per_cta;
   if (first >= n_valid) {
@@ -383,13 +478,15 @@ __global__ void hash_rows_kernel(
   extern __shared__ int smem[];
   const int cta_entries = rows_per_cta * t_size;
   int* keys = smem;
-  float* vals = reinterpret_cast<float*>(smem + cta_entries);
-  int* row_nnz = WITH_VALUES ? smem + 2 * cta_entries : smem + cta_entries;
+  V* vals = reinterpret_cast<V*>(smem + cta_entries);
+  int* row_nnz =
+      smem + cta_entries +
+      (WITH_VALUES ? value_words(cta_entries, sizeof(V)) : 0);
   int* row_acc = row_nnz + rows_per_cta;
 
   for (int i = threadIdx.x; i < cta_entries; i += blockDim.x) {
     keys[i] = kEmpty;
-    if (WITH_VALUES) vals[i] = 0.0f;
+    if (WITH_VALUES) vals[i] = Ops::from_f(0.0f);
   }
   if (threadIdx.x < rows_per_cta) {
     row_nnz[threadIdx.x] = 0;
@@ -410,7 +507,7 @@ __global__ void hash_rows_kernel(
     const int r = rows[idx];
     const int a_lo = a_rpt[r], a_hi = a_rpt[r + 1];
     int* row_keys = keys + local * t_size;
-    float* row_vals = WITH_VALUES ? vals + local * t_size : nullptr;
+    V* row_vals = WITH_VALUES ? vals + local * t_size : nullptr;
     int inserted = 0, accesses = 0;
     // The warp's entries are a_lo + warp + warps*s, s = 0, 1, ...; lane l
     // fetches entry s0 + l of each batch of 32.
@@ -420,7 +517,7 @@ __global__ void hash_rows_kernel(
       float av = 0.0f;
       if (e < a_hi) {
         const int k = a_col[e];
-        if (WITH_VALUES) av = a_val[e];
+        if (WITH_VALUES) av = Ops::to_f(a_val[e]);
         b_lo = b_rpt[k];
         b_hi = b_rpt[k + 1];
       }
@@ -430,7 +527,8 @@ __global__ void hash_rows_kernel(
         const int hi = __shfl_sync(0xffffffffu, b_hi, s);
         const float a = WITH_VALUES ? __shfl_sync(0xffffffffu, av, s) : 0.0f;
         for (int j = lo + lane; j < hi; j += 32) {
-          const float prod = WITH_VALUES ? a * b_val[j] : 0.0f;
+          const V prod =
+              Ops::from_f(WITH_VALUES ? a * Ops::to_f(b_val[j]) : 0.0f);
           accesses += insert<SINGLE_ACCESS, WITH_VALUES && !ORDERED>(
               row_keys, row_vals, b_col[j], prod, t_size, pow2, guard,
               &inserted);
@@ -444,8 +542,8 @@ __global__ void hash_rows_kernel(
     __syncthreads();  // every key of the block's rows is in place
     if (idx < n_valid && tid < 32) {  // the row's first warp
       const int r = rows[idx];
-      const KeyValTable table{keys + local * t_size, vals + local * t_size,
-                              t_size, pow2};
+      const KeyValTable<VT> table{keys + local * t_size,
+                                  vals + local * t_size, t_size, pow2};
       ordered_values(table, a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
                      a_rpt[r + 1], lane);
     }
@@ -459,27 +557,36 @@ __global__ void hash_rows_kernel(
   }
   if (col_out) {
     const long long base = first * t_size;
-    dump_words(col_out + base, keys, cta_entries);
+    dump_words(reinterpret_cast<unsigned*>(col_out) + base,
+               reinterpret_cast<const unsigned*>(keys), cta_entries);
     if (WITH_VALUES)
-      dump_words(reinterpret_cast<int*>(val_out) + base,
-                 reinterpret_cast<const int*>(vals), cta_entries);
+      dump_words(reinterpret_cast<Bits*>(val_out) + base,
+                 reinterpret_cast<const Bits*>(vals), cta_entries);
   }
 }
 
-size_t smem_bytes(int t_size, int rows_per_cta, bool with_values) {
-  const size_t entries = static_cast<size_t>(rows_per_cta) * t_size;
-  return entries * (with_values ? 8 : 4) + 2 * sizeof(int) * rows_per_cta;
+// Dynamic shared memory of hash_rows_kernel: the keys, the values (of
+// value_bytes each, padded to a word; none without values) and the rows'
+// two counters.
+size_t smem_bytes(int t_size, int rows_per_cta, bool with_values,
+                  int value_bytes = 4) {
+  const int entries = rows_per_cta * t_size;
+  return 4 * (static_cast<size_t>(entries) +
+              (with_values ? value_words(entries, value_bytes) : 0)) +
+         2 * sizeof(int) * rows_per_cta;
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
+          int VT = 0>
 int launch(const int* rows, const int* count, const int* a_rpt,
-           const int* a_col, const float* a_val, const int* b_rpt,
-           const int* b_col, const float* b_val, int t_size, int rows_cap,
+           const int* a_col, const ValT<VT>* a_val, const int* b_rpt,
+           const int* b_col, const ValT<VT>* b_val, int t_size, int rows_cap,
            int rows_per_cta, int threads_per_row, int* nnz_out, int* col_out,
-           float* val_out, int* acc_out, cudaStream_t stream) {
+           ValT<VT>* val_out, int* acc_out, cudaStream_t stream) {
   if (rows_cap == 0) return 0;
-  auto kernel = hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED>;
-  const size_t smem = smem_bytes(t_size, rows_per_cta, WITH_VALUES);
+  auto kernel = hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED, VT>;
+  const size_t smem = smem_bytes(t_size, rows_per_cta, WITH_VALUES,
+                                 sizeof(ValT<VT>));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -492,20 +599,20 @@ int launch(const int* rows, const int* count, const int* a_rpt,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool WITH_VALUES, bool ORDERED = false>
+template <bool WITH_VALUES, bool ORDERED = false, int VT = 0>
 int dispatch(int single_access, const int* rows, const int* count,
-             const int* a_rpt, const int* a_col, const float* a_val,
-             const int* b_rpt, const int* b_col, const float* b_val,
+             const int* a_rpt, const int* a_col, const ValT<VT>* a_val,
+             const int* b_rpt, const int* b_col, const ValT<VT>* b_val,
              int t_size, int rows_cap, int rows_per_cta, int threads_per_row,
-             int* nnz_out, int* col_out, float* val_out, int* acc_out,
+             int* nnz_out, int* col_out, ValT<VT>* val_out, int* acc_out,
              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (single_access)
-    return launch<true, WITH_VALUES, ORDERED>(
+    return launch<true, WITH_VALUES, ORDERED, VT>(
         rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
         rows_cap, rows_per_cta, threads_per_row, nnz_out, col_out, val_out,
         acc_out, s);
-  return launch<false, WITH_VALUES, ORDERED>(
+  return launch<false, WITH_VALUES, ORDERED, VT>(
       rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
       rows_cap, rows_per_cta, threads_per_row, nnz_out, col_out, val_out,
       acc_out, s);
@@ -515,8 +622,9 @@ int dispatch(int single_access, const int* rows, const int* count,
 // slot_rows_kernel: numeric_bin (see the header).
 // ---------------------------------------------------------------------------
 
-// A numeric slot: the key in the low word, the float value's bits in the
-// high word.  Empty: key -1, value +0.0f.
+// A numeric slot: the key in the low word, the value's bits in the high
+// word (a 16-bit value in its low half, the rest 0).  Empty: key -1, value
+// +0.0 (all bits 0 in every type).
 constexpr unsigned long long kEmptySlot = 0x00000000ffffffffull;
 
 // Exact floor mod of a key's hash by a t_size that is not a power of two,
@@ -546,8 +654,10 @@ __device__ __forceinline__ int hash_slot(int key, int t_size, bool pow2,
   return r;
 }
 
+// The value goes in rounded to V (exact for a sum already rounded).
+template <int VT = 0>
 __device__ __forceinline__ unsigned long long pack_slot(int key, float val) {
-  return (static_cast<unsigned long long>(__float_as_uint(val)) << 32) |
+  return (static_cast<unsigned long long>(Val<VT>::bits(val)) << 32) |
          static_cast<unsigned>(key);
 }
 
@@ -555,15 +665,18 @@ __device__ __forceinline__ int slot_key(unsigned long long slot) {
   return static_cast<int>(static_cast<unsigned>(slot));
 }
 
+template <int VT = 0>
 __device__ __forceinline__ float slot_val(unsigned long long slot) {
-  return __uint_as_float(static_cast<unsigned>(slot >> 32));
+  return Val<VT>::of_bits(
+      static_cast<typename Val<VT>::Bits>(slot >> 32));
 }
 
 // Inserts one product into a row's 64-bit slots; returns the table
 // accesses it took.  The guard (2 * t_size) counts the slots probed: the
 // CAS races a product loses on its own key do not count, or a row of
-// heavy duplicates could drop a product.
-template <bool SINGLE_ACCESS>
+// heavy duplicates could drop a product.  prod and the sums are V values
+// held in float; each sum is rounded to V as it goes into the slot.
+template <bool SINGLE_ACCESS, int VT = 0>
 __device__ __forceinline__ int insert_slot(unsigned long long* slots, int key,
                                            float prod, int t_size, bool pow2,
                                            HashMod mod, int guard) {
@@ -575,7 +688,7 @@ __device__ __forceinline__ int insert_slot(unsigned long long* slots, int key,
       // One 64-bit CAS: claims the slot if it is as last seen (empty at
       // first) and adds the value in the same transaction.
       const unsigned long long old = atomicCAS(
-          &slots[h], seen, pack_slot(key, slot_val(seen) + prod));
+          &slots[h], seen, pack_slot<VT>(key, slot_val<VT>(seen) + prod));
       txn += 1;
       if (old == seen) break;
       if (slot_key(old) == key) {  // its own key: add to what it holds
@@ -589,7 +702,7 @@ __device__ __forceinline__ int insert_slot(unsigned long long* slots, int key,
       txn += 1;
       if (slot_key(cur) == key || slot_key(cur) == kEmpty) {
         const unsigned long long old = atomicCAS(
-            &slots[h], cur, pack_slot(key, slot_val(cur) + prod));
+            &slots[h], cur, pack_slot<VT>(key, slot_val<VT>(cur) + prod));
         txn += 1;
         if (old == cur) break;
         continue;  // lost a race here: read the slot again
@@ -603,7 +716,10 @@ __device__ __forceinline__ int insert_slot(unsigned long long* slots, int key,
 
 // slot_rows_kernel's table for the ordered value pass: the key in a slot's
 // low word, the value in its high word.
+template <int VT_>
 struct SlotTable {
+  static constexpr int VT = VT_;
+  using Bits = typename Val<VT>::Bits;
   unsigned long long* slots;
   int t_size;
   bool pow2;
@@ -619,32 +735,51 @@ struct SlotTable {
     }
     return -1;
   }
+  // The value's bits sit at byte 4 of the slot.
   __device__ float load(int h) const {
-    return reinterpret_cast<volatile float*>(slots + h)[1];
+    return Val<VT>::of_bits(
+        reinterpret_cast<volatile Bits*>(slots + h)[4 / sizeof(Bits)]);
   }
   __device__ void store(int h, float v) const {
-    reinterpret_cast<volatile float*>(slots + h)[1] = v;
+    reinterpret_cast<volatile Bits*>(slots + h)[4 / sizeof(Bits)] =
+        Val<VT>::bits(v);
   }
 };
 
-// Splits n (key, value) slots into dst_cols / dst_vals: word by word up to
-// the first 16-byte boundary of dst_cols, then four slots a thread with
-// 16-byte stores into both (the two outputs share their alignment), then
-// the tail.
+// The value bits of a slot (Bits: unsigned, or unsigned short for a
+// 16-bit V), as a V table stores them.
+template <class Bits>
+__device__ __forceinline__ Bits slot_bits(unsigned long long slot) {
+  return static_cast<Bits>(slot >> 32);
+}
+
+// Splits n (key, value) slots into dst_cols / dst_vals (V values): element
+// by element up to the first 16-byte boundary of dst_cols, then four slots
+// a thread with a 16-byte store of their keys and one store of their four
+// values (16 or 8 bytes) where dst_vals is aligned for it there, then the
+// tail.
+template <class V>
 __device__ __forceinline__ void dump_slots(int* __restrict__ dst_cols,
-                                           float* __restrict__ dst_vals,
+                                           V* __restrict__ dst_vals,
                                            const unsigned long long* src,
                                            int n) {
-  const bool same = ((reinterpret_cast<uintptr_t>(dst_cols) ^
-                      reinterpret_cast<uintptr_t>(dst_vals)) & 15) == 0;
-  const int head =
-      same ? min(n, static_cast<int>(
-                        (16 - (reinterpret_cast<uintptr_t>(dst_cols) & 15)) &
-                        15) / 4)
-           : n;
+  using Bits = typename std::conditional<sizeof(V) == 4, unsigned,
+                                         unsigned short>::type;
+  Bits* vals = reinterpret_cast<Bits*>(dst_vals);
+  const int head0 = static_cast<int>(
+      (16 - (reinterpret_cast<uintptr_t>(dst_cols) & 15)) & 15) / 4;
+  // Four values from slot head0 on take one aligned store: for float the
+  // two outputs share their alignment, for 16-bit values vals + head0 is
+  // 8-byte aligned.
+  const uintptr_t v = reinterpret_cast<uintptr_t>(dst_vals);
+  const bool same =
+      sizeof(Bits) == 4
+          ? ((reinterpret_cast<uintptr_t>(dst_cols) ^ v) & 15) == 0
+          : ((v + head0 * sizeof(Bits)) & 7) == 0;
+  const int head = same ? min(n, head0) : n;
   for (int i = threadIdx.x; i < head; i += blockDim.x) {
     dst_cols[i] = slot_key(src[i]);
-    dst_vals[i] = slot_val(src[i]);
+    vals[i] = slot_bits<Bits>(src[i]);
   }
   const int quads = (n - head) / 4;
   for (int i = threadIdx.x; i < quads; i += blockDim.x) {
@@ -653,27 +788,34 @@ __device__ __forceinline__ void dump_slots(int* __restrict__ dst_cols,
                              s3 = src[j + 3];
     *reinterpret_cast<int4*>(dst_cols + j) =
         make_int4(slot_key(s0), slot_key(s1), slot_key(s2), slot_key(s3));
-    *reinterpret_cast<float4*>(dst_vals + j) =
-        make_float4(slot_val(s0), slot_val(s1), slot_val(s2), slot_val(s3));
+    const unsigned v0 = slot_bits<Bits>(s0), v1 = slot_bits<Bits>(s1),
+                   v2 = slot_bits<Bits>(s2), v3 = slot_bits<Bits>(s3);
+    if constexpr (sizeof(Bits) == 4) {
+      *reinterpret_cast<uint4*>(vals + j) = make_uint4(v0, v1, v2, v3);
+    } else {
+      *reinterpret_cast<uint2*>(vals + j) =
+          make_uint2(v0 | (v1 << 16), v2 | (v3 << 16));
+    }
   }
   for (int i = head + 4 * quads + threadIdx.x; i < n; i += blockDim.x) {
     dst_cols[i] = slot_key(src[i]);
-    dst_vals[i] = slot_val(src[i]);
+    vals[i] = slot_bits<Bits>(src[i]);
   }
 }
 
 // At most 32 registers a thread, so that two 1024-thread CTAs (the top
 // rungs) fit an SM as with hash_rows_kernel; the ORDERED instance may take
 // 64.
-template <bool SINGLE_ACCESS, bool ORDERED = false>
+template <bool SINGLE_ACCESS, bool ORDERED = false, int VT = 0>
 __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) slot_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
-    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
-    const int* __restrict__ b_col, const float* __restrict__ b_val,
+    const ValT<VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
+    const int* __restrict__ b_col, const ValT<VT>* __restrict__ b_val,
     int t_size, int rows_cap, int rows_per_cta, int threads_per_row,
-    HashMod mod, int* __restrict__ col_out, float* __restrict__ val_out,
+    HashMod mod, int* __restrict__ col_out, ValT<VT>* __restrict__ val_out,
     int* __restrict__ acc_out) {
+  using Ops = Val<VT>;
   const int n_valid = *count;
   const long long first = static_cast<long long>(blockIdx.x) * rows_per_cta;
   // The last CTA may hold fewer rows when rows_per_cta does not divide
@@ -718,7 +860,7 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) slot_rows_kernel(
       float av = 0.0f;
       if (e < a_hi) {
         const int k = a_col[e];
-        av = a_val[e];
+        av = Ops::to_f(a_val[e]);
         b_lo = b_rpt[k];
         b_hi = b_rpt[k + 1];
       }
@@ -728,8 +870,9 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) slot_rows_kernel(
         const int hi = __shfl_sync(0xffffffffu, b_hi, s);
         const float a = __shfl_sync(0xffffffffu, av, s);
         for (int j = lo + lane; j < hi; j += 32) {
-          accesses += insert_slot<SINGLE_ACCESS>(
-              row_slots, b_col[j], ORDERED ? 0.0f : a * b_val[j], t_size,
+          accesses += insert_slot<SINGLE_ACCESS, VT>(
+              row_slots, b_col[j],
+              ORDERED ? 0.0f : Ops::round(a * Ops::to_f(b_val[j])), t_size,
               pow2, mod, guard);
         }
       }
@@ -740,7 +883,7 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) slot_rows_kernel(
     __syncthreads();  // every key of the block's rows is in place
     if (local < rows_here && idx < n_valid && tid < 32) {
       const int r = rows[idx];
-      const SlotTable table{slots + local * t_size, t_size, pow2, mod};
+      const SlotTable<VT> table{slots + local * t_size, t_size, pow2, mod};
       ordered_values(table, a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
                      a_rpt[r + 1], lane);
     }
@@ -755,15 +898,15 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) slot_rows_kernel(
   dump_slots(col_out + base, val_out + base, slots, cta_entries);
 }
 
-template <bool SINGLE_ACCESS, bool ORDERED = false>
+template <bool SINGLE_ACCESS, bool ORDERED = false, int VT = 0>
 int launch_slot(HashMod mod, const int* rows, const int* count,
-                const int* a_rpt, const int* a_col, const float* a_val,
-                const int* b_rpt, const int* b_col, const float* b_val,
+                const int* a_rpt, const int* a_col, const ValT<VT>* a_val,
+                const int* b_rpt, const int* b_col, const ValT<VT>* b_val,
                 int t_size, int rows_cap, int rows_per_cta,
-                int threads_per_row, int* col_out, float* val_out,
+                int threads_per_row, int* col_out, ValT<VT>* val_out,
                 int* acc_out, cudaStream_t stream) {
   if (rows_cap == 0) return 0;
-  auto kernel = slot_rows_kernel<SINGLE_ACCESS, ORDERED>;
+  auto kernel = slot_rows_kernel<SINGLE_ACCESS, ORDERED, VT>;
   const size_t smem = smem_bytes(t_size, rows_per_cta, true);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -778,21 +921,22 @@ int launch_slot(HashMod mod, const int* rows, const int* count,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool ORDERED = false>
+template <bool ORDERED = false, int VT = 0>
 int slot_dispatch(HashMod mod, int single_access, const int* rows,
                   const int* count, const int* a_rpt, const int* a_col,
-                  const float* a_val, const int* b_rpt, const int* b_col,
-                  const float* b_val, int t_size, int rows_cap,
+                  const ValT<VT>* a_val, const int* b_rpt, const int* b_col,
+                  const ValT<VT>* b_val, int t_size, int rows_cap,
                   int rows_per_cta, int threads_per_row, int* col_out,
-                  float* val_out, int* acc_out, void* stream) {
+                  ValT<VT>* val_out, int* acc_out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (single_access)
-    return launch_slot<true, ORDERED>(mod, rows, count, a_rpt, a_col, a_val, b_rpt,
-                             b_col, b_val, t_size, rows_cap, rows_per_cta,
-                             threads_per_row, col_out, val_out, acc_out, s);
-  return launch_slot<false, ORDERED>(mod, rows, count, a_rpt, a_col, a_val, b_rpt,
-                            b_col, b_val, t_size, rows_cap, rows_per_cta,
-                            threads_per_row, col_out, val_out, acc_out, s);
+    return launch_slot<true, ORDERED, VT>(
+        mod, rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
+        rows_cap, rows_per_cta, threads_per_row, col_out, val_out, acc_out,
+        s);
+  return launch_slot<false, ORDERED, VT>(
+      mod, rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
+      rows_cap, rows_per_cta, threads_per_row, col_out, val_out, acc_out, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -817,14 +961,17 @@ __device__ __forceinline__ void fill_words(int* dst, int value, int n) {
 // then built there with `insert`, so nothing is dumped.  val_tabs ==
 // nullptr with WITH_VALUES false (symbolic_bin: the keys go to a scratch
 // table the wrapper allocates); nnz_out may be nullptr (numeric_bin).
-template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
+          int VT = 0>
 __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) global_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
-    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
-    const int* __restrict__ b_col, const float* __restrict__ b_val,
+    const ValT<VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
+    const int* __restrict__ b_col, const ValT<VT>* __restrict__ b_val,
     int t_size, int* __restrict__ nnz_out, int* __restrict__ col_tabs,
-    float* __restrict__ val_tabs, int* __restrict__ acc_out) {
+    ValT<VT>* __restrict__ val_tabs, int* __restrict__ acc_out) {
+  using V = ValT<VT>;
+  using Ops = Val<VT>;
   const long long row = blockIdx.x;
   if (row >= *count) {
     // Padding row: counts only; its table stays unwritten.
@@ -837,9 +984,17 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) global_rows_kernel(
 
   __shared__ int row_nnz, row_acc;
   int* table_keys = col_tabs + row * t_size;
-  float* table_vals = WITH_VALUES ? val_tabs + row * t_size : nullptr;
+  V* table_vals = WITH_VALUES ? val_tabs + row * t_size : nullptr;
   fill_words(table_keys, kEmpty, t_size);
-  if (WITH_VALUES) fill_words(reinterpret_cast<int*>(table_vals), 0, t_size);
+  if (WITH_VALUES) {
+    if (sizeof(V) == 4 || (t_size & 1) == 0) {  // +0.0 is all bits 0
+      fill_words(reinterpret_cast<int*>(table_vals), 0,
+                 t_size * static_cast<int>(sizeof(V)) / 4);
+    } else {
+      for (int i = threadIdx.x; i < t_size; i += blockDim.x)
+        table_vals[i] = Ops::from_f(0.0f);
+    }
+  }
   if (threadIdx.x == 0) {
     row_nnz = 0;
     row_acc = 0;
@@ -863,7 +1018,7 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) global_rows_kernel(
     float av = 0.0f;
     if (e < a_hi) {
       const int k = a_col[e];
-      if (WITH_VALUES) av = a_val[e];
+      if (WITH_VALUES) av = Ops::to_f(a_val[e]);
       b_lo = b_rpt[k];
       b_hi = b_rpt[k + 1];
     }
@@ -873,7 +1028,8 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) global_rows_kernel(
       const int hi = __shfl_sync(0xffffffffu, b_hi, s);
       const float a = WITH_VALUES ? __shfl_sync(0xffffffffu, av, s) : 0.0f;
       for (int j = lo + lane; j < hi; j += 32) {
-        const float prod = WITH_VALUES ? a * b_val[j] : 0.0f;
+        const V prod =
+            Ops::from_f(WITH_VALUES ? a * Ops::to_f(b_val[j]) : 0.0f);
         accesses += insert<SINGLE_ACCESS, WITH_VALUES && !ORDERED>(
             table_keys, table_vals, b_col[j], prod, t_size, pow2, guard,
             &inserted);
@@ -884,7 +1040,7 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) global_rows_kernel(
   if (accesses) atomicAdd(&row_acc, accesses);
   __syncthreads();  // (ORDERED: every key of the row is in place)
   if (ORDERED && warp == 0) {
-    const KeyValTable table{table_keys, table_vals, t_size, pow2};
+    const KeyValTable<VT> table{table_keys, table_vals, t_size, pow2};
     ordered_values(table, a_col, a_val, b_rpt, b_col, b_val, a_lo, a_hi,
                    lane);
   }
@@ -894,14 +1050,15 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) global_rows_kernel(
   }
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
+          int VT = 0>
 int launch_global(const int* rows, const int* count, const int* a_rpt,
-                  const int* a_col, const float* a_val, const int* b_rpt,
-                  const int* b_col, const float* b_val, int t_size,
+                  const int* a_col, const ValT<VT>* a_val, const int* b_rpt,
+                  const int* b_col, const ValT<VT>* b_val, int t_size,
                   int rows_cap, int threads, int* nnz_out, int* col_tabs,
-                  float* val_tabs, int* acc_out, cudaStream_t stream) {
+                  ValT<VT>* val_tabs, int* acc_out, cudaStream_t stream) {
   if (rows_cap == 0) return 0;
-  global_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED>
+  global_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED, VT>
       <<<rows_cap, threads, 0, stream>>>(rows, count, a_rpt, a_col, a_val,
                                          b_rpt, b_col, b_val, t_size,
                                          nnz_out, col_tabs, val_tabs,
@@ -1010,7 +1167,7 @@ __device__ __forceinline__ int block_threads_now() {
 // insert's single access and check-then-CAS.  Accesses are counted by
 // insert_slot's rules in both, and the guard (2 * t_size) counts slots.
 // Returns the accesses; sets *inserted when it claimed an empty slot.
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, int VT = 0>
 __device__ __forceinline__ int cluster_insert(uint32_t table, int rank_shift,
                                               int key, float prod,
                                               int t_size, int* inserted) {
@@ -1025,8 +1182,8 @@ __device__ __forceinline__ int cluster_insert(uint32_t table, int rank_shift,
                  << kSlotShift),
         static_cast<uint32_t>(h >> rank_shift));
     if (WITH_VALUES && SINGLE_ACCESS) {
-      const unsigned long long old =
-          dsmem_cas64(at, seen, pack_slot(key, slot_val(seen) + prod));
+      const unsigned long long old = dsmem_cas64(
+          at, seen, pack_slot<VT>(key, slot_val<VT>(seen) + prod));
       txn += 1;
       if (old == seen) {
         if (slot_key(seen) == kEmpty) *inserted += 1;
@@ -1041,8 +1198,8 @@ __device__ __forceinline__ int cluster_insert(uint32_t table, int rank_shift,
       const unsigned long long cur = dsmem_load64(at);
       txn += 1;
       if (slot_key(cur) == key || slot_key(cur) == kEmpty) {
-        const unsigned long long old =
-            dsmem_cas64(at, cur, pack_slot(key, slot_val(cur) + prod));
+        const unsigned long long old = dsmem_cas64(
+            at, cur, pack_slot<VT>(key, slot_val<VT>(cur) + prod));
         txn += 1;
         if (old == cur) {
           if (slot_key(cur) == kEmpty) *inserted += 1;
@@ -1111,7 +1268,10 @@ __device__ __forceinline__ int* row_counters() {
 // is read from its block through distributed shared memory; find returns
 // the slot's offset in this block's slice when this block holds it, else
 // -1 (the block that holds it adds its products).
+template <int VT_>
 struct ClusterTable {
+  static constexpr int VT = VT_;
+  using Bits = typename Val<VT>::Bits;
   uint32_t table;  // this block's slice, a shared::cta address
   int rank_shift;  // log2 of the slots a block
   int t_size;
@@ -1131,13 +1291,14 @@ struct ClusterTable {
     }
     return -1;
   }
+  // The value's bits sit at byte 4 of the 8-byte slot.
   __device__ float load(int i) const {
-    return reinterpret_cast<volatile float*>(cluster_smem +
-                                             kSliceOffset)[2 * i + 1];
+    return Val<VT>::of_bits(reinterpret_cast<volatile Bits*>(
+        cluster_smem + kSliceOffset + 8 * i + 4)[0]);
   }
   __device__ void store(int i, float v) const {
-    reinterpret_cast<volatile float*>(cluster_smem + kSliceOffset)[2 * i + 1] =
-        v;
+    reinterpret_cast<volatile Bits*>(cluster_smem + kSliceOffset + 8 * i +
+                                     4)[0] = Val<VT>::bits(v);
   }
 };
 
@@ -1149,9 +1310,9 @@ struct ClusterTable {
 // index and the block's size come from their special registers here, so
 // that nothing of this function is held across the insert loop that
 // brackets its second call.
-template <bool WITH_VALUES>
+template <bool WITH_VALUES, int VT = 0>
 __device__ __forceinline__ int load_entries(const int* __restrict__ a_col,
-                                            const float* __restrict__ a_val,
+                                            const ValT<VT>* __restrict__ a_val,
                                             const int* __restrict__ b_rpt,
                                             int first, int n) {
   const int i = thread_index_now();
@@ -1163,7 +1324,7 @@ __device__ __forceinline__ int load_entries(const int* __restrict__ a_col,
     const int lo = b_rpt[k], hi = b_rpt[k + 1];
     entry_lo()[i] = lo;
     entry_hi()[i] = hi;
-    if (WITH_VALUES) entry_av()[i] = a_val[first + i];
+    if (WITH_VALUES) entry_av()[i] = Val<VT>::to_f(a_val[first + i]);
     chunks = (hi - lo + 31) / 32;
   }
   int incl = chunks;
@@ -1210,14 +1371,15 @@ __device__ __forceinline__ int entry_of_chunk(const int* chunk, int n, int g,
 // nnz_out may be nullptr (numeric_bin); without values nothing is dumped
 // (symbolic_bin), with values col_tabs / val_tabs get the table at
 // row * t_size.
-template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
+          int VT = 0>
 __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) cluster_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
-    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
-    const int* __restrict__ b_col, const float* __restrict__ b_val,
+    const ValT<VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
+    const int* __restrict__ b_col, const ValT<VT>* __restrict__ b_val,
     int t_size, int* __restrict__ nnz_out, int* __restrict__ col_tabs,
-    float* __restrict__ val_tabs, int* __restrict__ acc_out) {
+    ValT<VT>* __restrict__ val_tabs, int* __restrict__ acc_out) {
   cg::cluster_group cluster = cg::this_cluster();
   const long long first_row = block_index_now() / cluster_blocks_now();
   if (first_row >= *count) {
@@ -1248,7 +1410,7 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) cluster_rows_kernel(
   const int a_hi = a_rpt[r + 1];
   int first = a_rpt[r];
   int n = min(a_hi - first, static_cast<int>(blockDim.x));
-  int chunks = load_entries<WITH_VALUES>(a_col, a_val, b_rpt, first, n);
+  int chunks = load_entries<WITH_VALUES, VT>(a_col, a_val, b_rpt, first, n);
   // Every slice is filled, and every block of the cluster is running,
   // before the first remote access; the entry list is in place.
   cluster.sync();
@@ -1266,10 +1428,12 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) cluster_rows_kernel(
       const int e = entry_of_chunk(entry_chunk(), n, g, lane);
       const int j = entry_lo()[e] + (g - entry_chunk()[e]) * 32 + lane;
       if (j < entry_hi()[e]) {
-        accesses += cluster_insert<SINGLE_ACCESS, WITH_VALUES>(
+        accesses += cluster_insert<SINGLE_ACCESS, WITH_VALUES, VT>(
             table, rank_shift, b_col[j],
-            WITH_VALUES && !ORDERED ? entry_av()[e] * b_val[j] : 0.0f, t_size,
-            &inserted);
+            WITH_VALUES && !ORDERED
+                ? Val<VT>::round(entry_av()[e] * Val<VT>::to_f(b_val[j]))
+                : 0.0f,
+            t_size, &inserted);
       }
     }
     first += n;
@@ -1278,7 +1442,7 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) cluster_rows_kernel(
     // block's list only, so a block barrier does.
     __syncthreads();
     n = min(a_hi - first, static_cast<int>(blockDim.x));
-    chunks = load_entries<WITH_VALUES>(a_col, a_val, b_rpt, first, n);
+    chunks = load_entries<WITH_VALUES, VT>(a_col, a_val, b_rpt, first, n);
     __syncthreads();
   }
   inserted = __reduce_add_sync(0xffffffffu, inserted);
@@ -1303,7 +1467,7 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) cluster_rows_kernel(
     // barrier after it keeps every block (and its keys) until all are done.
     if (threadIdx.x < 32) {
       const int r = rows[row];
-      const ClusterTable table_now{
+      const ClusterTable<VT> table_now{
           static_cast<uint32_t>(
               __cvta_generic_to_shared(cluster_smem + kSliceOffset)),
           __ffs(slice_now) - 1, t_size, static_cast<int>(rank)};
@@ -1332,10 +1496,10 @@ size_t cluster_smem_bytes(int t_size, int cluster, bool with_values) {
          static_cast<size_t>(t_size / cluster) * (with_values ? 8 : 4);
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, int VT = 0>
 const void* cluster_rows_fn() {
   return reinterpret_cast<const void*>(
-      cluster_rows_kernel<SINGLE_ACCESS, WITH_VALUES>);
+      cluster_rows_kernel<SINGLE_ACCESS, WITH_VALUES, false, VT>);
 }
 
 // A cluster launch of `threads` threads a block, `cluster` blocks a row:
@@ -1369,17 +1533,18 @@ bool cluster_shape_ok(int t_size, int cluster, int threads) {
          threads <= kEntryWindow;
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
+          int VT = 0>
 int launch_cluster(const int* rows, const int* count, const int* a_rpt,
-                   const int* a_col, const float* a_val, const int* b_rpt,
-                   const int* b_col, const float* b_val, int t_size,
+                   const int* a_col, const ValT<VT>* a_val, const int* b_rpt,
+                   const int* b_col, const ValT<VT>* b_val, int t_size,
                    int rows_cap, int cluster, int threads, int* nnz_out,
-                   int* col_tabs, float* val_tabs, int* acc_out,
+                   int* col_tabs, ValT<VT>* val_tabs, int* acc_out,
                    cudaStream_t stream) {
   if (!cluster_shape_ok(t_size, cluster, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows_cap == 0) return 0;
-  auto kernel = cluster_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED>;
+  auto kernel = cluster_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED, VT>;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t config = cluster_config(
       t_size, rows_cap, cluster, threads, WITH_VALUES, &attr, stream);
@@ -1394,21 +1559,171 @@ int launch_cluster(const int* rows, const int* count, const int* a_rpt,
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, int VT = 0>
 const void* global_rows_fn() {
   return reinterpret_cast<const void*>(
-      global_rows_kernel<SINGLE_ACCESS, WITH_VALUES>);
+      global_rows_kernel<SINGLE_ACCESS, WITH_VALUES, false, VT>);
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES>
+template <bool SINGLE_ACCESS, bool WITH_VALUES, int VT = 0>
 const void* hash_rows_fn() {
   return reinterpret_cast<const void*>(
-      hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES>);
+      hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES, false, VT>);
 }
 
-template <bool SINGLE_ACCESS>
+template <bool SINGLE_ACCESS, int VT = 0>
 const void* slot_rows_fn() {
-  return reinterpret_cast<const void*>(slot_rows_kernel<SINGLE_ACCESS>);
+  return reinterpret_cast<const void*>(
+      slot_rows_kernel<SINGLE_ACCESS, false, VT>);
+}
+
+// The bodies of the entry points below, by value type VT.  The keys-only
+// launches (symbolic_bin) exist for VT = 0 only: a 16-bit entry point asked
+// for one returns cudaErrorInvalidValue.
+
+// kernel: 0 symbolic_bin, 1 numeric_bin, 2 fused_bin.
+template <int VT>
+int ctas_per_sm(int kernel, int single_access, int t_size, int rows_per_cta,
+                int threads_per_row, int* out) {
+  if (VT != 0 && kernel == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn =
+      kernel == 0 ? (single_access ? hash_rows_fn<true, false>()
+                                   : hash_rows_fn<false, false>())
+      : kernel == 1 ? (single_access ? slot_rows_fn<true, VT>()
+                                     : slot_rows_fn<false, VT>())
+                    : (single_access ? hash_rows_fn<true, true, VT>()
+                                     : hash_rows_fn<false, true, VT>());
+  const size_t smem =
+      smem_bytes(t_size, rows_per_cta, kernel != 0,
+                 kernel == 2 ? static_cast<int>(sizeof(ValT<VT>)) : 4);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fn, rows_per_cta * threads_per_row, smem));
+}
+
+template <int VT>
+int global_ctas_per_sm(int with_values, int single_access, int threads,
+                       int* out) {
+  if (VT != 0 && !with_values) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn =
+      with_values ? (single_access ? global_rows_fn<true, true, VT>()
+                                   : global_rows_fn<false, true, VT>())
+                  : (single_access ? global_rows_fn<true, false>()
+                                   : global_rows_fn<false, false>());
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads, 0));
+}
+
+template <int VT>
+int cluster_occupancy(int with_values, int single_access, int t_size,
+                      int cluster, int threads, int* out) {
+  if (!cluster_shape_ok(t_size, cluster, threads) ||
+      (VT != 0 && !with_values))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn =
+      with_values ? (single_access ? cluster_rows_fn<true, true, VT>()
+                                   : cluster_rows_fn<false, true, VT>())
+                  : (single_access ? cluster_rows_fn<true, false>()
+                                   : cluster_rows_fn<false, false>());
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cluster_config(
+      t_size, 1, cluster, threads, with_values != 0, &attr, nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(config.dynamicSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, fn, &config));
+}
+
+template <int VT, bool ORDERED>
+int bin_cluster(int with_values, int single_access, const int* rows,
+                const int* count, const int* a_rpt, const int* a_col,
+                const void* a_val, const int* b_rpt, const int* b_col,
+                const void* b_val, int t_size, int rows_cap, int cluster,
+                int threads, int* nnz_out, int* col_tabs, void* val_tabs,
+                int* acc_out, void* stream) {
+  using V = ValT<VT>;
+  auto s = static_cast<cudaStream_t>(stream);
+  const V* av = static_cast<const V*>(a_val);
+  const V* bv = static_cast<const V*>(b_val);
+  V* vt = static_cast<V*>(val_tabs);
+  if (!with_values) {
+    if constexpr (VT != 0 || ORDERED) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      auto fn = single_access ? &launch_cluster<true, false>
+                              : &launch_cluster<false, false>;
+      return fn(rows, count, a_rpt, a_col, av, b_rpt, b_col, bv, t_size,
+                rows_cap, cluster, threads, nnz_out, col_tabs, vt, acc_out,
+                s);
+    }
+  }
+  if (ORDERED && !val_tabs) return static_cast<int>(cudaErrorInvalidValue);
+  auto fn = single_access ? &launch_cluster<true, true, ORDERED, VT>
+                          : &launch_cluster<false, true, ORDERED, VT>;
+  return fn(rows, count, a_rpt, a_col, av, b_rpt, b_col, bv, t_size,
+            rows_cap, cluster, threads, nnz_out, col_tabs, vt, acc_out, s);
+}
+
+template <int VT, bool ORDERED>
+int bin_global(int single_access, const int* rows, const int* count,
+               const int* a_rpt, const int* a_col, const void* a_val,
+               const int* b_rpt, const int* b_col, const void* b_val,
+               int t_size, int rows_cap, int threads, int* nnz_out,
+               int* col_tabs, void* val_tabs, int* acc_out, void* stream) {
+  using V = ValT<VT>;
+  auto s = static_cast<cudaStream_t>(stream);
+  const V* av = static_cast<const V*>(a_val);
+  const V* bv = static_cast<const V*>(b_val);
+  V* vt = static_cast<V*>(val_tabs);
+  if (!val_tabs) {
+    if constexpr (VT != 0 || ORDERED) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      auto fn = single_access ? &launch_global<true, false>
+                              : &launch_global<false, false>;
+      return fn(rows, count, a_rpt, a_col, av, b_rpt, b_col, bv, t_size,
+                rows_cap, threads, nnz_out, col_tabs, vt, acc_out, s);
+    }
+  }
+  auto fn = single_access ? &launch_global<true, true, ORDERED, VT>
+                          : &launch_global<false, true, ORDERED, VT>;
+  return fn(rows, count, a_rpt, a_col, av, b_rpt, b_col, bv, t_size,
+            rows_cap, threads, nnz_out, col_tabs, vt, acc_out, s);
+}
+
+template <int VT, bool ORDERED>
+int numeric(const int* rows, const int* count, const int* a_rpt,
+            const int* a_col, const void* a_val, const int* b_rpt,
+            const int* b_col, const void* b_val, int t_size, int rows_cap,
+            int rows_per_cta, int threads_per_row, int single_access,
+            unsigned hash_magic, int hash_shift, unsigned hash_wrap,
+            int* col_out, void* val_out, int* acc_out, void* stream) {
+  using V = ValT<VT>;
+  const HashMod mod{hash_magic, hash_shift, hash_wrap};
+  return slot_dispatch<ORDERED, VT>(
+      mod, single_access, rows, count, a_rpt, a_col,
+      static_cast<const V*>(a_val), b_rpt, b_col,
+      static_cast<const V*>(b_val), t_size, rows_cap, rows_per_cta,
+      threads_per_row, col_out, static_cast<V*>(val_out), acc_out, stream);
+}
+
+template <int VT, bool ORDERED>
+int fused(const int* rows, const int* count, const int* a_rpt,
+          const int* a_col, const void* a_val, const int* b_rpt,
+          const int* b_col, const void* b_val, int t_size, int rows_cap,
+          int rows_per_cta, int threads_per_row, int single_access,
+          int* nnz_out, int* col_out, void* val_out, int* acc_out,
+          void* stream) {
+  using V = ValT<VT>;
+  return dispatch<true, ORDERED, VT>(
+      single_access, rows, count, a_rpt, a_col, static_cast<const V*>(a_val),
+      b_rpt, b_col, static_cast<const V*>(b_val), t_size, rows_cap,
+      rows_per_cta, threads_per_row, nnz_out, col_out,
+      static_cast<V*>(val_out), acc_out, stream);
 }
 
 }  // namespace
@@ -1425,135 +1740,6 @@ int hash_max_smem_bytes(int* out) {
   return static_cast<int>(err);
 }
 
-// CTAs of one rung's launch that fit on one SM at once (the runtime's
-// occupancy calculator: threads, registers and shared memory together).
-// kernel: 0 symbolic_bin, 1 numeric_bin, 2 fused_bin.
-int hash_ctas_per_sm(int kernel, int single_access, int t_size,
-                     int rows_per_cta, int threads_per_row, int* out) {
-  const void* fn =
-      kernel == 0 ? (single_access ? hash_rows_fn<true, false>()
-                                   : hash_rows_fn<false, false>())
-      : kernel == 1 ? (single_access ? slot_rows_fn<true>()
-                                     : slot_rows_fn<false>())
-                    : (single_access ? hash_rows_fn<true, true>()
-                                     : hash_rows_fn<false, true>());
-  const size_t smem = smem_bytes(t_size, rows_per_cta, kernel != 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, fn, rows_per_cta * threads_per_row, smem));
-}
-
-// CTAs of one global_rows_kernel launch that fit on one SM at once.
-int hash_global_ctas_per_sm(int with_values, int single_access, int threads,
-                            int* out) {
-  const void* fn =
-      with_values ? (single_access ? global_rows_fn<true, true>()
-                                   : global_rows_fn<false, true>())
-                  : (single_access ? global_rows_fn<true, false>()
-                                   : global_rows_fn<false, false>());
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads, 0));
-}
-
-// Clusters of one cluster_rows_kernel launch (`cluster` blocks of
-// `threads` threads a row) that can be resident on the card at once.
-int hash_cluster_occupancy(int with_values, int single_access, int t_size,
-                           int cluster, int threads, int* out) {
-  if (!cluster_shape_ok(t_size, cluster, threads))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn =
-      with_values ? (single_access ? cluster_rows_fn<true, true>()
-                                   : cluster_rows_fn<false, true>())
-                  : (single_access ? cluster_rows_fn<true, false>()
-                                   : cluster_rows_fn<false, false>());
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t config = cluster_config(
-      t_size, 1, cluster, threads, with_values != 0, &attr, nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(config.dynamicSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, fn, &config));
-}
-
-// The three kernels' rungs whose table fits a cluster's shared memory: one
-// row a cluster of `cluster` blocks of `threads` threads (t_size a power of
-// two, cluster a power of two up to 8).  with_values == 0 builds keys only
-// and dumps nothing (symbolic_bin: col_tabs and val_tabs nullptr);
-// nnz_out == nullptr skips the nnz (numeric_bin).
-int hash_bin_cluster(int with_values, int single_access, const int* rows,
-                     const int* count, const int* a_rpt, const int* a_col,
-                     const float* a_val, const int* b_rpt, const int* b_col,
-                     const float* b_val, int t_size, int rows_cap,
-                     int cluster, int threads, int* nnz_out, int* col_tabs,
-                     float* val_tabs, int* acc_out, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto fn = with_values ? (single_access ? &launch_cluster<true, true>
-                                         : &launch_cluster<false, true>)
-                        : (single_access ? &launch_cluster<true, false>
-                                         : &launch_cluster<false, false>);
-  return fn(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
-            rows_cap, cluster, threads, nnz_out, col_tabs, val_tabs, acc_out,
-            s);
-}
-
-// The three kernels' tables above shared memory (the vmem_extended rungs):
-// one row a CTA of `threads` threads, its table built in col_tabs /
-// val_tabs (rows_cap x t_size).  val_tabs == nullptr builds keys only
-// (symbolic_bin, col_tabs then a scratch table); nnz_out == nullptr skips
-// the nnz (numeric_bin).
-// The fixed-order instance of hash_bin_cluster (with values only).
-int hash_bin_cluster_ordered(int with_values, int single_access,
-                             const int* rows, const int* count,
-                             const int* a_rpt, const int* a_col,
-                             const float* a_val, const int* b_rpt,
-                             const int* b_col, const float* b_val, int t_size,
-                             int rows_cap, int cluster, int threads,
-                             int* nnz_out, int* col_tabs, float* val_tabs,
-                             int* acc_out, void* stream) {
-  if (!with_values || !val_tabs) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto fn = single_access ? &launch_cluster<true, true, true>
-                          : &launch_cluster<false, true, true>;
-  return fn(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
-            rows_cap, cluster, threads, nnz_out, col_tabs, val_tabs, acc_out,
-            s);
-}
-
-int hash_bin_global(int single_access, const int* rows, const int* count,
-                    const int* a_rpt, const int* a_col, const float* a_val,
-                    const int* b_rpt, const int* b_col, const float* b_val,
-                    int t_size, int rows_cap, int threads, int* nnz_out,
-                    int* col_tabs, float* val_tabs, int* acc_out,
-                    void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto fn = val_tabs ? (single_access ? &launch_global<true, true>
-                                      : &launch_global<false, true>)
-                     : (single_access ? &launch_global<true, false>
-                                      : &launch_global<false, false>);
-  return fn(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
-            rows_cap, threads, nnz_out, col_tabs, val_tabs, acc_out, s);
-}
-
-// The fixed-order instance of hash_bin_global (with values only).
-int hash_bin_global_ordered(int single_access, const int* rows,
-                            const int* count, const int* a_rpt,
-                            const int* a_col, const float* a_val,
-                            const int* b_rpt, const int* b_col,
-                            const float* b_val, int t_size, int rows_cap,
-                            int threads, int* nnz_out, int* col_tabs,
-                            float* val_tabs, int* acc_out, void* stream) {
-  if (!val_tabs) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto fn = single_access ? &launch_global<true, true, true>
-                          : &launch_global<false, true, true>;
-  return fn(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
-            rows_cap, threads, nnz_out, col_tabs, val_tabs, acc_out, s);
-}
-
 int symbolic_bin(const int* rows, const int* count, const int* a_rpt,
                  const int* a_col, const int* b_rpt, const int* b_col,
                  int t_size, int rows_cap, int rows_per_cta,
@@ -1565,58 +1751,141 @@ int symbolic_bin(const int* rows, const int* count, const int* a_rpt,
                          nullptr, acc_out, stream);
 }
 
-int numeric_bin(const int* rows, const int* count, const int* a_rpt,
-                const int* a_col, const float* a_val, const int* b_rpt,
-                const int* b_col, const float* b_val, int t_size,
-                int rows_cap, int rows_per_cta, int threads_per_row,
-                int single_access, unsigned hash_magic, int hash_shift,
-                unsigned hash_wrap, int* col_out, float* val_out,
-                int* acc_out, void* stream) {
-  const HashMod mod{hash_magic, hash_shift, hash_wrap};
-  return slot_dispatch(mod, single_access, rows, count, a_rpt, a_col, a_val,
-                       b_rpt, b_col, b_val, t_size, rows_cap, rows_per_cta,
-                       threads_per_row, col_out, val_out, acc_out, stream);
-}
+// The entry points of one value type: float (no suffix), bfloat16 (_bf16)
+// and float16 (_f16); values are passed as void pointers to that type.
+//
+// hash_ctas_per_sm: CTAs of one rung's launch that fit on one SM at once
+//   (the runtime's occupancy calculator: threads, registers and shared
+//   memory together); kernel 0 symbolic_bin, 1 numeric_bin, 2 fused_bin.
+// hash_global_ctas_per_sm: the same for one global_rows_kernel launch.
+// hash_cluster_occupancy: clusters of one cluster_rows_kernel launch
+//   (`cluster` blocks of `threads` threads a row) resident at once.
+// hash_bin_cluster[_ordered]: the three kernels' rungs whose table fits a
+//   cluster's shared memory: one row a cluster of `cluster` blocks of
+//   `threads` threads (t_size a power of two, cluster a power of two up to
+//   8).  with_values == 0 builds keys only and dumps nothing (symbolic_bin:
+//   col_tabs and val_tabs nullptr); nnz_out == nullptr skips the nnz
+//   (numeric_bin).  The fixed-order instance takes values only.
+// hash_bin_global[_ordered]: the tables above shared memory (the
+//   vmem_extended rungs): one row a CTA of `threads` threads, its table
+//   built in col_tabs / val_tabs (rows_cap x t_size).  val_tabs == nullptr
+//   builds keys only (symbolic_bin, col_tabs then a scratch table);
+//   nnz_out == nullptr skips the nnz (numeric_bin).
+// numeric_bin[_ordered], fused_bin[_ordered]: the shared-memory rungs.
+#define HASH_VALUE_ENTRIES(SUFFIX, VT)                                       \
+  int hash_ctas_per_sm##SUFFIX(int kernel, int single_access, int t_size,    \
+                               int rows_per_cta, int threads_per_row,        \
+                               int* out) {                                   \
+    return ctas_per_sm<VT>(kernel, single_access, t_size, rows_per_cta,      \
+                           threads_per_row, out);                            \
+  }                                                                          \
+  int hash_global_ctas_per_sm##SUFFIX(int with_values, int single_access,    \
+                                      int threads, int* out) {               \
+    return global_ctas_per_sm<VT>(with_values, single_access, threads, out); \
+  }                                                                          \
+  int hash_cluster_occupancy##SUFFIX(int with_values, int single_access,     \
+                                     int t_size, int cluster, int threads,   \
+                                     int* out) {                             \
+    return cluster_occupancy<VT>(with_values, single_access, t_size,         \
+                                 cluster, threads, out);                     \
+  }                                                                          \
+  int hash_bin_cluster##SUFFIX(                                              \
+      int with_values, int single_access, const int* rows, const int* count, \
+      const int* a_rpt, const int* a_col, const void* a_val,                 \
+      const int* b_rpt, const int* b_col, const void* b_val, int t_size,     \
+      int rows_cap, int cluster, int threads, int* nnz_out, int* col_tabs,   \
+      void* val_tabs, int* acc_out, void* stream) {                          \
+    return bin_cluster<VT, false>(                                           \
+        with_values, single_access, rows, count, a_rpt, a_col, a_val, b_rpt, \
+        b_col, b_val, t_size, rows_cap, cluster, threads, nnz_out, col_tabs, \
+        val_tabs, acc_out, stream);                                          \
+  }                                                                          \
+  int hash_bin_cluster_ordered##SUFFIX(                                      \
+      int with_values, int single_access, const int* rows, const int* count, \
+      const int* a_rpt, const int* a_col, const void* a_val,                 \
+      const int* b_rpt, const int* b_col, const void* b_val, int t_size,     \
+      int rows_cap, int cluster, int threads, int* nnz_out, int* col_tabs,   \
+      void* val_tabs, int* acc_out, void* stream) {                          \
+    return bin_cluster<VT, true>(                                            \
+        with_values, single_access, rows, count, a_rpt, a_col, a_val, b_rpt, \
+        b_col, b_val, t_size, rows_cap, cluster, threads, nnz_out, col_tabs, \
+        val_tabs, acc_out, stream);                                          \
+  }                                                                          \
+  int hash_bin_global##SUFFIX(                                               \
+      int single_access, const int* rows, const int* count,                  \
+      const int* a_rpt, const int* a_col, const void* a_val,                 \
+      const int* b_rpt, const int* b_col, const void* b_val, int t_size,     \
+      int rows_cap, int threads, int* nnz_out, int* col_tabs,                \
+      void* val_tabs, int* acc_out, void* stream) {                          \
+    return bin_global<VT, false>(single_access, rows, count, a_rpt, a_col,   \
+                                 a_val, b_rpt, b_col, b_val, t_size,         \
+                                 rows_cap, threads, nnz_out, col_tabs,       \
+                                 val_tabs, acc_out, stream);                 \
+  }                                                                          \
+  int hash_bin_global_ordered##SUFFIX(                                       \
+      int single_access, const int* rows, const int* count,                  \
+      const int* a_rpt, const int* a_col, const void* a_val,                 \
+      const int* b_rpt, const int* b_col, const void* b_val, int t_size,     \
+      int rows_cap, int threads, int* nnz_out, int* col_tabs,                \
+      void* val_tabs, int* acc_out, void* stream) {                          \
+    return bin_global<VT, true>(single_access, rows, count, a_rpt, a_col,    \
+                                a_val, b_rpt, b_col, b_val, t_size,          \
+                                rows_cap, threads, nnz_out, col_tabs,        \
+                                val_tabs, acc_out, stream);                  \
+  }                                                                          \
+  int numeric_bin##SUFFIX(                                                   \
+      const int* rows, const int* count, const int* a_rpt, const int* a_col, \
+      const void* a_val, const int* b_rpt, const int* b_col,                 \
+      const void* b_val, int t_size, int rows_cap, int rows_per_cta,         \
+      int threads_per_row, int single_access, unsigned hash_magic,           \
+      int hash_shift, unsigned hash_wrap, int* col_out, void* val_out,       \
+      int* acc_out, void* stream) {                                          \
+    return numeric<VT, false>(rows, count, a_rpt, a_col, a_val, b_rpt,       \
+                              b_col, b_val, t_size, rows_cap, rows_per_cta,  \
+                              threads_per_row, single_access, hash_magic,    \
+                              hash_shift, hash_wrap, col_out, val_out,       \
+                              acc_out, stream);                              \
+  }                                                                          \
+  int numeric_bin_ordered##SUFFIX(                                           \
+      const int* rows, const int* count, const int* a_rpt, const int* a_col, \
+      const void* a_val, const int* b_rpt, const int* b_col,                 \
+      const void* b_val, int t_size, int rows_cap, int rows_per_cta,         \
+      int threads_per_row, int single_access, unsigned hash_magic,           \
+      int hash_shift, unsigned hash_wrap, int* col_out, void* val_out,       \
+      int* acc_out, void* stream) {                                          \
+    return numeric<VT, true>(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, \
+                             b_val, t_size, rows_cap, rows_per_cta,          \
+                             threads_per_row, single_access, hash_magic,     \
+                             hash_shift, hash_wrap, col_out, val_out,        \
+                             acc_out, stream);                               \
+  }                                                                          \
+  int fused_bin##SUFFIX(                                                     \
+      const int* rows, const int* count, const int* a_rpt, const int* a_col, \
+      const void* a_val, const int* b_rpt, const int* b_col,                 \
+      const void* b_val, int t_size, int rows_cap, int rows_per_cta,         \
+      int threads_per_row, int single_access, int* nnz_out, int* col_out,    \
+      void* val_out, int* acc_out, void* stream) {                           \
+    return fused<VT, false>(rows, count, a_rpt, a_col, a_val, b_rpt, b_col,  \
+                            b_val, t_size, rows_cap, rows_per_cta,           \
+                            threads_per_row, single_access, nnz_out,         \
+                            col_out, val_out, acc_out, stream);              \
+  }                                                                          \
+  int fused_bin_ordered##SUFFIX(                                             \
+      const int* rows, const int* count, const int* a_rpt, const int* a_col, \
+      const void* a_val, const int* b_rpt, const int* b_col,                 \
+      const void* b_val, int t_size, int rows_cap, int rows_per_cta,         \
+      int threads_per_row, int single_access, int* nnz_out, int* col_out,    \
+      void* val_out, int* acc_out, void* stream) {                           \
+    return fused<VT, true>(rows, count, a_rpt, a_col, a_val, b_rpt, b_col,   \
+                           b_val, t_size, rows_cap, rows_per_cta,            \
+                           threads_per_row, single_access, nnz_out, col_out, \
+                           val_out, acc_out, stream);                        \
+  }
 
-// The fixed-order instance of numeric_bin.
-int numeric_bin_ordered(const int* rows, const int* count, const int* a_rpt,
-                        const int* a_col, const float* a_val,
-                        const int* b_rpt, const int* b_col,
-                        const float* b_val, int t_size, int rows_cap,
-                        int rows_per_cta, int threads_per_row,
-                        int single_access, unsigned hash_magic,
-                        int hash_shift, unsigned hash_wrap, int* col_out,
-                        float* val_out, int* acc_out, void* stream) {
-  const HashMod mod{hash_magic, hash_shift, hash_wrap};
-  return slot_dispatch<true>(mod, single_access, rows, count, a_rpt, a_col,
-                             a_val, b_rpt, b_col, b_val, t_size, rows_cap,
-                             rows_per_cta, threads_per_row, col_out, val_out,
-                             acc_out, stream);
-}
+HASH_VALUE_ENTRIES(, 0)
+HASH_VALUE_ENTRIES(_bf16, 1)
+HASH_VALUE_ENTRIES(_f16, 2)
 
-int fused_bin(const int* rows, const int* count, const int* a_rpt,
-              const int* a_col, const float* a_val, const int* b_rpt,
-              const int* b_col, const float* b_val, int t_size, int rows_cap,
-              int rows_per_cta, int threads_per_row, int single_access,
-              int* nnz_out, int* col_out, float* val_out, int* acc_out,
-              void* stream) {
-  return dispatch<true>(single_access, rows, count, a_rpt, a_col, a_val,
-                        b_rpt, b_col, b_val, t_size, rows_cap, rows_per_cta,
-                        threads_per_row, nnz_out, col_out, val_out, acc_out,
-                        stream);
-}
-
-// The fixed-order instance of fused_bin.
-int fused_bin_ordered(const int* rows, const int* count, const int* a_rpt,
-                      const int* a_col, const float* a_val, const int* b_rpt,
-                      const int* b_col, const float* b_val, int t_size,
-                      int rows_cap, int rows_per_cta, int threads_per_row,
-                      int single_access, int* nnz_out, int* col_out,
-                      float* val_out, int* acc_out, void* stream) {
-  return dispatch<true, true>(single_access, rows, count, a_rpt, a_col,
-                              a_val, b_rpt, b_col, b_val, t_size, rows_cap,
-                              rows_per_cta, threads_per_row, nnz_out, col_out,
-                              val_out, acc_out, stream);
-}
+#undef HASH_VALUE_ENTRIES
 
 }  // extern "C"

@@ -67,6 +67,17 @@ run.  Those launches are also counted in ``launches_ordered``.  The
 atomic kernels stay the default; ``symbolic_bin`` builds no values.  On
 the CPU the plain versions already add in that order and serve both
 modes.
+
+Value types: the kernels that build values take float32, bfloat16 or
+float16 (``VALUE_TYPES``; ``a_val``, ``b_val`` and the value tables all of
+one type; anything else raises).  Tables hold that type and each product
+is rounded to it and added in it, as the reference's tables in
+``a_val.dtype`` are, so a 16-bit call is the plain version's (and the
+reference's) arithmetic and not a float32 one.  A 16-bit value takes 2
+bytes of ``fused_bin``'s shared-memory table (6 B an entry with the key,
+against 8), so its rungs' routes follow the type (:func:`hash_route`'s
+``value_bytes``); ``numeric_bin`` and the cluster kernel keep their 64-bit
+key+value slot in every type.
 """
 from __future__ import annotations
 
@@ -92,6 +103,9 @@ _ROW_BUCKET_MIN = 8      # smallest per-rung row-count bucket
 _PROBE_WINDOW = 32       # slots the plain version examines per probe step
 
 INT32_MAX = np.iinfo(np.int32).max
+# The value types of the CUDA kernels, by the suffix of their C entry points.
+VALUE_TYPES = {torch.float32: "", torch.bfloat16: "_bf16",
+               torch.float16: "_f16"}
 
 
 def _is_pow2(n: int) -> bool:
@@ -320,58 +334,74 @@ def _smem_limit(device: Optional[torch.device]) -> int:
 _KERNEL_IDS = {"symbolic_bin": 0, "numeric_bin": 1, "fused_bin": 2}
 
 
+def table_value_bytes(kernel: str, dtype: torch.dtype) -> int:
+    """Bytes a value takes in ``kernel``'s shared-memory table beside its
+    4-byte key: ``fused_bin``'s values are ``dtype``'s, ``numeric_bin``'s
+    64-bit slot gives 4 to any type."""
+    return dtype.itemsize if kernel == "fused_bin" else 4
+
+
 def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
                 single_access: bool = True,
-                device: Optional[torch.device] = None) -> int:
+                device: Optional[torch.device] = None,
+                dtype: torch.dtype = torch.float32) -> int:
     """CTAs of one rung's launch of ``kernel`` (symbolic_bin, numeric_bin
     or fused_bin, in the geometry and on the kernel its wrapper launches,
-    :func:`hash_route`) that fit on one SM at once, by the CUDA occupancy
-    calculator.  A ``"cluster"`` rung raises: its residency is
-    :func:`clusters_in_flight`."""
+    :func:`hash_route`, with values of ``dtype``) that fit on one SM at
+    once, by the CUDA occupancy calculator.  A ``"cluster"`` rung raises:
+    its residency is :func:`clusters_in_flight`."""
     rows_per_cta, threads = (numeric_launch_geometry(t_size)
                              if kernel == "numeric_bin"
                              else launch_geometry(t_size, pack))
     out = torch.zeros(1, dtype=torch.int32)
     lib = build.library("spgemm_hash")
     with_values = kernel != "symbolic_bin"
+    suffix = VALUE_TYPES[dtype] if with_values else ""
     with torch.cuda.device(device):
         route = hash_route(t_size, rows_per_cta, with_values,
-                           _smem_limit(device))
+                           _smem_limit(device),
+                           value_bytes=table_value_bytes(kernel, dtype))
         if route == "cluster":
             raise ValueError(f"{kernel} t_size={t_size} runs in clusters: "
                              f"see clusters_in_flight")
         if route == "global":
-            build.check(lib.hash_global_ctas_per_sm(
+            entry = "hash_global_ctas_per_sm" + suffix
+            build.check(getattr(lib, entry)(
                 int(with_values), int(single_access), threads,
-                out.data_ptr()), "hash_global_ctas_per_sm")
+                out.data_ptr()), entry)
         else:
-            build.check(lib.hash_ctas_per_sm(
+            entry = "hash_ctas_per_sm" + suffix
+            build.check(getattr(lib, entry)(
                 _KERNEL_IDS[kernel], int(single_access), t_size,
-                rows_per_cta, threads, out.data_ptr()), "hash_ctas_per_sm")
+                rows_per_cta, threads, out.data_ptr()), entry)
     return int(out[0])
 
 
 def clusters_in_flight(t_size: int, *, kernel: str,
                        single_access: bool = True,
-                       device: Optional[torch.device] = None) -> int:
+                       device: Optional[torch.device] = None,
+                       dtype: torch.dtype = torch.float32) -> int:
     """Clusters of one ``"cluster"`` rung's launch of ``kernel`` (at the
-    rung's :func:`cluster_size`) that fit on the whole card at once, by
-    the CUDA occupancy calculator.  Any other rung raises: its residency
-    is :func:`ctas_per_sm`."""
+    rung's :func:`cluster_size`, values of ``dtype``) that fit on the whole
+    card at once, by the CUDA occupancy calculator.  Any other rung
+    raises: its residency is :func:`ctas_per_sm`."""
     threads = launch_geometry(t_size, 1)[1]
     with_values = kernel != "symbolic_bin"
+    entry = "hash_cluster_occupancy" + (VALUE_TYPES[dtype] if with_values
+                                        else "")
     out = torch.zeros(1, dtype=torch.int32)
     lib = build.library("spgemm_hash")
     with torch.cuda.device(device):
         limit = _smem_limit(device)
-        route = hash_route(t_size, 1, with_values, limit)
+        route = hash_route(t_size, 1, with_values, limit,
+                           value_bytes=table_value_bytes(kernel, dtype))
         if route != "cluster":
             raise ValueError(f"{kernel} t_size={t_size} runs on the "
                              f"{route} route: see ctas_per_sm")
-        build.check(lib.hash_cluster_occupancy(
+        build.check(getattr(lib, entry)(
             int(with_values), int(single_access), t_size,
             cluster_size(t_size, with_values, limit), threads,
-            out.data_ptr()), "hash_cluster_occupancy")
+            out.data_ptr()), entry)
     return int(out[0])
 
 
@@ -399,14 +429,20 @@ CLUSTER_SIZES = {
 
 
 def _slot_bytes(with_values: bool) -> int:
+    """A cluster table's slot: the 64-bit key+value word with values in
+    every value type, the 4-byte key without."""
     return 8 if with_values else 4
 
 
-def table_bytes(t_size: int, rows_per_cta: int, with_values: bool) -> int:
+def table_bytes(t_size: int, rows_per_cta: int, with_values: bool,
+                value_bytes: int = 4) -> int:
     """Shared memory of a block of ``rows_per_cta`` tables of ``t_size``
-    entries (8 B an entry with values, 4 without) and their counters."""
-    return rows_per_cta * (t_size * _slot_bytes(with_values)
-                           + ROW_COUNTER_BYTES)
+    entries and their counters: a 4-byte key an entry, and with values
+    ``value_bytes`` more (the block's values padded to a word;
+    csrc/spgemm_hash.cu, smem_bytes)."""
+    entries = rows_per_cta * t_size
+    values = -(-entries * value_bytes // 4) * 4 if with_values else 0
+    return 4 * entries + values + rows_per_cta * ROW_COUNTER_BYTES
 
 
 def cluster_slice_bytes(t_size: int, cluster: int, with_values: bool) -> int:
@@ -443,12 +479,14 @@ def cluster_size(t_size: int, with_values: bool, smem_limit: int) -> int:
 
 
 def hash_route(t_size: int, rows_per_cta: int, with_values: bool,
-               smem_limit: int) -> str:
+               smem_limit: int, value_bytes: int = 4) -> str:
     """Which kernel a rung's launch takes, from its tables and a block's
     shared-memory limit (232,448 B on the H100) alone:
 
       ``"smem"``     the block's ``rows_per_cta`` tables fit its shared
-                     memory (:func:`table_bytes`): the shared-memory kernels;
+                     memory (:func:`table_bytes` at ``value_bytes``: a
+                     16-bit ``fused_bin`` table takes 2, ``numeric_bin``'s
+                     slot 4 in any type): the shared-memory kernels;
       ``"cluster"``  one table fits the shared memory of a cluster of at
                      most ``CLUSTER_MAX`` blocks (:func:`smallest_cluster`):
                      ``cluster_rows_kernel``;
@@ -457,7 +495,7 @@ def hash_route(t_size: int, rows_per_cta: int, with_values: bool,
 
     Raises where no kernel takes the rung: several rows to a block past
     shared memory, or a table past ``GLOBAL_MAX_T_SIZE``."""
-    need = table_bytes(t_size, rows_per_cta, with_values)
+    need = table_bytes(t_size, rows_per_cta, with_values, value_bytes)
     if need <= smem_limit:
         return "smem"
     if rows_per_cta != 1:
@@ -475,10 +513,11 @@ def hash_route(t_size: int, rows_per_cta: int, with_values: bool,
 
 
 def rung_route(t_size: int, rows_per_cta: int, with_values: bool,
-               device: Optional[torch.device] = None) -> str:
+               device: Optional[torch.device] = None,
+               value_bytes: int = 4) -> str:
     """:func:`hash_route` at the shared-memory limit of ``device``'s card."""
     return hash_route(t_size, rows_per_cta, with_values,
-                      _smem_limit(device))
+                      _smem_limit(device), value_bytes)
 
 
 def _launch_extended(fn, route, dev, rows, count, a_rpt, a_col, a_val,
@@ -499,7 +538,8 @@ def _launch_extended(fn, route, dev, rows, count, a_rpt, a_col, a_val,
     inputs = (rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
               a_col.data_ptr(), ptr(a_val), b_rpt.data_ptr(),
               b_col.data_ptr(), ptr(b_val), t_size, rows_cap)
-    entry = f"hash_bin_{route}" + ("_ordered" if ordered else "")
+    entry = (f"hash_bin_{route}" + ("_ordered" if ordered else "")
+             + (VALUE_TYPES[val_tabs.dtype] if with_values else ""))
     with torch.cuda.device(dev):
         if route == "cluster":
             err = getattr(lib, entry)(
@@ -522,6 +562,9 @@ def _launch_extended(fn, route, dev, rows, count, a_rpt, a_col, a_val,
 
 
 def _check_cuda_inputs(rows, count, ints, floats, rows_cap: int) -> None:
+    """Raises unless the ints are contiguous int32 on ``rows``' device
+    and the values contiguous, on that device and all of one of
+    ``VALUE_TYPES``."""
     dev = rows.device
     for name, x in [("rows", rows), ("count", count), *ints]:
         if x.device != dev or x.dtype != torch.int32 \
@@ -529,11 +572,12 @@ def _check_cuda_inputs(rows, count, ints, floats, rows_cap: int) -> None:
             raise ValueError(f"{name}: expected a contiguous int32 tensor on "
                              f"{dev}, got {x.dtype} on {x.device}")
     for name, x in floats:
-        if x.device != dev or x.dtype != torch.float32 \
-                or not x.is_contiguous():
+        if x.device != dev or x.dtype not in VALUE_TYPES \
+                or x.dtype != floats[0][1].dtype or not x.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernels take contiguous "
-                             f"float32 values on {dev}, got {x.dtype} on "
-                             f"{x.device}")
+                             f"float32, bfloat16 or float16 values of one "
+                             f"type on {dev}, got {x.dtype} on {x.device} "
+                             f"({floats[0][0]} is {floats[0][1].dtype})")
     if rows.shape != (rows_cap,) or count.numel() != 1:
         raise ValueError(f"rows {tuple(rows.shape)} / count "
                          f"{tuple(count.shape)} do not fit rows_cap="
@@ -598,8 +642,8 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                      *, t_size: int, rows_cap: int, single_access: bool):
     """Numeric hash kernel over one bin -> (col_tabs, val_tabs, accesses):
     col_tabs (rows_cap, t_size) int32 raw tables (-1 = empty), val_tabs
-    (rows_cap, t_size) float32, accesses (rows_cap,) int32 (0 on the
-    padding rows).
+    (rows_cap, t_size) in ``a_val.dtype``, accesses (rows_cap,) int32 (0
+    on the padding rows).
 
     On the card the tables of rows at or past ``count`` are NOT written
     (``torch.empty``: they hold whatever the memory held); only rows below
@@ -630,7 +674,7 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     dev = rows.device
     rows_per_cta, threads = numeric_launch_geometry(t_size)
     col_tabs = torch.empty((rows_cap, t_size), dtype=torch.int32, device=dev)
-    val_tabs = torch.empty((rows_cap, t_size), dtype=torch.float32,
+    val_tabs = torch.empty((rows_cap, t_size), dtype=a_val.dtype,
                            device=dev)
     acc = torch.empty(rows_cap, dtype=torch.int32, device=dev)
     ordered = torch.are_deterministic_algorithms_enabled()
@@ -644,7 +688,8 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                          col_tabs=col_tabs, val_tabs=val_tabs, acc=acc,
                          ordered=ordered)
     elif rows_cap:
-        entry = "numeric_bin_ordered" if ordered else "numeric_bin"
+        entry = ("numeric_bin_ordered" if ordered else "numeric_bin") \
+            + VALUE_TYPES[a_val.dtype]
         with torch.cuda.device(dev):
             err = getattr(build.library("spgemm_hash"), entry)(
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
@@ -663,13 +708,13 @@ numeric_bin_call.launches = numeric_bin_call.launches_global = 0
 numeric_bin_call.launches_cluster = numeric_bin_call.launches_ordered = 0
 
 
-def fused_outputs(rows_cap: int, t_size: int, device) -> Tuple:
+def fused_outputs(rows_cap: int, t_size: int, device,
+                  dtype: torch.dtype = torch.float32) -> Tuple:
     """Uninitialised (nnz, col_tabs, val_tabs, accesses) for one fused
-    launch, allocated on the current stream."""
+    launch with values of ``dtype``, allocated on the current stream."""
     return (torch.empty(rows_cap, dtype=torch.int32, device=device),
             torch.empty((rows_cap, t_size), dtype=torch.int32, device=device),
-            torch.empty((rows_cap, t_size), dtype=torch.float32,
-                        device=device),
+            torch.empty((rows_cap, t_size), dtype=dtype, device=device),
             torch.empty(rows_cap, dtype=torch.int32, device=device))
 
 
@@ -680,7 +725,7 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     (nnz, col_tabs, val_tabs, accesses):
       nnz      (rows_cap,) int32 distinct columns per row (0 on padding);
       col_tabs (rows_cap, t_size) int32 raw tables (-1 = empty);
-      val_tabs (rows_cap, t_size) float32 accumulated values;
+      val_tabs (rows_cap, t_size) accumulated values in ``a_val.dtype``;
       accesses (rows_cap,) int32 table transactions per row (0 on padding).
 
     On the card the tables of rows at or past ``count`` are NOT written
@@ -701,11 +746,16 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                        [("a_val", a_val), ("b_val", b_val)], rows_cap)
     dev = rows.device
     rows_per_cta, threads = launch_geometry(t_size, pack)
-    nnz, col_tabs, val_tabs, acc = (fused_outputs(rows_cap, t_size, dev)
-                                    if out is None else out)
+    nnz, col_tabs, val_tabs, acc = (
+        fused_outputs(rows_cap, t_size, dev, a_val.dtype) if out is None
+        else out)
+    if val_tabs.dtype != a_val.dtype:
+        raise ValueError(f"val_tabs is {val_tabs.dtype}, the values "
+                         f"{a_val.dtype}")
     ordered = torch.are_deterministic_algorithms_enabled()
-    route = rung_route(t_size, rows_per_cta, True, dev) if rows_cap \
-        else "smem"
+    route = rung_route(t_size, rows_per_cta, True, dev,
+                       table_value_bytes("fused_bin", a_val.dtype)) \
+        if rows_cap else "smem"
     if route != "smem":
         _launch_extended(fused_bin_call, route, dev, rows, count, a_rpt,
                          a_col, a_val, b_rpt, b_col, b_val, t_size=t_size,
@@ -714,7 +764,8 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                          col_tabs=col_tabs, val_tabs=val_tabs, acc=acc,
                          ordered=ordered)
     elif rows_cap:
-        entry = "fused_bin_ordered" if ordered else "fused_bin"
+        entry = ("fused_bin_ordered" if ordered else "fused_bin") \
+            + VALUE_TYPES[a_val.dtype]
         with torch.cuda.device(dev):
             err = getattr(build.library("spgemm_hash"), entry)(
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
@@ -1084,7 +1135,8 @@ def launch_fused_rungs(A: CSR, B: CSR, rungs: List[FusedRung], *,
     if A.device.type != "cuda":
         return [launch(rung) for rung in rungs]
     dev = A.device
-    outs = [fused_outputs(rung.rows_cap, rung.t_size, dev) for rung in rungs]
+    outs = [fused_outputs(rung.rows_cap, rung.t_size, dev, A.val.dtype)
+            for rung in rungs]
     current = torch.cuda.current_stream(dev)
     fork = torch.cuda.Event()
     fork.record(current)

@@ -101,3 +101,68 @@ def test_empty_and_all_zero_rows():
 def test_rows_per_block_matches_reference():
     for t in (16, 31, 32, 64, 127, 128, 512, 1024, 24576):
         assert tbr.rows_per_block_of(t) == jbr.rows_per_block_of(t)
+
+
+# ---------------------------------------------------------------------------
+# The ladders of tests/test_binning.py (the paper's Tables 1, 2 and 4, the
+# sweeps, the vmem_extended ladder), each also held to the reference's.
+# ---------------------------------------------------------------------------
+
+def _same_ladder(t, j):
+    assert (t.upper, t.table_sizes, t.multiplier) == (
+        j.upper, j.table_sizes, j.multiplier)
+    assert t.fallback_threshold() == j.fallback_threshold()
+
+
+def test_paper_table1_symbolic_ranges():
+    """:12, Table 1: sym_1.2x upper bounds."""
+    lad = tbr.symbolic_ladder(1.2)
+    assert lad.upper == (26, 426, 853, 1706, 3413, 6826, 10240, 20480)
+    _same_ladder(lad, jbr.symbolic_ladder(1.2))
+
+
+def test_paper_table2_numeric_ranges():
+    """:18, Table 2: num_2x upper bounds 16/128/256/512/1024/2048/4096."""
+    lad = tbr.numeric_ladder(2.0)
+    assert lad.upper == (16, 128, 256, 512, 1024, 2048, 4096)
+    _same_ladder(lad, jbr.numeric_ladder(2.0))
+
+
+def test_paper_table4_sym_sweep_ranges():
+    """:24, Table 4: the sym_1x and sym_1.5x range grids."""
+    assert tbr.symbolic_ladder(1.0).upper == (32, 512, 1024, 2048, 4096,
+                                              8192, 12288, 24576)
+    assert tbr.symbolic_ladder(1.5).upper == (21, 341, 682, 1365, 2730,
+                                              5461, 8192, 16384)
+
+
+@pytest.mark.parametrize("mult", tbr.SYMBOLIC_SWEEP)
+def test_sym_sweep_ladders_constructible(mult):
+    """:81."""
+    assert tbr.SYMBOLIC_SWEEP == jbr.SYMBOLIC_SWEEP
+    lad = tbr.symbolic_ladder(mult)
+    assert len(lad.upper) == len(tbr.SYMBOLIC_NOMINAL)
+    assert all(u <= t for u, t in zip(lad.upper, lad.table_sizes))
+    _same_ladder(lad, jbr.symbolic_ladder(mult))
+
+
+@pytest.mark.parametrize("mult", tbr.NUMERIC_SWEEP)
+def test_num_sweep_ladders_constructible(mult):
+    """:88: numeric tables are nominal - 1 (the paper keeps 4 B for
+    shared_offset); the ranges come from the nominal pow-2 sizes."""
+    assert tbr.NUMERIC_SWEEP == jbr.NUMERIC_SWEEP
+    lad = tbr.numeric_ladder(mult)
+    assert len(lad.upper) == len(tbr.NUMERIC_NOMINAL)
+    assert all(u <= t + 1 for u, t in zip(lad.upper, lad.table_sizes))
+    _same_ladder(lad, jbr.numeric_ladder(mult))
+
+
+@pytest.mark.parametrize("kind", ["symbolic", "numeric"])
+def test_vmem_extended_ladder(kind):
+    """:96, and the numeric extended ladder beside it."""
+    lad = getattr(tbr, f"{kind}_ladder")(1.2, vmem_extended=True)
+    if kind == "symbolic":
+        assert lad.table_sizes[-1] == 1048576
+        assert lad.fallback_threshold() == int(1048576 / 1.2)
+    _same_ladder(lad, getattr(jbr, f"{kind}_ladder")(1.2,
+                                                      vmem_extended=True))

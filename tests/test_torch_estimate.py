@@ -192,3 +192,140 @@ def test_estimate_all_empty_rows():
 def _dense_csr(d):
     C = jcsr.CSR.from_dense(d)
     return np.asarray(C.rpt), np.asarray(C.col), np.asarray(C.val), C.shape
+
+
+# ---------------------------------------------------------------------------
+# The rest of tests/test_estimate.py on the port, on the reference's own
+# matrices: its _pair draws from PRNGKey(seed) and PRNGKey(seed + 1), which
+# the port draws through prng_key_seed.
+# ---------------------------------------------------------------------------
+
+def _key_pair(seed, m=48, k=40, n=44, da=3.0, db=3.0, dist="uniform"):
+    """tests/test_estimate.py's ``_pair`` in the port (on the CPU)."""
+    from repro_torch.core.csr import prng_key_seed, random_csr
+    A = random_csr(prng_key_seed(seed), m, k, avg_nnz_per_row=da,
+                   distribution=dist, device="cpu")
+    B = random_csr(prng_key_seed(seed + 1), k, n, avg_nnz_per_row=db,
+                   distribution=dist, device="cpu")
+    return A, B
+
+
+def _true_nnz_per_row(A, B):
+    """Oracle: exact structural nnz per C row (the ESC symbolic pass)."""
+    from repro_torch.core import esc, next_bucket
+    nprod = _np(analysis.nprod_into_rpt(A, B)[:A.nrows])
+    buf = esc.symbolic(A, B,
+                       prod_capacity=next_bucket(max(int(nprod.sum()), 1)))
+    return _np(buf[:A.nrows]).astype(np.int64)
+
+
+def test_measure_sample_nnz_is_exact():
+    """:54: sampling every row measures every row's nnz exactly."""
+    A, B = _key_pair(13, dist="powerlaw", da=4.0)
+    a_rpt, a_col = analysis.host_index(A)
+    b_rpt, b_col = analysis.host_index(B)
+    rows = np.arange(A.nrows, dtype=np.int64)      # "sample" = every row
+    measured = analysis.measure_sample_nnz(rows, a_rpt, a_col, b_rpt, b_col)
+    np.testing.assert_array_equal(measured, _true_nnz_per_row(A, B))
+
+
+def test_sample_rows_deterministic_and_stratified():
+    """:64."""
+    nprod = np.array([0, 9, 1, 7, 0, 3, 100, 2, 5, 4], dtype=np.int64)
+    rows = analysis.sample_rows_for_estimate(nprod, n_sample=4)
+    assert rows.size == 4
+    assert 6 in rows                     # the heaviest row is always taken
+    assert np.all(nprod[rows] > 0)       # empty rows carry no ratio signal
+    np.testing.assert_array_equal(
+        rows, analysis.sample_rows_for_estimate(nprod, n_sample=4))
+    # Small populations come back whole.
+    np.testing.assert_array_equal(
+        analysis.sample_rows_for_estimate(nprod, n_sample=64),
+        np.flatnonzero(nprod))
+
+
+def test_estimator_prewarm_specializes_without_execution():
+    """:218."""
+    A, B = _key_pair(31)
+    cfg = SpgemmConfig(method="hash", plan_mode="estimate")
+    engine = SpgemmEngine(cfg)
+    p = engine.prewarm(A, B)
+    assert p.is_specialized
+    assert p.hash_schedule is not None       # buckets alone can't do this
+    assert p.policy.estimated                # unverified until a finalize
+    assert engine.stats.estimates == 1
+    res = engine.execute(A, B)
+    torch.testing.assert_close(res.C.to_dense(), spgemm_reference(A, B),
+                               rtol=1e-4, atol=1e-4)
+    assert sum(e.stats.steps_calls for _, e in engine.cache.items()) == 0
+    assert engine.stats.estimate_hits == 1
+
+
+def test_prewarm_rejects_half_specified_buckets():
+    """:235."""
+    A, B = _key_pair(37)
+    engine = SpgemmEngine()
+    with pytest.raises(ValueError):
+        engine.prewarm(A, B, prod_bucket=256)
+
+
+def test_invalid_plan_mode_rejected():
+    """:250."""
+    A, B = _key_pair(43)
+    engine = SpgemmEngine()
+    with pytest.raises(ValueError):
+        engine.execute(A, B, SpgemmConfig(plan_mode="guess"))
+
+
+def test_dump_v4_roundtrips_plan_mode_and_estimated(tmp_path):
+    """:261."""
+    import json
+    from repro_torch.engine import MatrixSig
+    A, B = _key_pair(47)
+    cfg = SpgemmConfig(method="hash", plan_mode="estimate")
+    engine = SpgemmEngine(cfg)
+    engine.prewarm(A, B)            # estimated=True persists (no finalize)
+    path = str(tmp_path / "plans.json")
+    engine.cache.dump(path)
+
+    blob = json.load(open(path))
+    assert blob["version"] == 4
+    assert blob["plans"][0]["config"]["plan_mode"] == "estimate"
+    assert blob["plans"][0]["policy"]["estimated"] is True
+
+    fresh = SpgemmEngine(cfg)
+    fresh.cache.load(path)
+    entry = fresh.cache.get((MatrixSig.of(A), MatrixSig.of(B), cfg))
+    assert entry.plan.config.plan_mode == "estimate"
+    assert entry.plan.policy.estimated
+    res = fresh.execute(A, B)       # straight to hot; finalize verifies
+    torch.testing.assert_close(res.C.to_dense(), spgemm_reference(A, B),
+                               rtol=1e-4, atol=1e-4)
+    assert sum(e.stats.steps_calls for _, e in fresh.cache.items()) == 0
+
+
+def test_v3_dump_loads_with_default_plan_fields(tmp_path):
+    """:286."""
+    import json
+    from repro_torch.engine import MatrixSig
+    A, B = _key_pair(53)
+    cfg = SpgemmConfig(method="hash")
+    warm = SpgemmEngine(cfg)
+    warm.execute(A, B)
+    warm.execute(A, B)
+    path = str(tmp_path / "plans.json")
+    warm.cache.dump(path)
+
+    blob = json.load(open(path))
+    blob["version"] = 3             # pre-estimate payload: no new fields
+    for p in blob["plans"]:
+        p["config"].pop("plan_mode")
+        if p.get("policy"):
+            p["policy"].pop("estimated")
+    json.dump(blob, open(path, "w"))
+
+    fresh = SpgemmEngine(cfg)
+    assert fresh.cache.load(path) >= 1
+    entry = fresh.cache.get((MatrixSig.of(A), MatrixSig.of(B), cfg))
+    assert entry.plan.config.plan_mode == "exact"    # dataclass default
+    assert entry.plan.policy.estimated is False

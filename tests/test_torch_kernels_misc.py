@@ -119,6 +119,30 @@ def test_bsr_spmm_matches_reference(shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **BSR_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_bsr_spmm_16bit_matches_reference(dtype):
+    """16-bit blocks and dense: float32 sums, the output in the dense
+    operand's type, as the reference's kernel (interpret mode) gives it;
+    the two round the same float32 sum once, so they may differ by one
+    step of the type (2^-7 / 2^-10 relative)."""
+    nbr, nbc, bm, bk, n = 3, 4, 16, 16, 32
+    rows, cols, blocks = _random_bcsr(41, nbr, nbc, bm, bk)
+    dense = np.random.default_rng(2).standard_normal(
+        (nbc * bk, n)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    t = [torch.from_numpy(x) for x in (rows, cols, blocks, dense)]
+    got = bsr_spmm(t[0], t[1], t[2].to(tdt), t[3].to(tdt), n_block_rows=nbr)
+    jdt = getattr(jnp, dtype)
+    want = jbsr_spmm(jnp.asarray(rows), jnp.asarray(cols),
+                     jnp.asarray(blocks).astype(jdt),
+                     jnp.asarray(dense).astype(jdt), n_block_rows=nbr)
+    assert got.dtype == tdt and got.shape == want.shape
+    rtol = 2 ** -7 if dtype == "bfloat16" else 2 ** -10
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=rtol, atol=1e-2)
+
+
 def test_bsr_spmm_with_padding_blocks():
     """Padding entries (repeat last row, zero block) contribute nothing."""
     rows = np.array([0, 0, 1, 1, 1], np.int32)
@@ -268,7 +292,8 @@ BSR_CASES = {
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(BSR_CASES))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_bsr_spmm_kernel_matches_plain(cuda_device, case, dtype):
     nbr, nbc, bm, bk, n, empty_row = BSR_CASES[case]
     rows, cols, blocks = _random_bcsr(7, nbr, nbc, bm, bk,
@@ -285,12 +310,20 @@ def test_bsr_spmm_kernel_matches_plain(cuda_device, case, dtype):
     t = [torch.from_numpy(x) for x in (rows, cols, blocks, dense)]
     t[2], t[3] = t[2].to(dtype), t[3].to(dtype)
     want = ref.bsr_spmm_ref(*t, nrows_blocks=nbr, block_shape=(bm, bk))
+    before = dict(bsr_spmm.launches_by_entry)
     got = bsr_spmm(*(x.to(cuda_device) for x in t), n_block_rows=nbr)
     assert got.dtype == dtype and got.shape == want.shape
-    # float32: sums reordered; bfloat16: one rounding of the float32 sum,
-    # which may fall on either side of a bf16 step (2^-8 relative).
-    tol = BSR_TOL if dtype == torch.float32 else dict(rtol=2 ** -7,
-                                                      atol=1e-2)
+    # one launch, counted under this type's C entry point alone
+    entry = {torch.float32: "bsr_spmm_f32", torch.bfloat16: "bsr_spmm_bf16",
+             torch.float16: "bsr_spmm_f16"}[dtype]
+    assert {k: v - before[k] for k, v in bsr_spmm.launches_by_entry.items()
+            } == {k: int(k == entry) for k in before}
+    # float32: sums reordered; bfloat16 / float16: one rounding of the
+    # float32 sum, which may fall on either side of a step (2^-8 / 2^-11
+    # relative).
+    tol = {torch.float32: BSR_TOL,
+           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-2),
+           torch.float16: dict(rtol=2 ** -10, atol=1e-2)}[dtype]
     torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
     if empty_row:
         assert not got[bm:2 * bm].any()
