@@ -183,6 +183,29 @@ Phases, in order; any failure exits non-zero:
      tokens in one group at capacity factor 8, float32 (binning equal to
      dense, rtol 2e-2 / atol 2e-3) and bfloat16 (both, and the int8
      payload, against the exact expert mix in norm), each form timed.
+  7i. the LM serving path (phase_lm; no TPU kernel behind it, so no
+     kernel line): the ten architectures reduced, in float32 with TF32
+     off, prefill and decode logits on the card equal to the port's CPU
+     path (rtol 1e-3 / atol 1e-4; the encoder's prefill only); one
+     olmoe-1b-7b block at full width over LM_BLOCK_TOKENS tokens, card
+     against CPU alike; then olmoe-1b-7b at full width in bfloat16
+     (Model.init on the card from a seeded torch.Generator) served by
+     ServingEngine(max_batch=4, max_len=512): LM_REQUESTS requests of
+     32-256 prompt tokens (numpy default_rng(0)), LM_NEW_TOKENS new
+     tokens each, and one prompt of 600 tokens rejected structurally;
+     request 0's tokens equal to a sequential greedy decode through
+     prefill and decode_step (in slot 0 of a max_batch cache: the
+     engine's shapes); at capacity factor 8 (= E / k) prefill(s) +
+     decode(1) against prefill(s+1) within 2e-2 in norm; decode_step
+     under torch.cuda.set_sync_debug_mode("error"); weights GiB, peak
+     GiB above what earlier phases still hold, prefill ms, the median
+     decode step with 4 active slots, tokens/s; the same serving again in
+     this process and twice in a fresh one (lm_fresh), alternating, each
+     giving the same tokens, each beside a fixed pure-Python loop's ms;
+     then the same requests on quantize_params' int8 tree (bytes below
+     0.6 x bfloat16's, finite logits, peak GiB, decode step ms, the
+     correlation of request 0's prefill logits with bfloat16's, printed
+     and not gated).
   8. output: a "kernels" JSON line (all five kernels; the cluster kernel
      once for each of the three hash wrappers, named <kernel>_cluster,
      its launches those of the extended phase; the global kernel once for
@@ -324,6 +347,18 @@ DTYPE_CASES = (("fused_bin", 256, 1, 96), ("fused_bin", 256, 4, 96),
 # phase_moe: one olmoe-1b-7b MoE layer at its published width, one group
 # of MOE_TOKENS tokens, capacity factor E / k = 8 (no assignment dropped).
 MOE_TOKENS = 2048
+# phase_lm: olmoe-1b-7b served at full width (ServingEngine's slots and
+# cache length, the request stream, one block's tokens for the float32
+# card-against-CPU check and its tolerance).
+LM_MAX_BATCH = 4
+LM_MAX_LEN = 512
+LM_REQUESTS = 8
+LM_NEW_TOKENS = 16
+LM_OVERSIZED = 600
+LM_BLOCK_TOKENS = 64
+LM_TOL = dict(rtol=1e-3, atol=1e-4)
+LM_RATE_KEYS = ("tokens_per_s", "decode_ms_median", "prefill_ms", "peak_gib",
+                "host_loop_ms")
 # Kernels whose ptxas report must show no spill (source, kernel).
 NO_SPILLS = (("bsr_spmm", "bsr_spmm_f32_kernel"),
              ("binning_histogram", "binning_histogram_kernel"),
@@ -3759,6 +3794,397 @@ def phase_moe():
     return out
 
 
+def _lm_close(what, got, want):
+    """got (card) against want (CPU) within LM_TOL; the max |diff|."""
+    got = got.float().cpu()
+    want = want.float()
+    bad = (got - want).abs() > LM_TOL["atol"] + LM_TOL["rtol"] * want.abs()
+    err = float((got - want).abs().max())
+    require(not bool(bad.any()), f"{what}: card and CPU differ on "
+            f"{int(bad.sum())} of {bad.numel()} entries (max {err:.3e})")
+    return err
+
+
+def lm_reduced_parity():
+    """The ten architectures reduced, in float32: prefill (and, but for
+    the encoder, one decode step) on the card against the CPU."""
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import tree_map
+    errs = {}
+    for arch in sorted(ARCHS):
+        cfg = get_arch(arch).reduced().replace(dtype="float32")
+        model = Model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        dparams = tree_map(lambda t: t.to("cuda"), params)
+        g = torch.Generator().manual_seed(1)
+        if cfg.is_encoder:
+            feats = torch.randn((2, 16, cfg.d_model), generator=g)
+            want, _ = model.prefill(params, {"features": feats})
+            got, _ = model.prefill(dparams, {"features": feats.to("cuda")})
+            errs[arch] = dict(prefill=_lm_close(f"{arch} prefill", got,
+                                                want))
+            continue
+        toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=g)
+        extra = ({"vision": torch.randn((2, cfg.vision_tokens, cfg.d_model),
+                                        generator=g)}
+                 if cfg.family == "vlm" else {})
+        dextra = {k: v.to("cuda") for k, v in extra.items()}
+        want, caches = model.prefill(params, {"tokens": toks[:, :16],
+                                              **extra}, kv_cache_len=20)
+        got, dcaches = model.prefill(
+            dparams, {"tokens": toks[:, :16].to("cuda"), **dextra},
+            kv_cache_len=20)
+        e_pre = _lm_close(f"{arch} prefill", got, want)
+        want, _ = model.decode_step(params, toks[:, 16:], caches, 16)
+        got, _ = model.decode_step(dparams, toks[:, 16:].to("cuda"),
+                                   dcaches,
+                                   torch.full((2,), 16, device="cuda"))
+        errs[arch] = dict(prefill=e_pre, decode=_lm_close(
+            f"{arch} decode", got, want))
+    return errs
+
+
+def lm_block_parity():
+    """One olmoe-1b-7b block at its published width in float32 (weights
+    from a seeded CPU generator), LM_BLOCK_TOKENS tokens, card against
+    CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as MM
+    from repro_torch.models.param import init_params, tree_map
+    cfg = get_arch("olmoe-1b-7b").replace(dtype="float32")
+    model = MM.Model(cfg)
+    p = init_params(MM._block_specs(cfg), torch.Generator().manual_seed(2),
+                    "cpu")
+    x = torch.randn((1, LM_BLOCK_TOKENS, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    pos = torch.arange(LM_BLOCK_TOKENS)[None]
+    with torch.inference_mode():
+        want, _, _ = model._block(p, x, positions=pos, causal=True)
+        got, _, _ = model._block(tree_map(lambda t: t.to("cuda"), p),
+                                 x.to("cuda"), positions=pos.to("cuda"),
+                                 causal=True)
+    return _lm_close("olmoe-1b-7b block (float32)", got, want)
+
+
+def _tree_gib(tree):
+    from repro_torch.models.param import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(tree)) / 2 ** 30
+
+
+def lm_requests(vocab):
+    """LM_REQUESTS prompts of 32-256 tokens and the oversized one
+    (numpy default_rng(0))."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 257, LM_REQUESTS)
+    prompts = [rng.integers(0, vocab, int(n)).astype(np.int32)
+               for n in lens]
+    return prompts, rng.integers(0, vocab, LM_OVERSIZED).astype(np.int32)
+
+
+def host_loop_ms():
+    """Wall ms of a fixed pure-Python loop: the host's speed just then,
+    read around each LM serving run (the decode step is host-bound), so
+    that a slower run can be told from a slower host."""
+    t0 = time.perf_counter()
+    total = 0
+    for i in range(1_000_000):
+        total += i
+    return (time.perf_counter() - t0) * 1e3
+
+
+def lm_serve(model, params, prompts, oversized, held):
+    """One ServingEngine run over the requests (the oversized one in the
+    middle of the queue) after a warm-up engine's short run; the results,
+    wall seconds, the spans' times and the peak GiB above ``held``, the
+    bytes allocated when the phase began (earlier phases' tensors)."""
+    import numpy as np
+    from repro_torch.serve import Request, ServingEngine
+    warm = ServingEngine(model, params, max_batch=LM_MAX_BATCH,
+                         max_len=LM_MAX_LEN)
+    for uid in range(LM_MAX_BATCH):
+        warm.submit(Request(uid=uid, prompt=prompts[uid][:32],
+                            max_new_tokens=3))
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(model, params, max_batch=LM_MAX_BATCH,
+                        max_len=LM_MAX_LEN, telemetry=True)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    bad = Request(uid=len(prompts), prompt=oversized)
+    for r in reqs[:len(reqs) // 2] + [bad] + reqs[len(reqs) // 2:]:
+        eng.submit(r)
+    host = host_loop_ms()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = (host + host_loop_ms()) / 2
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    require(sorted(results) == list(range(len(prompts) + 1)),
+            f"LM serve: results for {sorted(results)}")
+    require(all(len(results[r.uid]) == LM_NEW_TOKENS and r.error is None
+                for r in reqs), "LM serve: a request was not served with "
+            f"{LM_NEW_TOKENS} tokens: {[len(results[r.uid]) for r in reqs]}")
+    require(results[bad.uid] == [] and bad.error is not None
+            and "max_len" in bad.error,
+            f"LM serve: the {LM_OVERSIZED}-token prompt was not rejected "
+            f"structurally ({bad.error!r})")
+    spans = eng.telemetry.events.snapshot()
+    prefill = [e["dur"] * 1e3 for e in spans if e["name"] == "serve.prefill"]
+    decode4 = [e["dur"] * 1e3 for e in spans
+               if e["name"] == "serve.decode_step"
+               and e["attrs"]["active_slots"] == LM_MAX_BATCH]
+    tokens = sum(len(v) for v in results.values())
+    require(len(prefill) == len(prompts) and decode4,
+            f"LM serve: {len(prefill)} prefill spans, {len(decode4)} decode "
+            "steps with every slot active")
+    return dict(results=results, wall_s=wall, peak_gib=peak, tokens=tokens,
+                host_loop_ms=host,
+                tokens_per_s=tokens / wall,
+                prefill_ms=float(np.mean(prefill)),
+                prefill_ms_each=prefill,
+                decode_ms_median=float(statistics.median(decode4)),
+                decode_steps_4_active=len(decode4),
+                rejected=bad.error)
+
+
+def lm_fresh_serve():
+    """Run in a new process by lm_fresh: olmoe-1b-7b in bfloat16 served
+    as phase_lm serves it (the same seeds and requests); one JSON line of
+    its numbers and tokens on stdout."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    model = Model(get_arch("olmoe-1b-7b"))
+    held = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    r = lm_serve(model, params, *lm_requests(model.cfg.vocab_size), held)
+    print(json.dumps({k: r[k] for k in LM_RATE_KEYS + ("results",)}))
+
+
+def lm_fresh():
+    """lm_fresh_serve in a new Python process (the same card, nothing of
+    this process's earlier phases): its numbers and tokens."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.lm_fresh_serve()"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0, "LM: the fresh serving process failed: "
+            f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["results"] = {int(k): v for k, v in out["results"].items()}
+    return out
+
+
+def lm_sequential(model, params, prompt, n_new, batch):
+    """Greedy decode of one prompt through prefill and decode_step, the
+    prompt in slot 0 of a ``batch``-slot cache (the other slots hold
+    zeros), as the engine would run it alone."""
+    from repro_torch.models.param import tree_leaves
+    with torch.inference_mode():
+        caches = model.init_caches(batch, LM_MAX_LEN, device="cuda")
+        tokens = torch.from_numpy(prompt.astype("int64"))[None].to("cuda")
+        logits, one = model.prefill(params, {"tokens": tokens},
+                                    kv_cache_len=LM_MAX_LEN)
+        for d, s in zip(tree_leaves(caches), tree_leaves(one)):
+            d.narrow(1, 0, 1).copy_(s)     # slot 0 (axis 1: after layers)
+        out = [int(torch.argmax(logits[0, -1]))]
+        pos = len(prompt)
+        for _ in range(n_new - 1):
+            tok = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
+            tok[0, 0] = out[-1]
+            p = torch.zeros(batch, dtype=torch.int64, device="cuda")
+            p[0] = pos
+            lg, caches = model.decode_step(params, tok, caches, p)
+            out.append(int(torch.argmax(lg[0, -1])))
+            pos += 1
+    return out
+
+
+def lm_decode_syncs(model, params):
+    """One decode step on the card under sync debug mode "error" (after a
+    warm-up step): None if it made no host sync, else the error."""
+    with torch.inference_mode():
+        caches = model.init_caches(LM_MAX_BATCH, LM_MAX_LEN,
+                                   device="cuda")
+        tok = torch.zeros((LM_MAX_BATCH, 1), dtype=torch.int64,
+                          device="cuda")
+        pos = torch.arange(LM_MAX_BATCH, device="cuda") + 7
+        model.decode_step(params, tok, caches, pos)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.decode_step(params, tok, caches, pos)
+        except RuntimeError as exc:
+            return str(exc)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    return None
+
+
+def lm_profile_decode(model, params):
+    """One decode step with every slot active (positions ~100) under
+    torch.profiler (profile_steady): wall and device busy ms, idle share,
+    the torch ops with the most device time."""
+    with torch.inference_mode():
+        caches = model.init_caches(LM_MAX_BATCH, LM_MAX_LEN,
+                                   device="cuda")
+        tok = torch.zeros((LM_MAX_BATCH, 1), dtype=torch.int64,
+                          device="cuda")
+        pos = torch.arange(LM_MAX_BATCH, device="cuda") + 100
+        model.decode_step(params, tok, caches, pos)
+        prof = profile_steady(
+            lambda: model.decode_step(params, tok, caches, pos))
+    log(f"phase lm decode step profiled: wall {prof['wall_ms']:.2f} ms, "
+        f"device busy {prof['device_busy_ms']:.2f} ms (idle share "
+        f"{prof['device_idle_share']:.3f}); top ops: " + ", ".join(
+            f"{o['name']} {o['device_ms']:.2f} ms x{o['calls']}"
+            for o in prof["top_ops"][:5]))
+    return prof
+
+
+def phase_lm(card):
+    """The LM serving path: see phase 7i of the module docstring."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.quant import quantize_params
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reduced = lm_reduced_parity()
+        block_err = lm_block_parity()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"phase lm: ten reduced archs (float32) card == CPU within rtol "
+        f"{LM_TOL['rtol']} / atol {LM_TOL['atol']} (max |diff| "
+        f"{max(max(v.values()) for v in reduced.values()):.2e}); olmoe-1b-7b"
+        f" block at full width over {LM_BLOCK_TOKENS} tokens max |diff| "
+        f"{block_err:.2e}: ok")
+    out = dict(reduced=reduced, block_max_abs_err=block_err, card=card,
+               held_gib=held / 2 ** 30)
+
+    cfg = get_arch("olmoe-1b-7b")
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t_init
+    out["weights_gib"] = _tree_gib(params)
+    prompts, oversized = lm_requests(cfg.vocab_size)
+    bf16 = lm_serve(model, params, prompts, oversized, held)
+    # The step is the host's launches, so its time follows the host's
+    # speed: the same serving in this process and in a fresh one,
+    # alternating, tells this script's state from the host's drift.
+    runs = [bf16, lm_fresh(), lm_serve(model, params, prompts, oversized,
+                                       held), lm_fresh()]
+    require(all(r["results"] == bf16["results"] for r in runs),
+            "LM: a repeat or a fresh process served other tokens")
+    bf16["alternating"] = [dict({k: r[k] for k in LM_RATE_KEYS},
+                                process="this" if i % 2 == 0 else "fresh")
+                           for i, r in enumerate(runs)]
+    seq = lm_sequential(model, params, prompts[0], LM_NEW_TOKENS,
+                        LM_MAX_BATCH)
+    require(seq == bf16["results"][0], f"LM: request 0's engine tokens "
+            f"{bf16['results'][0]} != sequential greedy {seq}")
+    alone = lm_sequential(model, params, prompts[0], LM_NEW_TOKENS, 1)
+    bf16["batch1_tokens_agreeing"] = sum(
+        a == b for a, b in zip(alone, seq))
+
+    m8 = Model(cfg.replace(moe_capacity_factor=8.0))
+    require(cfg.num_experts / cfg.experts_per_token == 8.0, "E / k != 8")
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompts[0].astype("int64"))[None].to("cuda")
+        s = toks.shape[1] - 1
+        full, _ = m8.prefill(params, {"tokens": toks}, kv_cache_len=s + 1)
+        _, caches = m8.prefill(params, {"tokens": toks[:, :s]},
+                               kv_cache_len=s + 1)
+        step, _ = m8.decode_step(params, toks[:, s:], caches, s)
+        rel = _rel(step.float(), full.float())
+        lg_bf16, _ = model.prefill(params, {"tokens": toks})
+        lg_bf16 = lg_bf16.float().cpu()
+    require(rel <= 2e-2, f"LM: prefill({s}) + decode(1) against "
+            f"prefill({s + 1}) at capacity 8: {rel:.3e} > 2e-2")
+    bf16["decode_consistency_rel"] = rel
+    sync_err = lm_decode_syncs(model, params)
+    require(sync_err is None, f"LM: decode_step synced with the host: "
+            f"{sync_err}")
+    log(f"phase lm olmoe-1b-7b bfloat16 ({card}): weights "
+        f"{out['weights_gib']:.2f} GiB, peak {bf16['peak_gib']:.2f} GiB "
+        f"above the {out['held_gib']:.2f} GiB earlier phases hold; "
+        f"prefill {bf16['prefill_ms']:.2f} ms a request "
+        f"(prompts {min(map(len, prompts))}-{max(map(len, prompts))}); "
+        f"decode step {bf16['decode_ms_median']:.2f} ms median with "
+        f"{LM_MAX_BATCH} active slots ({bf16['decode_steps_4_active']} "
+        f"steps); {bf16['tokens']} tokens in {bf16['wall_s']:.2f} s = "
+        f"{bf16['tokens_per_s']:.1f} tokens/s; request 0 == sequential "
+        f"greedy (batch 1: {bf16['batch1_tokens_agreeing']}/"
+        f"{LM_NEW_TOKENS} agree); prefill+decode vs prefill {rel:.2e}; "
+        f"decode_step syncs nothing; {LM_OVERSIZED}-token prompt "
+        f"rejected: ok")
+
+    log("phase lm olmoe-1b-7b bfloat16 served in this process and in a "
+        "fresh one, alternating (tokens/s, decode step ms median, prefill "
+        "ms, peak GiB, the host's loop ms): " + "; ".join(
+            f"{r['process']} {r['tokens_per_s']:.1f}, "
+            f"{r['decode_ms_median']:.2f}, {r['prefill_ms']:.2f}, "
+            f"{r['peak_gib']:.2f}, {r['host_loop_ms']:.2f}"
+            for r in bf16["alternating"])
+        + "; the same tokens each time: ok")
+    bf16["decode_profile"] = lm_profile_decode(model, params)
+
+    bf16_gib = out["weights_gib"]
+    qparams = quantize_params(params)
+    out["int8_weights_gib"] = _tree_gib(qparams)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(out["int8_weights_gib"] < 0.6 * bf16_gib,
+            f"LM int8: {out['int8_weights_gib']:.2f} GiB not below 0.6 x "
+            f"{bf16_gib:.2f}")
+    int8 = lm_serve(model, qparams, prompts, oversized, held)
+    with torch.inference_mode():
+        lg_q, qcaches = model.prefill(qparams, {"tokens": toks},
+                                      kv_cache_len=LM_MAX_LEN)
+        lg_d, _ = model.decode_step(qparams, toks[:, :1], qcaches, s + 1)
+    require(bool(torch.isfinite(lg_q.float()).all())
+            and bool(torch.isfinite(lg_d.float()).all()),
+            "LM int8: non-finite logits")
+    int8["decode_profile"] = lm_profile_decode(model, qparams)
+    int8["corr_prefill_logits"] = float(np.corrcoef(
+        lg_bf16.reshape(-1).numpy(),
+        lg_q.float().cpu().reshape(-1).numpy())[0, 1])
+    int8["tokens_equal_bf16"] = sum(
+        int8["results"][i] == bf16["results"][i] for i in range(len(prompts)))
+    log(f"phase lm olmoe-1b-7b int8 weights ({card}): "
+        f"{out['int8_weights_gib']:.2f} GiB (bfloat16 {bf16_gib:.2f}), peak "
+        f"{int8['peak_gib']:.2f} GiB; prefill {int8['prefill_ms']:.2f} ms; "
+        f"decode step {int8['decode_ms_median']:.2f} ms median with "
+        f"{LM_MAX_BATCH} active slots; {int8['tokens_per_s']:.1f} tokens/s;"
+        f" correlation of request 0's prefill logits with bfloat16's "
+        f"{int8['corr_prefill_logits']:.4f} (not gated); "
+        f"{int8['tokens_equal_bf16']}/{len(prompts)} requests' tokens equal"
+        f" bfloat16's: ok")
+    for d in (bf16, int8):
+        d["results"] = {k: list(v) for k, v in d["results"].items()}
+    out.update(bfloat16=bf16, int8=int8)
+    del qparams, qcaches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase lm: {out['seconds']:.1f} s")
+    return out
+
+
 def run():
     import numpy as np
     from repro_torch.kernels import build
@@ -3840,6 +4266,7 @@ def run():
     stats["bsr_spmm_f16"] = stats["bsr_spmm"]["float16"]
     figures = phase_figures(A, S)
     moe = phase_moe()
+    lm = phase_lm(card)
 
     kernels = []
     for name in REPLACES:
@@ -3887,7 +4314,7 @@ def run():
         esc=esc_stats,
         main_shapes=stats, request_path=request, governor=governor,
         sharded=sharded, service=service, engine_gates=gates,
-        dtypes=dtypes, figures=figures, moe=moe,
+        dtypes=dtypes, figures=figures, moe=moe, lm=lm,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # The PyTorch/CUDA port's CPU gate: its tests against the JAX reference
-# (the card's tests skip without a card) and a CPU smoke of the Fig. 5/6
-# benchmark at the reference's cut of the Table-3 rows.
+# (the card's tests skip without a card), the LM serving CLI, and a CPU
+# smoke of the Fig. 5/6 benchmark at the reference's cut of the Table-3
+# rows.
 #   ./scripts/ci_torch.sh
 set -euo pipefail
 cd "$(dirname "$0")/.."
@@ -10,6 +11,10 @@ export JAX_PLATFORMS=cpu
 
 echo "== the port's tests (tests/test_torch_*.py) =="
 python -m pytest -q tests/test_torch_*.py
+
+echo
+echo "== the LM serving CLI (reduced qwen3-1.7b, CPU) =="
+python -m repro_torch.launch.serve --arch qwen3-1.7b --device cpu --requests 4
 
 echo
 echo "== bench_overall smoke (CPU, 1/2048 of the rows, ESC and hash) =="

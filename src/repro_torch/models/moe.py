@@ -144,10 +144,29 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig
                           torch.zeros((), dtype=contrib.dtype, device=dev))
     w_sorted = torch.gather(weights.reshape(b, s * k), 1,
                             order_l)[..., None].to(x.dtype)
-    out = torch.zeros((b, s, d), dtype=x.dtype, device=dev)
-    out.scatter_add_(1, token_of[..., None].expand(b, s * k, d),
-                     contrib * w_sorted)
-    return hint(out, BATCH, None, None), aux
+    return hint(_combine(contrib * w_sorted, order_l, s, k), BATCH, None,
+                None), aux
+
+
+def _combine(weighted: torch.Tensor, order: torch.Tensor, s: int, k: int
+             ) -> torch.Tensor:
+    """Sum each token's k weighted contributions (B, S*k, d), listed in
+    ``order``'s sorted order, into (B, S, d): one add at a time in the
+    value type, in ascending sorted position (the token's experts in
+    ascending order), the order of the reference's scatter-add.  The
+    order is fixed on every device; ``scatter_add_`` on the card adds in
+    the order its atomics land, so the same request could round apart
+    from one run to the next."""
+    b, _, d = weighted.shape
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(s * k, device=order.device).expand(b, s * k))
+    rank = rank.reshape(b, s, k).sort(dim=-1).values.reshape(b, s * k)
+    parts = torch.gather(weighted, 1, rank[..., None].expand(
+        b, s * k, d)).reshape(b, s, k, d)
+    out = parts[:, :, 0]
+    for j in range(1, k):
+        out = out + parts[:, :, j]
+    return out
 
 
 def moe_dense_dispatch(p, x: torch.Tensor, cfg: ArchConfig

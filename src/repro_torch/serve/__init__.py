@@ -1,13 +1,11 @@
-"""Serving front-ends: the fault-tolerant multi-tenant SpGEMM service
-(``spgemm_service``).
-
-The reference's LM batching loop (``repro.serve.engine.ServingEngine``)
-drives its models' prefill and decode steps, so it comes with the port of
-the models and is not here yet.
-"""
+"""Serving front-ends: the LM batching loop (``engine``: continuous
+batching over ``models.Model``'s prefill and decode steps) and the
+fault-tolerant multi-tenant SpGEMM service (``spgemm_service``)."""
+from .engine import Request, ServingEngine
 from .spgemm_service import (MetricsHTTPServer, ServiceResult,
                              ServiceSession, SpgemmService)
 
 __all__ = [
+    "Request", "ServingEngine",
     "MetricsHTTPServer", "ServiceResult", "ServiceSession", "SpgemmService",
 ]

@@ -54,3 +54,18 @@ def test_graph_analytics_runs_to_the_end():
     assert [h for h, _ in hops] == ["1", "2", "3", "4"]
     assert "multi-source BFS done" in out and "A^3: nnz=" in out
     assert re.search(r"sharded hop: nnz=\d+, row blocks 0/\d+/3000", out)
+
+
+def test_serve_lm_serves_rejects_and_scrapes():
+    """examples/torch/serve_lm.py on the CPU: 10 requests served with 12
+    tokens each, the oversized one rejected structurally, and the
+    /metrics scrape shows the serve counters."""
+    out = _run("serve_lm.py")
+    assert re.search(r"^served 10/11 requests \(1 rejected\), 120 tokens",
+                     out, re.M)
+    assert "req 10: REJECTED: prompt length 200 >= max_len 96" in out
+    for line in ("opsparse_serve_requests_total 10",
+                 "opsparse_serve_rejected_total 1",
+                 "opsparse_serve_tokens_total 120",
+                 "opsparse_serve_decode_step_seconds_count"):
+        assert line in out

@@ -1,10 +1,14 @@
-"""Port parity for the binning-histogram and block-CSR SpMM kernels.
+"""Port parity for the binning-histogram and block-CSR SpMM kernels (and
+the symbolic oracle, `kernels/ref.symbolic_ref`).
 
 The port's wrappers run their plain PyTorch versions on CPU tensors; they
 are held against the reference's Pallas kernels (interpret mode on the
 CPU) on the same numpy inputs.  The ``gpu`` tests hold the CUDA kernels
 against the plain versions on the card and skip without one.
 """
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,10 +16,12 @@ import torch
 
 from repro.core import bin_rows as jbin_rows
 from repro.core import numeric_ladder as jnumeric_ladder
+from repro.core import random_csr as jrandom_csr
 from repro.core import symbolic_ladder as jsymbolic_ladder
 from repro.kernels import ref as jref
 from repro.kernels.binning_pallas import binning_histogram as jhistogram
 from repro.kernels.bsr_spmm import bsr_spmm as jbsr_spmm
+from repro_torch.convert import csr_from_reference
 from repro_torch.kernels import ref
 from repro_torch.kernels.binning_histogram import binning_histogram
 from repro_torch.kernels.bsr_spmm import bsr_spmm
@@ -184,6 +190,28 @@ def test_bsr_spmm_ref_skips_negative_rows():
                              jnp.asarray(blocks), jnp.asarray(dense),
                              nrows_blocks=2, block_shape=(4, 4))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_symbolic_ref_matches_reference(seed):
+    """n_nz per row of the dense product's support, as the reference's
+    oracle computes it, on the reference's own random_csr matrices (one
+    with cancelling values: a symbolic count the values do not reach)."""
+    A = jrandom_csr(jax.random.PRNGKey(seed), 40, 30, avg_nnz_per_row=3.0)
+    B = jrandom_csr(jax.random.PRNGKey(seed + 7), 30, 20,
+                    avg_nnz_per_row=3.0)
+    if seed:   # +-1 values: some products cancel
+        sign = jnp.where(jnp.arange(B.val.shape[0]) % 2 == 0, 1.0, -1.0)
+        A = dataclasses.replace(A, val=jnp.ones_like(A.val))
+        B = dataclasses.replace(B, val=sign.astype(B.val.dtype))
+    tA, tB = (csr_from_reference(np.asarray(M.rpt), np.asarray(M.col),
+                                 np.asarray(M.val), M.shape, device="cpu")
+              for M in (A, B))
+    want = np.asarray(jref.symbolic_ref(A, B))
+    np.testing.assert_array_equal(ref.symbolic_ref(tA, tB), want)
+    if seed:
+        assert (want < ref.row_nnz_from_support(tA, tB)).any()
+    assert ref.symbolic_ref(tA, tB).dtype == np.int32
 
 
 # ---------------------------------------------------------------------------
