@@ -206,6 +206,31 @@ Phases, in order; any failure exits non-zero:
      0.6 x bfloat16's, finite logits, peak GiB, decode step ms, the
      correlation of request 0's prefill logits with bfloat16's, printed
      and not gated).
+  7j. the training path (phase_train; no TPU kernel behind it either:
+     the reference's gradient is jax.value_and_grad through jnp), after
+     phase_lm's weights are freed, three legs, each fatal: (b) the ten
+     architectures reduced in float32 with TF32 off, loss and gradients
+     (launch.steps.loss_and_grads, remat on) and one make_train_step
+     step on the card against the CPU, and one olmoe-1b-7b block at full
+     width in float32, forward and backward over LM_BLOCK_TOKENS tokens,
+     card against CPU (gradients within TRAIN_GRAD_TOL of each leaf's
+     largest magnitude, parameters after a step within 2 lr); (a)
+     olmoe-1b-7b at its published widths in bfloat16, TRAIN_LAYERS of
+     its 16 layers, state from init_train_state on the card,
+     make_train_step with AdamWConfig(lr=1e-3, warmup_steps=2,
+     total_steps=6), TRAIN_STEPS steps on SyntheticTokenStream(batch
+     TRAIN_BATCH, seq TRAIN_SEQ): every loss and gradient norm finite,
+     every parameter moved; the median step ms of steps 2-6 (host clock
+     around a synchronize), tokens/s, adamw_update alone, weights + state
+     GiB, the peak above what earlier phases hold (at most
+     TRAIN_PEAK_GIB), a profiled step's device busy share and top ops,
+     and the step's bound (the larger of its FLOPs at 989 TFLOP/s and the
+     optimizer's bytes at 3.35 TB/s); (c) Trainer.fit on olmoe-1b-7b
+     reduced in bfloat16 on the card, ckpt_every=2, 6 steps, the 4th call
+     poisoned (one rollback), then a fresh Trainer resuming at step 7
+     from tensors on the card, in their types and equal bit for bit to
+     the final state; then examples/torch/train_moe.py in a subprocess
+     to its "LEARNED" line.
   8. output: a "kernels" JSON line (all five kernels; the cluster kernel
      once for each of the three hash wrappers, named <kernel>_cluster,
      its launches those of the extended phase; the global kernel once for
@@ -357,6 +382,20 @@ LM_NEW_TOKENS = 16
 LM_OVERSIZED = 600
 LM_BLOCK_TOKENS = 64
 LM_TOL = dict(rtol=1e-3, atol=1e-4)
+# phase_train: olmoe-1b-7b trained at its published widths, cut from 16
+# layers to TRAIN_LAYERS so that bfloat16 weights and gradients and the
+# float32 m, v and master copy (16 B a parameter: 57.0 GB at 8 layers,
+# 110.7 GB at 16) fit the card's 80 GB; TRAIN_STEPS steps of TRAIN_BATCH x
+# TRAIN_SEQ tokens.  Card-against-CPU gradients (float32, TF32 off) hold
+# TRAIN_GRAD_TOL of each leaf's largest CPU magnitude; after one AdamW step
+# the parameters hold 2 lr (a near-zero gradient's sign can flip).
+TRAIN_LAYERS = 8
+TRAIN_STEPS = 6
+TRAIN_BATCH = 8
+TRAIN_SEQ = 512
+TRAIN_PEAK_GIB = 72.0
+TRAIN_LR = 1e-3
+TRAIN_GRAD_TOL = 1e-3
 LM_RATE_KEYS = ("tokens_per_s", "decode_ms_median", "prefill_ms", "peak_gib",
                 "host_loop_ms")
 # Kernels whose ptxas report must show no spill (source, kernel).
@@ -4185,6 +4224,355 @@ def phase_lm(card):
     return out
 
 
+def _grads_close(what, got, want):
+    """Each gradient leaf on the card against the CPU's within
+    TRAIN_GRAD_TOL of the CPU leaf's largest magnitude; the largest error
+    relative to that magnitude."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = float(w.abs().max()) + 1e-7
+        err = float((g.float().cpu() - w.float()).abs().max()) / scale
+        require(err <= TRAIN_GRAD_TOL, f"{what}: gradient leaf {i} differs "
+                f"by {err:.3e} of its largest magnitude")
+        worst = max(worst, err)
+    return worst
+
+
+def train_reduced_parity():
+    """The ten architectures reduced, in float32: loss and gradients, then
+    one train step, on the card against the CPU."""
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.launch.steps import (init_train_state, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig
+    errs = {}
+    for arch in sorted(ARCHS):
+        cfg = get_arch(arch).reduced().replace(dtype="float32")
+        model = Model(cfg)
+        state = init_train_state(model, torch.Generator().manual_seed(0),
+                                 "cpu")
+        g = torch.Generator().manual_seed(1)
+        if cfg.is_encoder:
+            batch = {"features": torch.randn((2, 16, cfg.d_model),
+                                             generator=g),
+                     "labels": torch.randint(0, cfg.vocab_size, (2, 16),
+                                             generator=g)}
+        else:
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 17),
+                                             generator=g)}
+            if cfg.family == "vlm":
+                batch["vision"] = torch.randn(
+                    (2, cfg.vision_tokens, cfg.d_model), generator=g)
+        dbatch = {k: v.to("cuda") for k, v in batch.items()}
+        dstate = tree_map(lambda t: t.to("cuda"), state)
+        loss, _, grads = loss_and_grads(model, state.params, batch)
+        dloss, _, dgrads = loss_and_grads(model, dstate.params, dbatch)
+        loss_err = abs(float(dloss) / float(loss) - 1)
+        require(loss_err <= 1e-4, f"train {arch}: loss {float(dloss)} on "
+                f"the card, {float(loss)} on the CPU")
+        grad_err = _grads_close(f"train {arch}", tree_leaves(dgrads),
+                                tree_leaves(grads))
+        step = make_train_step(model, AdamWConfig(lr=TRAIN_LR,
+                                                  warmup_steps=1))
+        state, _ = step(state, batch)
+        dstate, _ = step(dstate, dbatch)
+        param_err = max(float((d.cpu() - c).abs().max()) for d, c in zip(
+            tree_leaves(dstate.params), tree_leaves(state.params)))
+        require(param_err <= 2 * TRAIN_LR, f"train {arch}: parameters "
+                f"after a step differ by {param_err:.3e} > 2 lr")
+        errs[arch] = dict(loss_rel=loss_err, grad_rel=grad_err,
+                          param_abs=param_err)
+    return errs
+
+
+def train_block_parity():
+    """One olmoe-1b-7b block at its published width in float32 (weights
+    from a seeded CPU generator), LM_BLOCK_TOKENS tokens: the gradients
+    of a fixed projection of its output, with respect to every weight and
+    the input, on the card against the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as MM
+    from repro_torch.models.param import init_params, tree_leaves, tree_map
+    cfg = get_arch("olmoe-1b-7b").replace(dtype="float32")
+    model = MM.Model(cfg)
+    p = init_params(MM._block_specs(cfg), torch.Generator().manual_seed(2),
+                    "cpu")
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((1, LM_BLOCK_TOKENS, cfg.d_model), generator=gen)
+    w = torch.randn((1, LM_BLOCK_TOKENS, cfg.d_model), generator=gen)
+    pos = torch.arange(LM_BLOCK_TOKENS)[None]
+
+    def grads(device):
+        leaves = [t.to(device).requires_grad_(True)
+                  for t in tree_leaves(p) + [x]]
+        it = iter(leaves)
+        pd = tree_map(lambda _: next(it), p)
+        out, _, aux = model._block(pd, leaves[-1], positions=pos.to(device),
+                                   causal=True)
+        loss = (out * w.to(device)).sum() + aux
+        return torch.autograd.grad(loss, leaves)
+    return _grads_close("olmoe-1b-7b block (float32) backward",
+                        grads("cuda"), grads("cpu"))
+
+
+def train_step_bound(cfg, state, tokens, seq):
+    """(bound ms, by, FLOPs, optimizer bytes) of one train step: the
+    FLOPs of forward + backward (3 x the forward's matrix products: the
+    projections, causal attention, the k experts each token is routed to,
+    the router and the head; remat's recompute is not counted) at
+    BF16_FLOPS, against the optimizer's bytes (each gradient read, m, v
+    and master read and written, each parameter written) at
+    HBM_BYTES_PER_S."""
+    from repro_torch.models.param import tree_leaves
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    per_token = (d * q + 2 * d * kv + q * d              # projections
+                 + 2 * cfg.num_heads * hd * (seq + 1) / 2  # QK^T, PV
+                 + cfg.experts_per_token * 3 * d * cfg.d_ff
+                 + d * cfg.num_experts)                  # router
+    fwd = 2 * tokens * (cfg.num_layers * per_token + d * cfg.vocab_size)
+    flops = 3 * fwd
+    opt_bytes = sum(p.numel() * (2 * p.element_size() + 24)
+                    for p in tree_leaves(state.params))
+    t_ops, t_bytes = flops / BF16_FLOPS, opt_bytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, opt_bytes)
+
+
+def train_full_width(card, held):
+    """Leg (a): olmoe-1b-7b at its published widths, TRAIN_LAYERS layers,
+    bfloat16, trained TRAIN_STEPS steps on the card (see 7j)."""
+    import math
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
+    from repro_torch.launch.steps import (init_train_state, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_update
+    cfg = get_arch("olmoe-1b-7b").replace(num_layers=TRAIN_LAYERS)
+    require(cfg.dtype == "bfloat16", "olmoe-1b-7b is not bfloat16")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    state = init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    out = dict(layers=TRAIN_LAYERS, init_s=time.perf_counter() - t_init,
+               params=sum(p.numel() for p in tree_leaves(state.params)),
+               state_gib=_tree_gib(state), card=card)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+    step = make_train_step(model, opt_cfg)
+    data = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH), device="cuda")
+    before = [p.reshape(-1)[:4096].clone() for p in tree_leaves(state.params)]
+    step_ms, losses, gnorms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        batch = data.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    require(all(math.isfinite(v) for v in losses + gnorms),
+            f"train full width: non-finite loss or gradient norm: {losses}"
+            f" {gnorms}")
+    moved = [not torch.equal(b, p.reshape(-1)[:4096])
+             for b, p in zip(before, tree_leaves(state.params))]
+    require(all(moved), f"train full width: {moved.count(False)} parameter "
+            "leaves did not move")
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    require(out["peak_gib"] <= TRAIN_PEAK_GIB, f"train full width: peak "
+            f"{out['peak_gib']:.2f} GiB above {TRAIN_PEAK_GIB}: use 4 layers")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    median = statistics.median(step_ms[1:])
+    out.update(step_ms=step_ms, step_ms_median=median, losses=losses,
+               grad_norms=gnorms, tokens_per_step=tokens,
+               tokens_per_s=tokens / (median / 1e3))
+
+    # adamw_update alone, on a fresh gradient (twice; the second counts).
+    batch = data.next_batch()
+    _, _, grads = loss_and_grads(model, state.params, batch)
+    opt_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = adamw_update(state.params, grads, state.opt, opt_cfg)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+    state = state._replace(params=params, opt=opt)
+    del grads
+    out["adamw_ms"] = opt_ms[-1]
+    prof = profile_steady(lambda: step(state, batch))
+    out["profile"] = dict(wall_ms=prof["wall_ms"],
+                          device_busy_ms=prof["device_busy_ms"],
+                          device_idle_share=prof["device_idle_share"],
+                          top_ops=prof["top_ops"][:8])
+    bound_ms, by, flops, opt_bytes = train_step_bound(cfg, state, tokens,
+                                                      TRAIN_SEQ)
+    out.update(bound_ms=bound_ms, bound_by=by, flops=flops,
+               optimizer_bytes=opt_bytes,
+               bound_share=bound_ms / median)
+    log(f"phase train olmoe-1b-7b full width ({card}): {TRAIN_LAYERS} of 16 "
+        f"layers, {out['params']:,} parameters, bfloat16; weights + state "
+        f"{out['state_gib']:.2f} GiB, peak {out['peak_gib']:.2f} GiB above "
+        f"the {held / 2 ** 30:.2f} GiB earlier phases hold; {TRAIN_STEPS} "
+        f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + "; grad norms "
+        + ", ".join(f"{v:.3f}" for v in gnorms) + f"; step ms "
+        + ", ".join(f"{v:.1f}" for v in step_ms) + f" (median of 2-"
+        f"{TRAIN_STEPS} {median:.1f} ms, {out['tokens_per_s']:.0f} "
+        f"tokens/s); adamw_update alone {out['adamw_ms']:.1f} ms; bound "
+        f"{bound_ms:.2f} ms ({by}: {flops / 1e12:.2f} TFLOP, optimizer "
+        f"{opt_bytes / 1e9:.2f} GB; {out['bound_share']:.3f} of the step); "
+        f"every loss and gradient norm finite, every leaf moved: ok")
+    log(f"phase train step profiled: wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['device_busy_ms']:.1f} ms (idle share "
+        f"{prof['device_idle_share']:.3f}); top ops: " + ", ".join(
+            f"{o['name']} {o['device_ms']:.1f} ms x{o['calls']}"
+            for o in prof["top_ops"][:6]))
+    del state, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_trainer_leg():
+    """Leg (c): Trainer.fit on olmoe-1b-7b reduced in bfloat16 on the
+    card with a poisoned step, then a fresh Trainer resuming (see 7j)."""
+    import math
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_arch("olmoe-1b-7b").reduced()
+    model = Model(cfg)
+    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                                 total_steps=6))
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                          global_batch=4)
+    calls = []
+
+    def poisoned(state, batch):
+        calls.append(1)
+        new_state, met = step_fn(state, batch)
+        if len(calls) == 4:
+            met = dict(met, loss=torch.tensor(float("nan"), device="cuda"))
+        return new_state, met
+
+    seen = {}
+
+    def capture(state, batch):
+        seen.setdefault("state", tree_map(torch.clone, state))
+        return step_fn(state, batch)
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        tr = Trainer(poisoned, SyntheticTokenStream(data_cfg, device="cuda"),
+                     TrainerConfig(total_steps=6, ckpt_every=2, ckpt_dir=d,
+                                   log_every=100))
+        state = init_train_state(model, torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        final, step = tr.fit(state, resume=False)
+        losses = [m["loss"] for m in tr.metrics_history]
+        require(step == 6 and tr.rollbacks == 1 and ckpt.latest_step(d) == 6
+                and all(math.isfinite(v) for v in losses),
+                f"trainer: step {step}, {tr.rollbacks} rollbacks, latest "
+                f"checkpoint {ckpt.latest_step(d)}, losses {losses}")
+        saved = tree_map(torch.clone, final)
+        tr2 = Trainer(capture, SyntheticTokenStream(data_cfg, device="cuda"),
+                      TrainerConfig(total_steps=8, ckpt_every=2, ckpt_dir=d,
+                                    log_every=100))
+        fresh = init_train_state(model, torch.Generator(
+            device="cuda").manual_seed(1), "cuda")
+        _, step2 = tr2.fit(fresh, resume=True)
+        first = tr2.metrics_history[0]["step"]
+        require(step2 == 8 and first == 7, f"trainer resume: ended at "
+                f"{step2}, first step {first}")
+        got, want = tree_leaves(seen["state"]), tree_leaves(saved)
+        require(all(g.device.type == "cuda" and g.dtype == w.dtype
+                    and torch.equal(g, w) for g, w in zip(got, want)),
+                "trainer resume: the restored state is not the saved one on "
+                "the card")
+        require(any(g.dtype == torch.bfloat16 for g in got),
+                "trainer resume: no bfloat16 leaf")
+        seconds = time.perf_counter() - t0
+    log(f"phase train Trainer (olmoe-1b-7b reduced, bfloat16, card): 6 "
+        f"steps, ckpt_every 2, call 4 poisoned -> {tr.rollbacks} rollback, "
+        f"losses " + ", ".join(f"{v:.4f}" for v in losses) + f"; a fresh "
+        f"Trainer resumed at step {first} from {len(got)} tensors on the "
+        f"card equal bit for bit to the final state; {seconds:.1f} s: ok")
+    return dict(losses=losses, rollbacks=tr.rollbacks, resumed_at=first,
+                seconds=seconds)
+
+
+def train_moe_example():
+    """examples/torch/train_moe.py in a subprocess on the card, to its
+    "LEARNED" line."""
+    import re
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch" /
+                                 "train_moe.py"), "--ckpt", d],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, "train_moe.py failed: "
+            f"{proc.stderr[-2000:]}")
+    require("LEARNED" in proc.stdout, "train_moe.py did not learn: "
+            f"{proc.stdout[-1000:]}")
+    lines = [x for x in proc.stdout.splitlines()
+             if x.startswith(("trained", "loss"))]
+    log(f"phase train examples/torch/train_moe.py: " + "; ".join(lines)
+        + f" ({seconds:.1f} s with the process's start): ok")
+    ms = re.search(r"\((\d+) ms/step\)", proc.stdout)
+    return dict(lines=lines, seconds=seconds,
+                ms_per_step=float(ms.group(1)) if ms else None)
+
+
+def phase_train(card):
+    """The training path: see phase 7j of the module docstring."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reduced = train_reduced_parity()
+        block_err = train_block_parity()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"phase train: ten reduced archs (float32) card == CPU: loss within "
+        f"{max(v['loss_rel'] for v in reduced.values()):.2e}, gradients "
+        f"within {max(v['grad_rel'] for v in reduced.values()):.2e} of each "
+        f"leaf's largest (limit {TRAIN_GRAD_TOL}), parameters after a step "
+        f"within {max(v['param_abs'] for v in reduced.values()):.2e} (limit "
+        f"{2 * TRAIN_LR}); olmoe-1b-7b block at full width backward over "
+        f"{LM_BLOCK_TOKENS} tokens within {block_err:.2e}: ok")
+    out = dict(reduced=reduced, block_grad_rel=block_err,
+               held_gib=held / 2 ** 30)
+    out["full_width"] = train_full_width(card, held)
+    out["trainer"] = train_trainer_leg()
+    out["example"] = train_moe_example()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase train: {out['seconds']:.1f} s")
+    return out
+
+
 def run():
     import numpy as np
     from repro_torch.kernels import build
@@ -4267,6 +4655,7 @@ def run():
     figures = phase_figures(A, S)
     moe = phase_moe()
     lm = phase_lm(card)
+    train = phase_train(card)
 
     kernels = []
     for name in REPLACES:
@@ -4314,7 +4703,7 @@ def run():
         esc=esc_stats,
         main_shapes=stats, request_path=request, governor=governor,
         sharded=sharded, service=service, engine_gates=gates,
-        dtypes=dtypes, figures=figures, moe=moe, lm=lm,
+        dtypes=dtypes, figures=figures, moe=moe, lm=lm, train=train,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)
 

@@ -1,2 +1,3 @@
 """Launchers: ``python -m repro_torch.launch.serve`` (the LM serving
-CLI)."""
+CLI) and ``python -m repro_torch.launch.train`` (the training CLI), over
+the step factories of ``steps``."""

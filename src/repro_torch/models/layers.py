@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -348,10 +349,22 @@ def logits(p, x):
     return x @ p["head"]
 
 
+def _xent_chunk(head, xc, lc, mc):
+    """One chunk's summed token NLL and its count of labelled tokens."""
+    lg = hint((xc @ head).float(), BATCH, None, TP)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, lc.long()[..., None])[..., 0]
+    nll = torch.where(mc, lse - gold, torch.zeros_like(lse))
+    return nll.sum(), mc.sum()
+
+
 def chunked_softmax_xent(p, x, labels, *, chunk: int = 512,
                          label_mask=None) -> torch.Tensor:
     """Mean token cross-entropy over sequence chunks, so the (B, S, V)
-    logits tensor never forms whole (peak (B, chunk, V))."""
+    logits tensor never forms whole: each chunk runs under a checkpoint
+    (the reference's ``jax.checkpoint``), so its float32 logits are not
+    kept for the backward, which recomputes them a chunk at a time (peak
+    one (B, chunk, V) block)."""
     b, s, d = x.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -359,15 +372,14 @@ def chunked_softmax_xent(p, x, labels, *, chunk: int = 512,
     head = p["head"]
     if label_mask is None:
         label_mask = torch.ones((b, s), dtype=torch.bool, device=x.device)
+    remat = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.int64, device=x.device)
     for c in range(0, s, chunk):
-        xc, lc, mc = (x[:, c:c + chunk], labels[:, c:c + chunk],
-                      label_mask[:, c:c + chunk])
-        lg = hint((xc @ head).float(), BATCH, None, TP)
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, lc.long()[..., None])[..., 0]
-        nll = torch.where(mc, lse - gold, torch.zeros_like(lse))
-        tot = tot + nll.sum()
-        cnt = cnt + mc.sum()
+        args = (head, x[:, c:c + chunk], labels[:, c:c + chunk],
+                label_mask[:, c:c + chunk])
+        nll, n = (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                  if remat else _xent_chunk(*args))
+        tot = tot + nll
+        cnt = cnt + n
     return tot / torch.clamp(cnt, min=1)

@@ -8,10 +8,15 @@ layers grouped as the reference groups them), so trees carry across with
 ``repro_torch.convert`` one to one.  Where the reference scans a layer
 body over that axis (``jax.lax.scan``), the port loops over it in Python;
 an int8 tree (``quant.QTensor`` leaves) is dequantized one layer at a time
-inside the loop.  There is no remat: that is training work.
+inside the loop.  Each stacked leaf is split once (``unbind``), so
+autograd stacks a leaf's per-layer gradients in one step.  ``loss_fn``
+rematerializes as the reference does (``jax.checkpoint``): every layer
+body runs under ``torch.utils.checkpoint.checkpoint`` (non-reentrant),
+and the hybrid's and vlm's groups are checkpointed around their layers'
+(the reference's nested sqrt-L remat); values do not change with it.
 
 Three entry points per model:
-  * ``loss_fn(params, batch)``        : forward + mean token xent.
+  * ``loss_fn(params, batch, remat=True)``: forward + mean token xent.
   * ``prefill(params, batch)``        : full-sequence forward, returns the
                                         last position's logits + caches.
   * ``decode_step(params, token, caches, pos)``: one token with caches.
@@ -24,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.csr import Device, resolve_device
@@ -98,6 +104,28 @@ def _layer(tree: Tree, i: int) -> Tree:
     """Slice ``i`` of the leading layer axis of every leaf (a QTensor's
     payload and scales alike)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree: Tree, n: int) -> List[Tree]:
+    """The ``n`` layers of a stacked tree, each leaf split once with
+    ``unbind``: its backward stacks the layers' gradients in one step,
+    where ``a[i]`` would add a zero-padded copy of the whole leaf a
+    layer."""
+    parts: Dict[int, tuple] = {}
+
+    def part(a, i):
+        if id(a) not in parts:
+            parts[id(a)] = a.unbind(0)
+        return parts[id(a)][i]
+    return [tree_map(lambda a: part(a, i), tree) for i in range(n)]
+
+
+def _call(fn, remat: bool, *args):
+    """fn(*args), under a non-reentrant checkpoint when ``remat`` and
+    autograd records (the reference's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _stack(ys: List[Tree]) -> Optional[Tree]:
@@ -215,7 +243,8 @@ class Model:
     # Forward (shared by train / prefill / decode)
     # ------------------------------------------------------------------
     def _forward(self, params, x, *, positions, caches=None, cache_pos=None,
-                 kv_cache_len=None, return_caches=False, vision=None):
+                 kv_cache_len=None, return_caches=False, remat=False,
+                 vision=None):
         """x: (B, S, d) embedded inputs -> (hidden, new_caches, aux)."""
         cfg = self.cfg
         causal = not cfg.is_encoder
@@ -228,61 +257,67 @@ class Model:
                     return_kv=return_caches)
                 return x, (nc, aux)
 
-            x, ys = _scan_blocks(step, x, params["layers"], caches,
-                                 cfg.num_layers)
+            x, ys = _scan_blocks(step, x,
+                                 _unstack(params["layers"], cfg.num_layers),
+                                 caches, remat)
             new_caches = _stack([nc for nc, _ in ys])
             return x, new_caches, torch.stack([aux for _, aux in ys]).sum()
 
         if cfg.family == "ssm":
-            x, ys = _scan_blocks(self._ssm_step, x, params["layers"],
-                                 caches, cfg.num_layers)
+            x, ys = _scan_blocks(self._ssm_step, x,
+                                 _unstack(params["layers"], cfg.num_layers),
+                                 caches, remat)
             return x, _stack(ys), _zero(x)
 
         if cfg.family == "hybrid":
             return self._forward_hybrid(
                 params, x, positions=positions, caches=caches,
                 cache_pos=cache_pos, kv_cache_len=kv_cache_len,
-                return_caches=return_caches)
+                return_caches=return_caches, remat=remat)
 
         if cfg.family == "vlm":
             return self._forward_vlm(
                 params, x, positions=positions, caches=caches,
                 cache_pos=cache_pos, kv_cache_len=kv_cache_len,
-                return_caches=return_caches, vision=vision)
+                return_caches=return_caches, remat=remat, vision=vision)
 
         raise ValueError(cfg.family)
 
     def _forward_hybrid(self, params, x, *, positions, caches, cache_pos,
-                        kv_cache_len, return_caches):
+                        kv_cache_len, return_caches, remat):
         """Zamba2-style: groups of `attn_every` mamba2 layers, each followed
         by ONE SHARED attention+MLP block; trailing mamba layers last."""
         cfg = self.cfg
         g = cfg.attn_every
         n_groups = cfg.num_layers // g
         n_main = n_groups * g
-        layers, shared = params["layers"], params["shared"]
+        layers = _unstack(params["layers"], cfg.num_layers)
+        shared = params["shared"]
         if caches is None:
             ssm_main = ssm_tail = attn_caches = None
         else:
             ssm_main, ssm_tail, attn_caches = caches
 
-        new_ssm_main, new_attn = [], []
-        for j in range(n_groups):
-            gp = tree_map(lambda a: a[j * g:(j + 1) * g], layers)
-            x, ys = _scan_blocks(self._ssm_step, x, gp,
-                                 None if ssm_main is None
-                                 else _layer(ssm_main, j), g)
-            new_ssm_main.append(_stack(ys))
+        def group_step(x, gp, gssm, gattn):
+            x, ys = _scan_blocks(self._ssm_step, x, gp, gssm, remat)
             x, nc, _ = self._block(
-                shared, x, positions=positions, causal=True,
-                cache=None if attn_caches is None
-                else _layer(attn_caches, j),
+                shared, x, positions=positions, causal=True, cache=gattn,
                 cache_pos=cache_pos, kv_cache_len=kv_cache_len,
                 return_kv=return_caches)
+            return x, _stack(ys), nc
+
+        # Nested (sqrt-L) remat: group boundaries AND layer bodies are both
+        # checkpointed, as the reference's.
+        new_ssm_main, new_attn = [], []
+        for j in range(n_groups):
+            x, ns, nc = _call(
+                group_step, remat, x, layers[j * g:(j + 1) * g],
+                None if ssm_main is None else _layer(ssm_main, j),
+                None if attn_caches is None else _layer(attn_caches, j))
+            new_ssm_main.append(ns)
             new_attn.append(nc)
-        tail = tree_map(lambda a: a[n_main:], layers)
-        x, ys = _scan_blocks(self._ssm_step, x, tail, ssm_tail,
-                             cfg.num_layers - n_main)
+        x, ys = _scan_blocks(self._ssm_step, x, layers[n_main:], ssm_tail,
+                             remat)
         new_tail = _stack(ys)
         if new_tail is None:        # no trailing layers: a 0-long stack
             new_tail = tree_map(
@@ -292,7 +327,7 @@ class Model:
                 _zero(x))
 
     def _forward_vlm(self, params, x, *, positions, caches, cache_pos,
-                     kv_cache_len, return_caches, vision):
+                     kv_cache_len, return_caches, remat, vision):
         """Llama-3.2-vision style: every `cross_attn_every`-th block is a
         gated cross-attention block over vision embeddings."""
         cfg = self.cfg
@@ -303,6 +338,8 @@ class Model:
             self_caches = cross_caches = None
         else:
             self_caches, cross_caches = caches
+        layers = _unstack(params["layers"], n_cross * g)
+        cross_layers = _unstack(params["cross_layers"], n_cross)
 
         def inner_step(x, lp, cache):
             x, nc, _ = self._block(
@@ -311,30 +348,35 @@ class Model:
                 return_kv=return_caches)
             return x, nc
 
+        def group_step(x, gp, cp, gself, vsrc):
+            x, ys = _scan_blocks(inner_step, x, gp, gself, remat)
+            x, kv = self._cross_block(cp, x, vsrc, positions=positions)
+            return x, _stack(ys), kv
+
+        # Nested (sqrt-L) remat -- see _forward_hybrid.
         new_self, new_cross = [], []
         for j in range(n_cross):
-            gp = tree_map(lambda a: a[j * g:(j + 1) * g], params["layers"])
-            x, ys = _scan_blocks(inner_step, x, gp,
-                                 None if self_caches is None
-                                 else _layer(self_caches, j), g)
-            new_self.append(_stack(ys))
-            vsrc = (_layer(cross_caches, j) if cross_caches is not None
-                    else vision)
-            x, kv = self._cross_block(_layer(params["cross_layers"], j), x,
-                                      vsrc, positions=positions)
+            x, ns, kv = _call(
+                group_step, remat, x, layers[j * g:(j + 1) * g],
+                cross_layers[j],
+                None if self_caches is None else _layer(self_caches, j),
+                _layer(cross_caches, j) if cross_caches is not None
+                else vision)
+            new_self.append(ns)
             new_cross.append(kv)
         return x, (_stack(new_self), _stack(new_cross)), _zero(x)
 
     # ------------------------------------------------------------------
     # Train loss (forward; autograd gives the gradient)
     # ------------------------------------------------------------------
-    def loss_fn(self, params, batch):
+    def loss_fn(self, params, batch, *, remat: bool = True):
         cfg = self.cfg
         if cfg.family == "encoder":
             x = batch["features"].to(_dt(cfg))
             labels = batch["labels"]
             positions = torch.arange(labels.shape[1], device=x.device)[None]
-            hidden, _, aux = self._forward(params, x, positions=positions)
+            hidden, _, aux = self._forward(params, x, positions=positions,
+                                           remat=remat)
             hidden = L.rmsnorm(hidden, params["final_norm"], cfg.norm_eps)
             loss = L.chunked_softmax_xent({"head": params["head"]}, hidden,
                                           labels)
@@ -348,7 +390,7 @@ class Model:
         if vision is not None:
             vision = vision.to(_dt(cfg))
         hidden, _, aux = self._forward(params, x, positions=positions,
-                                       vision=vision)
+                                       remat=remat, vision=vision)
         hidden = L.rmsnorm(hidden, params["final_norm"], cfg.norm_eps)
         xent = L.chunked_softmax_xent(params["embed"], hidden, labels)
         loss = xent + 0.01 * aux
@@ -447,13 +489,14 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _scan_blocks(step, x, params_stack, caches, n: int):
+def _scan_blocks(step, x, layers: List[Tree], caches, remat: bool = False):
     """The reference's ``lax.scan`` over stacked layer params (and caches,
     when given) as a loop: ``step(x, layer_params, cache_or_None) -> (x,
-    y)`` for each of the ``n`` layers; returns x and the list of ys."""
+    y)`` for each tree of ``layers`` (:func:`_unstack`), each call under a
+    checkpoint when ``remat``; returns x and the list of ys."""
     ys = []
-    for i in range(n):
-        x, y = step(x, _layer(params_stack, i),
-                    None if caches is None else _layer(caches, i))
+    for i, lp in enumerate(layers):
+        x, y = _call(step, remat, x, lp,
+                     None if caches is None else _layer(caches, i))
         ys.append(y)
     return x, ys

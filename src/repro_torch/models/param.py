@@ -100,8 +100,8 @@ def abstract_params(specs) -> Any:
 
 def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
     """``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``, trees of the same structure): dicts, tuples and lists are
-    walked, as are the fields of a dataclass instance; None stays None.
+    ``rest``, trees of the same structure): dicts, tuples (NamedTuples
+    too) and lists are walked, as are the fields of a dataclass instance; None stays None.
     ``is_leaf(node)`` true stops the walk at ``node``."""
     if is_leaf is not None and is_leaf(tree):
         return fn(tree, *rest)
@@ -111,8 +111,11 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
         return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, *xs, is_leaf=is_leaf)
-                          for xs in zip(tree, *rest))
+        items = [tree_map(fn, *xs, is_leaf=is_leaf)
+                 for xs in zip(tree, *rest)]
+        if hasattr(tree, "_fields"):            # a NamedTuple
+            return type(tree)(*items)
+        return type(tree)(items)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
             f.name: tree_map(fn, getattr(tree, f.name),

@@ -21,10 +21,11 @@ from repro.core import SpgemmConfig, random_csr, spgemm
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _run(script: str) -> str:
+def _run(script: str, *args: str) -> str:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, str(ROOT / "examples" / "torch" /
-                                              script), "--device", "cpu"],
+                                              script), "--device", "cpu",
+                          *args],
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
@@ -69,3 +70,16 @@ def test_serve_lm_serves_rejects_and_scrapes():
                  "opsparse_serve_tokens_total 120",
                  "opsparse_serve_decode_step_seconds_count"):
         assert line in out
+
+
+def test_train_moe_trains_three_steps(tmp_path):
+    """examples/torch/train_moe.py on the CPU for 3 steps: the ~66M
+    parameter olmoe-shaped MoE trains through the Trainer, writes its
+    final checkpoint and reports the loss it started and ended at."""
+    out = _run("train_moe.py", "--steps", "3", "--ckpt", str(tmp_path))
+    assert "arch olmoe-100m: 66.5M params (16 experts, top-4)" in out
+    assert re.search(r"^trained 3 steps in [\d.]+s", out, re.M)
+    first, last = map(float, re.search(r"^loss ([\d.]+) -> ([\d.]+)", out,
+                                       re.M).groups())
+    assert np.isfinite(first) and np.isfinite(last)
+    assert (tmp_path / "step_0000003" / "manifest.json").exists()
