@@ -231,6 +231,20 @@ Phases, in order; any failure exits non-zero:
      from tensors on the card, in their types and equal bit for bit to
      the final state; then examples/torch/train_moe.py in a subprocess
      to its "LEARNED" line.
+  7k. the single-H100 dry run (phase_dryrun; launch/, no TPU kernel:
+     the reference's dry run reads XLA's cost analysis), after
+     phase_train's state is freed, every check fatal: run_cell traces
+     olmoe-1b-7b's decode_32k and train_4k on the meta device under
+     launch.roofline.count_step ([ok] lines, FLOPs and bytes > 0;
+     train_4k does not fit, its state 16 B a bfloat16 parameter and 20 B
+     a float32 one, 110.7 GB); decode_32k executed on the card at
+     DRYRUN_BATCH sequences with the caches donated (logits finite, the
+     card's FlopCounterMode count equal to the trace's, peak above what
+     was held at most 1.1 x the argument bytes; median step ms of 5,
+     roofline bound and its term, share, mfu_roofline); donated and
+     undonated decode at one sequence, DRYRUN_DONATION_STEPS steps, equal
+     bit for bit; the phase within DRYRUN_SECONDS.  Artifacts in
+     chiprun_out/dryrun_torch/.
   8. output: a "kernels" JSON line (all five kernels; the cluster kernel
      once for each of the three hash wrappers, named <kernel>_cluster,
      its launches those of the extended phase; the global kernel once for
@@ -270,10 +284,6 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12            # CUDA cores
-BF16_FLOPS = 989e12           # tensor cores
 CSRC = "src/repro_torch/kernels/csrc/"
 HASH_KERNELS = ("symbolic_bin", "numeric_bin", "fused_bin")
 # The kernels of the vmem_extended rungs, one entry each for the three
@@ -396,6 +406,15 @@ TRAIN_SEQ = 512
 TRAIN_PEAK_GIB = 72.0
 TRAIN_LR = 1e-3
 TRAIN_GRAD_TOL = 1e-3
+# phase_dryrun: launch/dryrun's cells of olmoe-1b-7b on the card.  The
+# executed decode_32k runs at DRYRUN_BATCH sequences (13.84 GB of weights
+# and 34.36 GB of caches fit 3/4 of 80 GB; 16 would not); donated against
+# undonated decode at one sequence over DRYRUN_DONATION_STEPS steps; the
+# phase must end within DRYRUN_SECONDS.
+DRYRUN_ARCH = "olmoe-1b-7b"
+DRYRUN_BATCH = 8
+DRYRUN_DONATION_STEPS = 4
+DRYRUN_SECONDS = 60.0
 LM_RATE_KEYS = ("tokens_per_s", "decode_ms_median", "prefill_ms", "peak_gib",
                 "host_loop_ms")
 # Kernels whose ptxas report must show no spill (source, kernel).
@@ -422,6 +441,14 @@ def fixed_order():
 
 def log(*args):
     print(*args, flush=True)
+
+
+def h100():
+    """The port's H100 SXM record (launch.roofline.H100: the data sheet's
+    dense peaks at the 700 W limit): .hbm_bw 3.35e12 B/s, .peak_flops
+    989e12 bf16 FLOP/s (tensor cores), .peak_fp32 67e12 (CUDA cores)."""
+    from repro_torch.launch.roofline import H100
+    return H100
 
 
 def main() -> int:
@@ -906,7 +933,7 @@ def phase_main_shapes(sh, A, jobs, errs, *, B=None, route="smem",
                 rung.update(ctas_per_sm=resident)
                 where = f"{resident} CTAs/SM"
             rungs.append(rung)
-            rb_ms = rb / HBM_BYTES_PER_S * 1e3
+            rb_ms = rb / h100().hbm_bw * 1e3
             log(f"  {name} rung {b} (t={t_size}, rows {int(count)}/"
                 f"{rows_cap}, {where}): {kms:.3f} ms, bound "
                 f"{rb_ms:.4f} ms ({rb_ms / kms:.1%} of it), plain "
@@ -915,9 +942,9 @@ def phase_main_shapes(sh, A, jobs, errs, *, B=None, route="smem",
         if not rungs:
             continue
         stats[name] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                           bound_ms=nbytes / h100().hbm_bw * 1e3,
                            pad_bytes=pad_bytes,
-                           pad_ms=pad_bytes / HBM_BYTES_PER_S * 1e3,
+                           pad_ms=pad_bytes / h100().hbm_bw * 1e3,
                            rungs=rungs)
         stats[name]["bound_share"] = stats[name]["bound_ms"] / ms
         log(f"phase {label}s {name}: {len(rungs)} rungs, kernel "
@@ -1567,7 +1594,7 @@ def phase_binning(A, res, errs):
     library_ms = time_cuda(lambda: torch.bincount(
         torch.bucketize(sizes, bounds), minlength=sym.num_bins), 5)
     nbytes = 4 * DELAUNAY_ROWS + 4 * (sym.num_bins + 1)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = nbytes / h100().hbm_bw * 1e3
     log(f"phase binning_histogram at {DELAUNAY_ROWS} rows: wrapper "
         f"{ms:.4f} ms (the kernel alone {kernel_ms:.4f} ms; the wrapper's "
         f"host cost {host_us:.1f} us a call), "
@@ -1784,9 +1811,10 @@ def phase_bsr(errs):
         flops = 2 * nnzb * bm * bk * n
         nbytes = (nnzb * (bm * bk * size + 8) + 4 * (nbr + 1)
                   + stripes * bk * n * size + nbr * bm * n * size)
-        peak = FP32_FLOPS if name == "float32" else BF16_FLOPS
+        peak = h100().peak_fp32 if name == "float32" else \
+            h100().peak_flops
         ops_ms = flops / peak * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = nbytes / h100().hbm_bw * 1e3
         stats[name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(ops_ms, bytes_ms),
@@ -3280,7 +3308,7 @@ def order_kernel_at_main_shape(name, args, kw):
     del got, want
     ms = time_cuda(timed, 3)
     library_ms = time_cuda(library, 3)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = nbytes / h100().hbm_bw * 1e3
     log(f"  {name} at the main shape ({shape}): {ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_ms / ms:.1%}), plain {plain_ms:.1f} "
         f"ms, the torch call {library_ms:.3f} ms; bitwise equal to the "
@@ -3595,7 +3623,7 @@ def mono_fused_rungs_ms(sh, A, plan, res):
                                          count, t_size, rows_cap), 3)
         nbytes += bound_bytes("fused_bin", A, A, rows, count, t_size,
                               rows_cap)[0]
-    return ms, nbytes / HBM_BYTES_PER_S * 1e3
+    return ms, nbytes / h100().hbm_bw * 1e3
 
 
 def phase_dtypes(sh, A, S, errs, slice_stats):
@@ -4322,9 +4350,9 @@ def train_step_bound(cfg, state, tokens, seq):
     FLOPs of forward + backward (3 x the forward's matrix products: the
     projections, causal attention, the k experts each token is routed to,
     the router and the head; remat's recompute is not counted) at
-    BF16_FLOPS, against the optimizer's bytes (each gradient read, m, v
-    and master read and written, each parameter written) at
-    HBM_BYTES_PER_S."""
+    989 TFLOP/s, against the optimizer's bytes (each gradient read, m, v
+    and master read and written, each parameter written) at 3.35 TB/s
+    (h100())."""
     from repro_torch.models.param import tree_leaves
     d, hd = cfg.d_model, cfg.resolved_head_dim
     q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -4336,7 +4364,7 @@ def train_step_bound(cfg, state, tokens, seq):
     flops = 3 * fwd
     opt_bytes = sum(p.numel() * (2 * p.element_size() + 24)
                     for p in tree_leaves(state.params))
-    t_ops, t_bytes = flops / BF16_FLOPS, opt_bytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = flops / h100().peak_flops, opt_bytes / h100().hbm_bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, opt_bytes)
 
@@ -4573,6 +4601,125 @@ def phase_train(card):
     return out
 
 
+def dryrun_donation(card_dev):
+    """DRYRUN_ARCH at full width, one sequence against decode_32k's
+    32,768-position caches: DRYRUN_DONATION_STEPS decode steps donated and
+    undonated from the same caches give the same tokens, logits and
+    caches, bit for bit; the donated run's tokens."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.param import tree_leaves, tree_map
+    _, cell, model, donated, args, _, _ = dryrun.build_cell(
+        DRYRUN_ARCH, "decode_32k", batch=1, device=card_dev,
+        generator=torch.Generator(device=card_dev).manual_seed(1))
+    params, token, caches, _ = args
+    first = cell.seq_len - DRYRUN_DONATION_STEPS
+    runs = []
+    for step in (make_decode_step(model), donated):
+        c = tree_map(torch.clone, caches)
+        tok, toks = token, []
+        for i in range(DRYRUN_DONATION_STEPS):
+            pos = torch.full((), first + i, dtype=torch.int32,
+                             device=card_dev)
+            tok, lg, c = step(params, tok, c, pos)
+            toks += [tok, lg]
+        runs.append((toks, tree_leaves(c)))
+        del c
+    same = all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    same_caches = all(torch.equal(a, b)
+                      for a, b in zip(runs[0][1], runs[1][1]))
+    require(same and same_caches, f"dryrun donation: donated and undonated "
+            f"decode differ (tokens and logits equal: {same}, caches equal: "
+            f"{same_caches})")
+    tokens = [int(t) for t in runs[1][0][::2]]
+    del runs, params, caches, args
+    return tokens
+
+
+def phase_dryrun(card):
+    """launch/dryrun on the card: see phase 7k of the module docstring."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analytic import analytic_cell
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import tree_leaves
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    out = {}
+    for shape in ("decode_32k", "train_4k"):
+        art = dryrun.run_cell(DRYRUN_ARCH, shape, out_dir=out_dir)
+        require(art is not None, f"dryrun {DRYRUN_ARCH}|{shape} failed")
+        r, m = art["roofline"], art["memory"]
+        require(r["flops"] > 0 and r["hbm_bytes"] > 0,
+                f"dryrun {shape}: counted {r['flops']} FLOPs, "
+                f"{r['hbm_bytes']} bytes")
+        out[shape] = dict(trace_s=art["trace_s"], batch=art["batch"],
+                          roofline=r, memory=m)
+    m = out["train_4k"]["memory"]
+    # weights and one gradient in their types, float32 m, v and master:
+    # 16 B a bfloat16 parameter, 20 B a float32 one (router, norms)
+    leaves = tree_leaves(Model(get_arch(DRYRUN_ARCH)).abstract_params())
+    n16 = sum(p.numel() for p in leaves if p.dtype == torch.bfloat16)
+    n32 = sum(p.numel() for p in leaves if p.dtype == torch.float32)
+    require(not m["fits"] and m["state"] == 16 * n16 + 20 * n32
+            and 110.6e9 < m["state"] < 110.8e9,
+            f"dryrun train_4k: state {m['state']} B (want 16 x {n16} + 20 x "
+            f"{n32}), fits {m['fits']}")
+    held = torch.cuda.memory_allocated()
+    art = dryrun.run_cell(DRYRUN_ARCH, "decode_32k", execute=True,
+                          out_dir=out_dir, profile=profile_steady)
+    require(art is not None, "dryrun execute failed")
+    rec = art["execute"]
+    require(rec["fits"] and rec["batch"] == DRYRUN_BATCH,
+            f"dryrun execute: batch {rec.get('batch')}, not {DRYRUN_BATCH}")
+    require(rec["finite"], "dryrun execute: non-finite logits")
+    require(rec["flops_card"] == rec["flops_trace"],
+            f"dryrun execute: the card counted {rec['flops_card']} FLOPs, "
+            f"the trace {rec['flops_trace']}")
+    require(rec["peak_gib"] <= 1.1 * rec["argument_gib"],
+            f"dryrun execute: peak {rec['peak_gib']:.2f} GiB above what was "
+            f"held, over 1.1 x the {rec['argument_gib']:.2f} GiB of "
+            "arguments")
+    out["execute"] = rec
+    out["analytic_decode_ms"] = analytic_cell(
+        get_arch(DRYRUN_ARCH), "decode_32k",
+        batch=rec["batch"]).step_time * 1e3
+    del art
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["donation_tokens"] = dryrun_donation(torch.device("cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase dryrun ({card}): {DRYRUN_ARCH} decode_32k executed at "
+        f"{rec['batch']} sequences (caches donated): median step "
+        f"{rec['step_ms_median']:.2f} ms of "
+        + ", ".join(f"{v:.2f}" for v in rec["step_ms"]) + f"; roofline "
+        f"bound {rec['bound_ms']:.2f} ms ({rec['bound_by']}, counted "
+        f"{rec['bytes_trace'] / 1e9:.2f} GB, {rec['flops_trace'] / 1e12:.3f}"
+        f" TFLOP; closed form {out['analytic_decode_ms']:.2f} ms), share "
+        f"{rec['roofline_share']:.3f}, mfu_roofline "
+        f"{rec['mfu_roofline']:.5f}; arguments {rec['argument_gib']:.2f} "
+        f"GiB, peak {rec['peak_gib']:.2f} GiB above the "
+        f"{held / 2 ** 30:.2f} GiB held; FLOPs on the card "
+        f"{rec['flops_card']} == trace; train_4k state "
+        f"{m['state'] / 1e9:.2f} GB does not fit; donated == undonated "
+        f"over {DRYRUN_DONATION_STEPS} steps bit for bit (tokens "
+        f"{out['donation_tokens']}); {out['seconds']:.1f} s: ok")
+    prof = rec["profile"]
+    log(f"phase dryrun decode step profiled: wall {prof['wall_ms']:.1f} ms, "
+        f"device busy {prof['device_busy_ms']:.1f} ms (idle share "
+        f"{prof['device_idle_share']:.3f}); top ops: " + ", ".join(
+            f"{o['name']} {o['device_ms']:.1f} ms x{o['calls']}"
+            for o in prof["top_ops"][:6]))
+    require(out["seconds"] <= DRYRUN_SECONDS,
+            f"phase dryrun took {out['seconds']:.1f} s, over "
+            f"{DRYRUN_SECONDS}")
+    return out
+
+
 def run():
     import numpy as np
     from repro_torch.kernels import build
@@ -4656,6 +4803,7 @@ def run():
     moe = phase_moe()
     lm = phase_lm(card)
     train = phase_train(card)
+    dry = phase_dryrun(card)
 
     kernels = []
     for name in REPLACES:
@@ -4704,6 +4852,7 @@ def run():
         main_shapes=stats, request_path=request, governor=governor,
         sharded=sharded, service=service, engine_gates=gates,
         dtypes=dtypes, figures=figures, moe=moe, lm=lm, train=train,
+        dryrun=dry,
         numpy=np.__version__, torch=torch.__version__,
         cuda=torch.version.cuda)
 

@@ -5,8 +5,9 @@ The counterpart of ``repro/launch/steps.py``.  The gradient is autograd
 through ``Model.loss_fn(remat=True)`` (the reference's
 ``jax.value_and_grad``), and the update is :func:`adamw_update` in
 place, so a train step returns the state it was given, updated.  The
-reference's ``gather_specs`` (a TPU sharding constraint, gather-once
-FSDP) has no counterpart on one card.
+reference's ``gather_specs`` (gather-once FSDP, a sharding constraint on
+the parameters) is accepted and, on one card, where every parameter is
+whole, is the identity (``sharding.constrain``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from repro_torch.models.model import Model
 from repro_torch.models.param import tree_leaves, tree_map
 from repro_torch.optim import (AdamWConfig, OptState, abstract_opt_state,
                                adamw_update, init_opt_state)
+
+from .sharding import constrain
 
 Tree = Any
 
@@ -59,7 +62,7 @@ def loss_and_grads(model: Model, params: Tree, batch: Dict, *,
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
-                    microbatches: int = 1):
+                    microbatches: int = 1, gather_specs=None):
     """Train step with optional gradient accumulation.
 
     ``microbatches > 1`` runs the batch's slices one after another,
@@ -67,11 +70,19 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     activations are one microbatch's; the gradient, the loss and each
     metric are the microbatches' means.  The step updates the state's
     tensors in place and returns it with the metrics (0-d tensors on the
-    parameters' device; nothing is read back to the host)."""
+    parameters' device; nothing is read back to the host).
+
+    ``gather_specs`` (a spec tree like the parameters', typically the
+    serve rules'): the reference gathers the FSDP-sharded parameters once
+    a step before the microbatch loop.  On one card they are whole, and
+    the constraint leaves them as they are."""
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        loss_params = state.params
+        if gather_specs is not None:
+            loss_params = constrain(state.params, gather_specs)
         if microbatches == 1:
-            loss, metrics, grads = loss_and_grads(model, state.params, batch)
+            loss, metrics, grads = loss_and_grads(model, loss_params, batch)
         else:
             def split(x):
                 b = x.shape[0]
@@ -88,7 +99,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             per_mb = []
             for i in range(microbatches):
                 li, mi, gi = loss_and_grads(
-                    model, state.params, {k: v[i] for k, v in mbs.items()})
+                    model, loss_params, {k: v[i] for k, v in mbs.items()})
                 for acc, g in zip(tree_leaves(grads), tree_leaves(gi)):
                     acc.add_(g.to(torch.float32))
                 del gi
@@ -115,9 +126,13 @@ def make_prefill_step(model: Model, kv_cache_len: Optional[int] = None):
     return serve_prefill
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, donate_caches: bool = False):
+    """The serving decode step.  ``donate_caches`` (the reference's
+    ``donate_argnums`` on the caches): the step writes the new position
+    into the caches passed in and returns them."""
     def serve_decode(params, token, caches, pos):
-        logits, new_caches = model.decode_step(params, token, caches, pos)
+        logits, new_caches = model.decode_step(params, token, caches, pos,
+                                               donate=donate_caches)
         next_token = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
             torch.int32)
         return next_token, logits, new_caches

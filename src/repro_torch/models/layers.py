@@ -210,7 +210,7 @@ def attention(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
               kv_x: Optional[torch.Tensor] = None,
               return_kv: bool = False,
               kv_cache_len: Optional[int] = None,
-              use_rope: bool = True):
+              use_rope: bool = True, cache_in_place: bool = False):
     """Self- or cross-attention.
 
     Modes:
@@ -219,8 +219,9 @@ def attention(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
         ``kv_cache_len`` (prefill).
       * decode: ``cache`` + ``cache_pos`` given, x has S=1; k/v written at
         ``cache_pos`` (an int, a () or a (B,) tensor: per-slot positions)
-        into NEW cache tensors, the ones passed in left unchanged; attends
-        over positions <= cache_pos.
+        into NEW cache tensors, the ones passed in left unchanged, or with
+        ``cache_in_place`` into the tensors passed in (the reference's
+        donated caches); attends over positions <= cache_pos.
       * static-cache cross-attention: ``cache`` given, ``cache_pos=None``:
         attends over the whole cache, no update (vision KV at decode).
       * cross-attention from ``kv_x`` (no causal mask, no RoPE).
@@ -250,14 +251,17 @@ def attention(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
 
     if cache is not None:
         # Decode: this token's k/v at each slot's position, written out of
-        # place (the reference's functional .at[].set).
+        # place (the reference's functional .at[].set) or in place.
         b = x.shape[0]
         pos_vec = _pos_vec(cache_pos, b, x.device)
-        bidx = torch.arange(b, device=x.device)
-        k_cache = cache.k.index_put((bidx, pos_vec),
-                                    k[:, 0].to(cache.k.dtype))
-        v_cache = cache.v.index_put((bidx, pos_vec),
-                                    v[:, 0].to(cache.v.dtype))
+        idx = (torch.arange(b, device=x.device), pos_vec)
+        k_new, v_new = k[:, 0].to(cache.k.dtype), v[:, 0].to(cache.v.dtype)
+        if cache_in_place:
+            k_cache = cache.k.index_put_(idx, k_new)
+            v_cache = cache.v.index_put_(idx, v_new)
+        else:
+            k_cache = cache.k.index_put(idx, k_new)
+            v_cache = cache.v.index_put(idx, v_new)
         scores = _gqa_scores(q, k_cache, scale)
         keymask = (torch.arange(k_cache.shape[1], device=x.device)[None, :]
                    <= pos_vec[:, None])

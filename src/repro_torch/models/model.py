@@ -26,6 +26,7 @@ They run where the parameters live: on the card by default
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -188,8 +189,9 @@ class Model:
     # Blocks
     # ------------------------------------------------------------------
     def _block(self, p, x, *, positions, causal, cache=None, cache_pos=None,
-               kv_cache_len=None, return_kv=False):
-        """Standard transformer block (dense/moe/encoder + hybrid shared)."""
+               kv_cache_len=None, return_kv=False, in_place=False):
+        """Standard transformer block (dense/moe/encoder + hybrid shared).
+        ``in_place``: a decode step writes its k/v into ``cache`` itself."""
         cfg = self.cfg
         p = dequant_tree(p)      # int8 serving: materialize ONE layer
         x = hint(x, BATCH, None, None)
@@ -197,7 +199,7 @@ class Model:
             p["attn"], L.rmsnorm(x, p["attn_norm"], cfg.norm_eps), cfg,
             positions=positions, causal=causal, cache=cache,
             cache_pos=cache_pos, kv_cache_len=kv_cache_len,
-            return_kv=return_kv)
+            return_kv=return_kv, cache_in_place=in_place)
         x = x + h
         hi = L.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
         if "moe" in p:
@@ -207,17 +209,23 @@ class Model:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x + out, new_cache, aux
 
-    def _ssm_block(self, p, x, cache=None):
+    def _ssm_block(self, p, x, cache=None, in_place=False):
+        """A Mamba block; ``in_place``: a decode step writes its new state
+        into ``cache`` itself."""
         cfg = self.cfg
         p = dequant_tree(p)      # int8 serving: materialize ONE layer
         x = hint(x, BATCH, None, None)
         fn = S.mamba2 if cfg.mamba_version == 2 else S.mamba1
         h, new_cache = fn(p["mamba"], L.rmsnorm(x, p["norm"], cfg.norm_eps),
                           cfg, cache=cache)
+        if in_place:
+            cache.conv.copy_(new_cache.conv)
+            cache.h.copy_(new_cache.h)
+            new_cache = cache
         return x + h, new_cache
 
-    def _ssm_step(self, x, p, cache):
-        return self._ssm_block(p, x, cache)
+    def _ssm_step(self, x, p, cache, in_place=False):
+        return self._ssm_block(p, x, cache, in_place)
 
     def _cross_block(self, p, x, vision_kv, *, positions):
         """VLM cross-attention block (gated, llama-3.2 style).
@@ -244,47 +252,53 @@ class Model:
     # ------------------------------------------------------------------
     def _forward(self, params, x, *, positions, caches=None, cache_pos=None,
                  kv_cache_len=None, return_caches=False, remat=False,
-                 vision=None):
-        """x: (B, S, d) embedded inputs -> (hidden, new_caches, aux)."""
+                 vision=None, donate=False):
+        """x: (B, S, d) embedded inputs -> (hidden, new_caches, aux).
+        ``donate``: a decode step updates ``caches`` in place and returns
+        them as the new caches (no stacked copy)."""
         cfg = self.cfg
         causal = not cfg.is_encoder
+        ssm_step = functools.partial(self._ssm_step, in_place=donate)
 
         if cfg.family in ("dense", "moe", "encoder"):
             def step(x, lp, cache):
                 x, nc, aux = self._block(
                     lp, x, positions=positions, causal=causal, cache=cache,
                     cache_pos=cache_pos, kv_cache_len=kv_cache_len,
-                    return_kv=return_caches)
+                    return_kv=return_caches, in_place=donate)
                 return x, (nc, aux)
 
             x, ys = _scan_blocks(step, x,
                                  _unstack(params["layers"], cfg.num_layers),
                                  caches, remat)
-            new_caches = _stack([nc for nc, _ in ys])
+            new_caches = caches if donate else _stack([nc for nc, _ in ys])
             return x, new_caches, torch.stack([aux for _, aux in ys]).sum()
 
         if cfg.family == "ssm":
-            x, ys = _scan_blocks(self._ssm_step, x,
+            x, ys = _scan_blocks(ssm_step, x,
                                  _unstack(params["layers"], cfg.num_layers),
                                  caches, remat)
-            return x, _stack(ys), _zero(x)
+            return x, caches if donate else _stack(ys), _zero(x)
 
         if cfg.family == "hybrid":
             return self._forward_hybrid(
                 params, x, positions=positions, caches=caches,
                 cache_pos=cache_pos, kv_cache_len=kv_cache_len,
-                return_caches=return_caches, remat=remat)
+                return_caches=return_caches, remat=remat, ssm_step=ssm_step,
+                donate=donate)
 
         if cfg.family == "vlm":
             return self._forward_vlm(
                 params, x, positions=positions, caches=caches,
                 cache_pos=cache_pos, kv_cache_len=kv_cache_len,
-                return_caches=return_caches, remat=remat, vision=vision)
+                return_caches=return_caches, remat=remat, vision=vision,
+                donate=donate)
 
         raise ValueError(cfg.family)
 
     def _forward_hybrid(self, params, x, *, positions, caches, cache_pos,
-                        kv_cache_len, return_caches, remat):
+                        kv_cache_len, return_caches, remat, ssm_step,
+                        donate):
         """Zamba2-style: groups of `attn_every` mamba2 layers, each followed
         by ONE SHARED attention+MLP block; trailing mamba layers last."""
         cfg = self.cfg
@@ -299,12 +313,12 @@ class Model:
             ssm_main, ssm_tail, attn_caches = caches
 
         def group_step(x, gp, gssm, gattn):
-            x, ys = _scan_blocks(self._ssm_step, x, gp, gssm, remat)
+            x, ys = _scan_blocks(ssm_step, x, gp, gssm, remat)
             x, nc, _ = self._block(
                 shared, x, positions=positions, causal=True, cache=gattn,
                 cache_pos=cache_pos, kv_cache_len=kv_cache_len,
-                return_kv=return_caches)
-            return x, _stack(ys), nc
+                return_kv=return_caches, in_place=donate)
+            return x, None if donate else _stack(ys), nc
 
         # Nested (sqrt-L) remat: group boundaries AND layer bodies are both
         # checkpointed, as the reference's.
@@ -316,8 +330,9 @@ class Model:
                 None if attn_caches is None else _layer(attn_caches, j))
             new_ssm_main.append(ns)
             new_attn.append(nc)
-        x, ys = _scan_blocks(self._ssm_step, x, layers[n_main:], ssm_tail,
-                             remat)
+        x, ys = _scan_blocks(ssm_step, x, layers[n_main:], ssm_tail, remat)
+        if donate:
+            return x, caches, _zero(x)
         new_tail = _stack(ys)
         if new_tail is None:        # no trailing layers: a 0-long stack
             new_tail = tree_map(
@@ -327,7 +342,7 @@ class Model:
                 _zero(x))
 
     def _forward_vlm(self, params, x, *, positions, caches, cache_pos,
-                     kv_cache_len, return_caches, remat, vision):
+                     kv_cache_len, return_caches, remat, vision, donate):
         """Llama-3.2-vision style: every `cross_attn_every`-th block is a
         gated cross-attention block over vision embeddings."""
         cfg = self.cfg
@@ -345,13 +360,13 @@ class Model:
             x, nc, _ = self._block(
                 lp, x, positions=positions, causal=True, cache=cache,
                 cache_pos=cache_pos, kv_cache_len=kv_cache_len,
-                return_kv=return_caches)
+                return_kv=return_caches, in_place=donate)
             return x, nc
 
         def group_step(x, gp, cp, gself, vsrc):
             x, ys = _scan_blocks(inner_step, x, gp, gself, remat)
             x, kv = self._cross_block(cp, x, vsrc, positions=positions)
-            return x, _stack(ys), kv
+            return x, None if donate else _stack(ys), kv
 
         # Nested (sqrt-L) remat -- see _forward_hybrid.
         new_self, new_cross = [], []
@@ -364,6 +379,8 @@ class Model:
                 else vision)
             new_self.append(ns)
             new_cross.append(kv)
+        if donate:
+            return x, caches, _zero(x)
         return x, (_stack(new_self), _stack(new_cross)), _zero(x)
 
     # ------------------------------------------------------------------
@@ -424,12 +441,15 @@ class Model:
         hidden = L.rmsnorm(hidden[:, -1:], params["final_norm"], cfg.norm_eps)
         return L.logits(embed_p, hidden), caches
 
-    def decode_step(self, params, token, caches, pos):
+    def decode_step(self, params, token, caches, pos, *,
+                    donate: bool = False):
         """token: (B, 1) ints; pos: an int, a () or a (B,) tensor (per-slot
         positions, continuous batching); returns (logits, new caches).  The
-        caches passed in are left unchanged.  Nothing here reads the card
-        from the host: with ``token`` and a tensor ``pos`` on the card, a
-        step only enqueues work."""
+        caches passed in are left unchanged, or with ``donate`` updated in
+        place and returned (the reference's donated caches: one copy of
+        the caches is alive, not two).  Nothing here reads the card from
+        the host: with ``token`` and a tensor ``pos`` on the card, a step
+        only enqueues work."""
         cfg = self.cfg
         if cfg.family == "encoder":
             raise ValueError("encoder archs have no decode step")
@@ -439,7 +459,7 @@ class Model:
         x = L.embed(embed_p, token).to(_dt(cfg))
         hidden, new_caches, _ = self._forward(
             params, x, positions=pos_vec[:, None], caches=caches,
-            cache_pos=pos_vec)
+            cache_pos=pos_vec, donate=donate)
         hidden = L.rmsnorm(hidden, params["final_norm"], cfg.norm_eps)
         return L.logits(embed_p, hidden), new_caches
 

@@ -89,6 +89,21 @@ def abstract_quantized(abstract_params: Tree,
     return tree_map(one, abstract_params)
 
 
+def quant_pspecs(pspecs: Tree, abstract_params: Tree) -> Tree:
+    """Partition specs for the quantized tree, from the specs of the
+    bfloat16 tree and its ``meta`` tensors: the payload keeps the
+    original spec, the scales are replicated (tiny)."""
+    from repro_torch.launch.sharding import PartitionSpec as P
+
+    def one(spec, x):
+        if not _quantizable(x):
+            return spec
+        n_scale = len(_scale_shape(x.shape))
+        return QTensor(q=spec, scale=P(*([None] * n_scale)))
+
+    return tree_map(one, pspecs, abstract_params)
+
+
 def dequant_tree(p: Tree, dtype=torch.bfloat16) -> Tree:
     """Materialize the weights of one layer slice in ``dtype`` (no-op
     without QTensors)."""
