@@ -11,6 +11,13 @@ Phases, in order; any failure exits non-zero:
      binning_histogram and cluster_rows_kernel must spill nothing, and
      cluster_rows_kernel's SASS must reach its tables through
      distributed-shared-memory atomics (no device-memory atomic).
+  1b. opslint (phase_opslint): the port's static analysis
+     (python -m repro_torch.analysis_static src/repro_torch --fail-on-new
+     --baseline opslint_torch_baseline.json --format json) in a
+     subprocess on the tree the script runs from; a finding not in the
+     baseline fails the run, and so does a run over OPSLINT_SECONDS.  Its
+     line gives the findings by rule, the steady seeds and the seconds.
+     No kernel, no CUDA.
   2. hash kernels against their plain PyTorch versions on the card, both
      probe disciplines, packed and unpacked, on a tiny ladder that
      populates every rung and the fallback rung, and on rows of the
@@ -229,8 +236,8 @@ Phases, in order; any failure exits non-zero:
      reduced in bfloat16 on the card, ckpt_every=2, 6 steps, the 4th call
      poisoned (one rollback), then a fresh Trainer resuming at step 7
      from tensors on the card, in their types and equal bit for bit to
-     the final state; then examples/torch/train_moe.py in a subprocess
-     to its "LEARNED" line.
+     the final state; then examples/torch/train_moe.py --steps
+     TRAIN_EXAMPLE_STEPS in a subprocess to its "LEARNED" line.
   7k. the single-H100 dry run (phase_dryrun; launch/, no TPU kernel:
      the reference's dry run reads XLA's cost analysis), after
      phase_train's state is freed, every check fatal: run_cell traces
@@ -361,6 +368,7 @@ BSR_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),
            "bfloat16": dict(rtol=2 ** -7, atol=1e-2),
            "float16": dict(rtol=2 ** -10, atol=1e-2)}
 STEADY_CALLS = 5
+COMPARE_CHUNK = 1 << 24       # entries compare_csr compares at a time
 # The hash kernels' and bsr_spmm's 16-bit value types: the unit roundoff
 # u that bounds their rounding (a product or sum rounded to the type lands
 # within u of it, relatively).
@@ -406,6 +414,10 @@ TRAIN_SEQ = 512
 TRAIN_PEAK_GIB = 72.0
 TRAIN_LR = 1e-3
 TRAIN_GRAD_TOL = 1e-3
+# Steps of examples/torch/train_moe.py (its own default is 300).  Its
+# "LEARNED" needs the last loss below 0.8 x the first: at 100 steps the
+# H100 read 9.533 -> 7.240 (0.76) and the CPU 9.591 -> 6.312 (0.66).
+TRAIN_EXAMPLE_STEPS = 150
 # phase_dryrun: launch/dryrun's cells of olmoe-1b-7b on the card.  The
 # executed decode_32k runs at DRYRUN_BATCH sequences (13.84 GB of weights
 # and 34.36 GB of caches fit 3/4 of 80 GB; 16 would not); donated against
@@ -415,6 +427,8 @@ DRYRUN_ARCH = "olmoe-1b-7b"
 DRYRUN_BATCH = 8
 DRYRUN_DONATION_STEPS = 4
 DRYRUN_SECONDS = 60.0
+# phase_opslint: the linter's CLI must finish within OPSLINT_SECONDS.
+OPSLINT_SECONDS = 10.0
 LM_RATE_KEYS = ("tokens_per_s", "decode_ms_median", "prefill_ms", "peak_gib",
                 "host_loop_ms")
 # Kernels whose ptxas report must show no spill (source, kernel).
@@ -621,15 +635,21 @@ def check_bins(sh, A, B, binning, ladder, kinds, *, buckets,
 
 
 def compare_csr(what, C, D):
-    """C (card) against D (plain path): rpt/col exact, val within tol."""
+    """C (card) against D (the plain path's, or another card C): rpt/col
+    exact, val within tol; compared on C's device, COMPARE_CHUNK entries
+    at a time (mono_500Hz's C is 1 GiB an array)."""
+    dev = C.rpt.device
     nz = int(D.rpt[-1])
-    require(torch.equal(C.rpt.cpu(), D.rpt.cpu()), f"{what}: rpt differs")
-    require(torch.equal(C.col[:nz].cpu(), D.col[:nz].cpu()),
-            f"{what}: col differs")
-    cv, dv = C.val[:nz].cpu(), D.val[:nz].cpu()
-    err = float((cv - dv).abs().max()) if nz else 0.0
-    require(torch.allclose(cv, dv, rtol=VAL_RTOL, atol=VAL_ATOL),
-            f"{what}: values differ by up to {err:.3e}")
+    require(torch.equal(C.rpt, D.rpt.to(dev)), f"{what}: rpt differs")
+    err = 0.0
+    for lo in range(0, nz, COMPARE_CHUNK):
+        hi = min(nz, lo + COMPARE_CHUNK)
+        require(torch.equal(C.col[lo:hi], D.col[lo:hi].to(dev)),
+                f"{what}: col differs")
+        cv, dv = C.val[lo:hi], D.val[lo:hi].to(dev)
+        err = max(err, float((cv - dv).abs().max()))
+        require(torch.allclose(cv, dv, rtol=VAL_RTOL, atol=VAL_ATOL),
+                f"{what}: values differ by up to {err:.3e}")
     return err
 
 
@@ -4554,7 +4574,8 @@ def train_moe_example():
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, str(ROOT / "examples" / "torch" /
-                                 "train_moe.py"), "--ckpt", d],
+                                 "train_moe.py"), "--ckpt", d,
+             "--steps", str(TRAIN_EXAMPLE_STEPS)],
             cwd=ROOT, capture_output=True, text=True, timeout=300,
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
         seconds = time.perf_counter() - t0
@@ -4720,6 +4741,48 @@ def phase_dryrun(card):
     return out
 
 
+def phase_opslint():
+    """The port's opslint gate: the CLI over src/repro_torch against the
+    shipped baseline, in a subprocess (as CI runs it), timed; then the
+    findings by rule and the steady seeds from the same package in this
+    process."""
+    from repro_torch.analysis_static import load_project, run_project
+    from repro_torch.analysis_static.callgraph import build_callgraph
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis_static",
+         "src/repro_torch", "--fail-on-new", "--baseline",
+         "opslint_torch_baseline.json", "--format", "json"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode in (0, 1),
+            f"phase opslint: the CLI exited {proc.returncode}: "
+            f"{proc.stderr.strip()[-2000:]}")
+    new = json.loads(proc.stdout)["findings"]
+    project = load_project([str(ROOT / "src" / "repro_torch")], root=str(ROOT))
+    findings = run_project(project)
+    graph = build_callgraph(project)
+    by_rule = {}
+    for f in findings:
+        by_rule[f.rule] = by_rule.get(f.rule, 0) + 1
+    seeds = [f"{fn.sf.relpath}:{fn.node.lineno} {fn.qualname}"
+             for fn in graph.seeds]
+    log(f"phase opslint: {len(findings)} finding(s) by rule {by_rule}, "
+        f"{len(new)} new vs opslint_torch_baseline.json; {len(seeds)} "
+        f"steady seeds ({', '.join(seeds)}), {len(graph.traced)} steady "
+        f"functions; CLI {seconds:.2f} s")
+    require(proc.returncode == 0 and not new,
+            "phase opslint: new findings: " + "; ".join(
+                f"{f['path']}:{f['line']} {f['rule']} {f['message']}"
+                for f in new))
+    require(seconds <= OPSLINT_SECONDS,
+            f"phase opslint took {seconds:.2f} s, over {OPSLINT_SECONDS}")
+    return dict(seconds=seconds, findings=len(findings), by_rule=by_rule,
+                new=len(new), seeds=seeds, steady_functions=len(graph.traced))
+
+
 def run():
     import numpy as np
     from repro_torch.kernels import build
@@ -4745,6 +4808,7 @@ def run():
                               in x for x in lines),
                 f"{kernel} spills (or has no ptxas line): {lines}")
     log("ptxas: " + ", ".join(k for _, k in NO_SPILLS) + " spill nothing: ok")
+    opslint = phase_opslint()
 
     errs = {k: 0.0 for k in REPLACES}
     fixed_errs = {k: 0.0 for k in REPLACES}   # bitwise: stays 0.0
@@ -4846,6 +4910,7 @@ def run():
         kernels.append(entry)
     return dict(
         card=card, kernels=kernels, build_s=secs, ptxas=ptxas,
+        opslint=opslint,
         cluster_sass=cluster_sass,
         slice=slice_stats, extended=ext_stats, extended_top=top_path,
         esc=esc_stats,

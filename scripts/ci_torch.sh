@@ -1,14 +1,20 @@
 #!/usr/bin/env bash
-# The PyTorch/CUDA port's CPU gate: its tests against the JAX reference
-# (the card's tests skip without a card), the LM serving CLI, and a CPU
-# smoke of the Fig. 5/6 benchmark at the reference's cut of the Table-3
-# rows.
+# The PyTorch/CUDA port's CPU gate: its static analysis (opslint, new
+# findings against opslint_torch_baseline.json fail), its tests against
+# the JAX reference (the card's tests skip without a card), the LM serving
+# CLI, and a CPU smoke of the Fig. 5/6 benchmark at the reference's cut of
+# the Table-3 rows.
 #   ./scripts/ci_torch.sh
 set -euo pipefail
 cd "$(dirname "$0")/.."
 export PYTHONPATH=src${PYTHONPATH:+:$PYTHONPATH}
 export JAX_PLATFORMS=cpu
 
+echo "== opslint over the port (new findings vs opslint_torch_baseline.json) =="
+python -m repro_torch.analysis_static src/repro_torch --fail-on-new \
+    --baseline opslint_torch_baseline.json --format json
+
+echo
 echo "== the port's tests (tests/test_torch_*.py) =="
 python -m pytest -q tests/test_torch_*.py
 

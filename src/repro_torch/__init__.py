@@ -7,9 +7,24 @@ CPU, and ``spgemm`` runs where its operands live: on CUDA tensors the
 kernels are the hand-written ones in ``kernels/csrc``, on CPU tensors
 their plain PyTorch versions.
 """
-from .core import (AUTO_SHARDS, CSR, SpgemmConfig, SpgemmResult,
-                   random_csr, spgemm, spgemm_reference)
-from .convert import csr_from_reference, csr_to_numpy
+import importlib
 
-__all__ = ["AUTO_SHARDS", "CSR", "SpgemmConfig", "SpgemmResult", "random_csr", "spgemm",
-           "spgemm_reference", "csr_from_reference", "csr_to_numpy"]
+_EXPORTS = {
+    "AUTO_SHARDS": "core", "CSR": "core", "SpgemmConfig": "core",
+    "SpgemmResult": "core", "random_csr": "core", "spgemm": "core",
+    "spgemm_reference": "core", "csr_from_reference": "convert",
+    "csr_to_numpy": "convert",
+}
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    """The public names, imported on first use, so that a subpackage that
+    needs no torch (``python -m repro_torch.analysis_static``) loads
+    without it."""
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__),
+                    name)
+    globals()[name] = value
+    return value

@@ -77,12 +77,16 @@ def compression_ratio(A: CSR, B: CSR, C: CSR) -> float:
     return npd / max(nnz, 1)
 
 
-def exclusive_sum_in_place(buf: torch.Tensor) -> torch.Tensor:
+def exclusive_sum_in_place(
+        buf: torch.Tensor) -> torch.Tensor:  # opslint: donates=buf
     """(M+1,) counts buffer -> row pointers (the cub ExclusiveSum step).
 
     Returns a new int32 buffer: callers keep views of the counts (the
     numeric binning reads ``nnz_buf[:m]``), so writing over them would
-    change what those views see.
+    change what those views see.  The buffer is donated all the same, as
+    the reference donates it to XLA: a caller reads the row pointers from
+    the result and never ``buf`` again (opslint's DON001 holds call sites
+    to that), so the sum stays free to reuse the buffer.
     """
     out = torch.zeros_like(buf)
     out[1:] = torch.cumsum(buf[:-1], 0)

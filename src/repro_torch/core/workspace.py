@@ -77,7 +77,8 @@ class WorkspacePlan:
         )
 
 
-def bin_rows_into(sizes: torch.Tensor, buf: torch.Tensor, *,
+def bin_rows_into(sizes: torch.Tensor,
+                  buf: torch.Tensor, *,  # opslint: donates=buf
                   upper: Tuple[int, ...], num_bins: int,
                   m: int) -> torch.Tensor:
     """Two-pass binning writing ALL metadata into the fused buffer ``buf``,

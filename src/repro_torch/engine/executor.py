@@ -254,7 +254,7 @@ def _build_hot_executable(plan: SpgemmPlan) -> Callable:
     sym_ladder, num_ladder = plan.sym_ladder, plan.num_ladder
     prod_cap, nnz_cap = plan.prod_bucket, plan.nnz_bucket
 
-    def body(A: CSR, B: CSR, ws=None):
+    def body(A: CSR, B: CSR, ws=None):  # opslint: steady
         nprod = nprod_into_rpt(A, B)[:m]
         total_nprod = nprod.sum()
         sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
@@ -287,7 +287,7 @@ def _build_hash_executable(plan: SpgemmPlan) -> Callable:
     sched = plan.hash_schedule
     nnz_cap = plan.nnz_bucket
 
-    def body(A: CSR, B: CSR, ws=None):
+    def body(A: CSR, B: CSR, ws=None):  # opslint: steady
         nprod = nprod_into_rpt(A, B)[:m]
         total_nprod = nprod.sum()
         sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
@@ -327,7 +327,7 @@ def _build_fused_hash_executable(plan: SpgemmPlan) -> Callable:
     sched = plan.hash_schedule
     nnz_cap = plan.nnz_bucket
 
-    def body(A: CSR, B: CSR, ws=None):
+    def body(A: CSR, B: CSR, ws=None):  # opslint: steady
         nprod = nprod_into_rpt(A, B)[:m]
         total_nprod = nprod.sum()
         sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
@@ -363,7 +363,7 @@ def _build_merge_executable(spec: ShardSpec, m: int, n: int) -> Callable:
     real_rows = tuple(spec.rows(s) for s in range(spec.n_shards))
     stats_mod.record_trace(("merge", spec.bounds, m, n))   # one build
 
-    def run(parts):
+    def run(parts):  # opslint: steady
         dev = parts[0].device
         nnzs = torch.stack([C.rpt[r] for C, r in zip(parts, real_rows)])
         offs = torch.zeros(len(parts) + 1, dtype=torch.int32, device=dev)

@@ -101,6 +101,7 @@ HASH_SCALE = 107  # nsparse's multiplicative constant, kept (§5.2 "same way")
 _PROBE_GUARD_FACTOR = 2  # safety: bail after 2*t_size probes (misuse guard)
 _ROW_BUCKET_MIN = 8      # smallest per-rung row-count bucket
 _PROBE_WINDOW = 32       # slots the plain version examines per probe step
+_GRAPH_ROUNDS = 16       # the plain version's probe rounds a graph replays
 
 INT32_MAX = np.iinfo(np.int32).max
 # The value types of the CUDA kernels, by the suffix of their C entry points.
@@ -160,13 +161,23 @@ def _hash_tables_plain(rows, count, a_rpt, a_col, a_val, b_rpt, b_col,
     """The three kernels' shared body.  Returns (nnz, col_tabs, val_tabs,
     accesses); val_tabs is None without values.
 
-    Step s inserts the s-th product of every row at once.  A probe step
-    reads ``_PROBE_WINDOW`` consecutive slots of each pending row and takes
-    the first that is empty or holds the key: the probe the reference's
-    loop ends on.  Every slot before it held another key and cost one
-    access; the terminal one costs one more with check-then-CAS when it
-    was empty.  A row that reaches the guard stops with ``guard`` accesses
-    and no insert, as in the reference.
+    Each row keeps its own cursor: the product it is inserting and the
+    probes that product has taken so far.  A round moves every unfinished
+    row one probe window on: it reads ``_PROBE_WINDOW`` consecutive slots
+    from the row's current probe and takes the first that is empty or
+    holds the key, the probe the reference's loop ends on.  Every slot
+    before it held another key and cost one access; the terminal one costs
+    one more with check-then-CAS when it was empty.  A row that reaches the
+    guard stops that product with ``guard`` accesses and no insert, as in
+    the reference.  Rows never touch each other's tables, so each row
+    inserts its products in order whatever the others do.
+
+    A round is a fixed sequence of tensor ops with no host read, so
+    rounds run back to back: at least as many as the longest row has
+    products, then more while a row is unfinished.  On the card the round
+    is captured once in a CUDA graph (``_GRAPH_ROUNDS`` rounds a replay)
+    and replayed, since a round's host cost is its ~40 launches; rounds
+    after every row has finished change nothing.
     """
     dev = rows.device
     valid, keys, prods, nprod_row, first = _bin_products(
@@ -184,47 +195,84 @@ def _hash_tables_plain(rows, count, a_rpt, a_col, a_val, b_rpt, b_col,
         flat_vals = val_tabs.view(-1)
     nnz = torch.zeros(rows_cap, dtype=torch.int64, device=dev)
     acc = torch.zeros(rows_cap, dtype=torch.int64, device=dev)
-    row_base = torch.arange(rows_cap, device=dev) * t
-    last = max(keys.shape[0] - 1, 0)
     steps = int(nprod_row.max()) if rows_cap else 0
+    if steps == 0:
+        return (nnz.to(torch.int32), col_tabs, val_tabs, acc.to(torch.int32))
+    row_base = torch.arange(rows_cap, device=dev) * t
+    last = keys.shape[0] - 1
+    start_of = _hash_init(keys, t)       # each product's first slot
+    cur = torch.zeros(rows_cap, dtype=torch.int64, device=dev)
+    before = torch.zeros(rows_cap, dtype=torch.int64, device=dev)
 
-    for s in range(steps):
-        pending = nprod_row > s
-        p = (first + s).clamp(max=last)
+    def probe_round():
+        pending = cur < nprod_row
+        p = (first + cur).clamp(max=last)
         key = keys[p]
-        start = _hash_init(key, t)
-        before = torch.zeros(rows_cap, dtype=torch.int64, device=dev)
-        while True:
-            slots = (start[:, None] + window) % t
-            cur = col_tabs.gather(1, slots)
-            stop = (cur == -1) | (cur == key[:, None])
-            pos = torch.where(stop, window, width).amin(1)
-            found = pos < width
-            term = before + pos                  # index of the last probe
-            done = pending & found & (term < guard)
-            gave_up = pending & ~done & (found | (before + width >= guard))
-            pick = pos.clamp(max=width - 1)[:, None]
-            slot = slots.gather(1, pick).squeeze(1)
-            old = cur.gather(1, pick).squeeze(1)
-            claimed = done & (old == -1)
-            lin = row_base + slot
-            flat_cols[lin] = torch.where(claimed, key, old).to(torch.int32)
-            if with_values:
-                v = flat_vals[lin]
-                flat_vals[lin] = torch.where(done, v + prods[p], v)
-            cost = term + 1 if single_access else term + 1 + claimed
-            acc += torch.where(done, cost,
-                               torch.where(gave_up, guard, 0))
-            nnz += claimed
-            pending = pending & ~done & ~gave_up
-            if not bool(pending.any()):
-                break
-            before += width
-            start = (start + width) % t
+        slots = (start_of[p] + before)[:, None].add(window).remainder(t)
+        tab = col_tabs.gather(1, slots)
+        stop = (tab == -1) | (tab == key[:, None])
+        pos = torch.where(stop, window, width).amin(1)
+        found = pos < width
+        term = before + pos                      # index of the last probe
+        done = pending & found & (term < guard)
+        gave_up = pending & ~done & (found | (before + width >= guard))
+        pick = pos.clamp(max=width - 1)[:, None]
+        slot = slots.gather(1, pick).squeeze(1)
+        old = tab.gather(1, pick).squeeze(1)
+        claimed = done & (old == -1)
+        lin = row_base + slot
+        flat_cols[lin] = torch.where(claimed, key, old).to(torch.int32)
+        if with_values:
+            v = flat_vals[lin]
+            flat_vals[lin] = torch.where(done, v + prods[p], v)
+        cost = term + 1 if single_access else term + 1 + claimed
+        acc.add_(torch.where(done, cost, torch.where(gave_up, guard, 0)))
+        nnz.add_(claimed)
+        moved = done | gave_up
+        cur.add_(moved)
+        before.copy_(torch.where(moved, 0, before + width * pending))
+
+    run = _round_runner(probe_round, dev)
+    run(steps)
+    while bool((cur < nprod_row).any()):
+        run(1)
 
     nnz = nnz.masked_fill(~valid, 0).to(torch.int32)
     acc = acc.masked_fill(~valid, 0).to(torch.int32)
     return nnz, col_tabs, val_tabs, acc
+
+
+def _round_runner(probe_round, dev):
+    """-> run(n): at least n more calls of ``probe_round``, which updates
+    its tensors in place and reads nothing on the host.  On a CPU device
+    it calls the function n times; on the card the first call runs
+    eagerly on a side stream (the warm-up a capture needs), the next
+    ``_GRAPH_ROUNDS`` are captured in one CUDA graph, and the rest are its
+    replays, rounded up."""
+    if dev.type != "cuda":
+        def run_eager(n):
+            for _ in range(n):
+                probe_round()
+        return run_eager
+
+    graph = None
+
+    def run_graph(n):
+        nonlocal graph
+        if graph is None:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                probe_round()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(_GRAPH_ROUNDS):
+                    probe_round()
+            n -= 1
+        for _ in range(-(-n // _GRAPH_ROUNDS)):
+            graph.replay()
+    return run_graph
 
 
 def symbolic_bin_plain(rows, count, a_rpt, a_col, b_rpt, b_col, *,

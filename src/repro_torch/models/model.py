@@ -441,8 +441,8 @@ class Model:
         hidden = L.rmsnorm(hidden[:, -1:], params["final_norm"], cfg.norm_eps)
         return L.logits(embed_p, hidden), caches
 
-    def decode_step(self, params, token, caches, pos, *,
-                    donate: bool = False):
+    def decode_step(self, params, token, caches, pos, *,  # opslint: steady static=donate
+                    donate: bool = False):  # opslint: donates=caches if donate
         """token: (B, 1) ints; pos: an int, a () or a (B,) tensor (per-slot
         positions, continuous batching); returns (logits, new caches).  The
         caches passed in are left unchanged, or with ``donate`` updated in

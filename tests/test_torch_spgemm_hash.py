@@ -641,6 +641,38 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("deterministic", [False, True])
+@pytest.mark.parametrize("single_access", [True, False])
+@pytest.mark.parametrize("t_size", [4, 7, 64, 127])
+def test_cuda_plain_graph_rounds_equal_the_cpu_plain(cuda_device, t_size,
+                                                     single_access,
+                                                     deterministic):
+    """The plain body on the card (its probe round replayed from a CUDA
+    graph) equals the same body on the CPU bit for bit, tables of 4 and 7
+    entries included, where rows give up at the probe guard."""
+    A, B = _pair()
+    nprod = tnprod(_port(A), _port(B))[:96]
+    rows = torch.argsort(nprod, descending=True).to(torch.int32)
+    count = torch.tensor([90], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        TA, TB = _port(A, dev), _port(B, dev)
+        args = (rows.to(dev), count.to(dev), TA.rpt, TA.col, TA.val,
+                TB.rpt, TB.col, TB.val)
+        before = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            out[str(dev)] = tsh.fused_bin_plain(
+                *args, t_size=t_size, rows_cap=96,
+                single_access=single_access)
+        finally:
+            torch.use_deterministic_algorithms(before)
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        assert torch.equal(got.cpu(), want)
+    assert int(out["cpu"][0].sum()) > 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("single_access", [True, False])
 @pytest.mark.parametrize("kind", ["symbolic", "numeric", "fused"])
 def test_cuda_kernels_match_plain(cuda_device, kind, single_access):
