@@ -160,7 +160,10 @@ Phases, in order; any failure exits non-zero:
      chiprun_out/engine_gates.log.  Then the fixed-order kernels:
      fused_bin and numeric_bin (symbolic_bin too) on the tiny ladders and
      on 8 rows of every extended table size, tables bitwise equal to the
-     plain versions' on the shared-memory, cluster and global routes; at
+     plain versions' on the shared-memory, cluster and global routes; the
+     stress rows of ordered_stress_pair (all products on one column, one
+     A entry with a dense B row, ~28 products a column) on every route of
+     ORDERED_STRESS_ROUTES in float32 and bfloat16, bitwise; at
      the main path's rungs on mono_500Hz, each rung's time and
      FIXED_ORDER_ROWS rows bitwise; and spgemm(method="hash") on
      mono_500Hz in the mode (counts set to 0 just before): the cold call
@@ -3128,6 +3131,16 @@ ENGINE_GATES = (
 FIXED_ORDER_EXTENDED = {"fused_bin": (65536, 262144, 1048576),
                         "numeric_bin": (32768, 131072, 524288)}
 FIXED_ORDER_ROWS = 16          # rows of a mono rung held bit for bit
+# The fixed-order stress rows (ordered_stress_pair) on each route: (kind,
+# t_size, pack, route), one warp a row to 32 on the shared-memory route,
+# then the cluster and the global-memory routes; float32 and bfloat16.
+ORDERED_STRESS_PATTERNS = ("one_column", "long_b_row", "dense_30")
+ORDERED_STRESS_ROUTES = (
+    ("fused_bin", 256, 1, "smem"), ("fused_bin", 256, 4, "smem"),
+    ("fused_bin", 8192, 1, "smem"), ("fused_bin", 65536, 1, "cluster"),
+    ("fused_bin", 262144, 1, "global"), ("numeric_bin", 1023, 1, "smem"),
+    ("numeric_bin", 8191, 1, "smem"), ("numeric_bin", 131072, 1, "cluster"),
+    ("numeric_bin", 524288, 1, "global"))
 
 
 def engine_gates():
@@ -3172,11 +3185,91 @@ def engine_gates():
     return out
 
 
+def ordered_stress_pair(pattern, dtype, seed=11):
+    """Two 96 x 96 matrices in ``dtype`` on the card whose rows stress the
+    fixed-order value pass (the card tests' stress_pair,
+    tests/test_torch_kernels_spgemm_hash.py; normal values, so another
+    summation order gives other bits): "one_column" (dense A rows, every B
+    row column 7 alone: 96 products on one slot), "long_b_row" (one A
+    entry a row, dense B rows), "dense_30" (A rows of 90 entries, B rows
+    of 30: about 28 products a column)."""
+    import numpy as np
+    from repro_torch.core import CSR
+    rng = np.random.default_rng(seed)
+    n = 96
+    if pattern == "one_column":
+        a_rows, b_rows = [np.arange(n)] * n, [np.array([7])] * n
+    elif pattern == "long_b_row":
+        a_rows = [np.array([(7 * i) % n]) for i in range(n)]
+        b_rows = [np.arange(n)] * n
+    else:
+        a_rows = [rng.choice(n, 90, replace=False) for _ in range(n)]
+        b_rows = [rng.choice(n, 30, replace=False) for _ in range(n)]
+    mats = []
+    for rows in (a_rows, b_rows):
+        col = np.concatenate([np.sort(r) for r in rows]).astype(np.int32)
+        rpt = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+        val = rng.standard_normal(col.size).astype(np.float32)
+        M = CSR.from_numpy(rpt.astype(np.int32), col, val, (n, n),
+                           device="cuda")
+        mats.append(CSR(rpt=M.rpt, col=M.col, val=M.val.to(dtype),
+                        shape=M.shape))
+    return mats
+
+
+def fixed_order_stress(sh, errs):
+    """ordered_stress_pair's rows through the fixed-order kernels on every
+    route of ORDERED_STRESS_ROUTES, in float32 and bfloat16: the first 16
+    rows (8 off the shared-memory route) and 8 of padding, tables bitwise
+    equal to the plain versions' on the card."""
+    from repro_torch.core import nprod_into_rpt
+    n_cases = 0
+    with fixed_order():
+        for dtype in (torch.float32, torch.bfloat16):
+            for pattern in ORDERED_STRESS_PATTERNS:
+                A, B = ordered_stress_pair(pattern, dtype)
+                nprod = nprod_into_rpt(A, B)
+                for kind, t_size, pack, route in ORDERED_STRESS_ROUTES:
+                    require(route_of(sh, kind, t_size, dtype) == route,
+                            f"{kind} t={t_size}: not on the {route} route")
+                    n = 16 if route == "smem" else 8
+                    rows = torch.zeros(n + 8, dtype=torch.int32,
+                                       device="cuda")
+                    rows[:n] = torch.arange(n, dtype=torch.int32,
+                                            device="cuda")
+                    count = torch.tensor([n], dtype=torch.int32,
+                                         device="cuda")
+                    valid = torch.arange(n + 8, device="cuda") < n
+                    fn = getattr(sh, kind + "_call")
+                    before = fn.launches_ordered
+                    k = run_bin(sh, kind, False, A, B, rows, count, t_size,
+                                n + 8, pack=pack)
+                    torch.cuda.synchronize()
+                    require(fn.launches_ordered == before + 1,
+                            f"{kind} t={t_size}: no fixed-order launch")
+                    p = run_bin(sh, kind, True, A, B, rows, count, t_size,
+                                n + 8, pack=pack)
+                    errs[kind] = max(errs[kind], compare(
+                        f"fixed-order stress {pattern} {kind} t={t_size} "
+                        f"pack={pack} ({route}, {dtype})", k, p,
+                        nprod[rows.long()].long().masked_fill(~valid, 0),
+                        valid, bitwise=True))
+                    n_cases += 1
+                    del k, p
+    log(f"phase fixed-order stress: {n_cases} cases ("
+        f"{', '.join(ORDERED_STRESS_PATTERNS)} x "
+        f"{len(ORDERED_STRESS_ROUTES)} rungs on the shared-memory, cluster "
+        f"and global routes x float32, bfloat16), tables bitwise equal to "
+        f"the plain versions': ok")
+    return n_cases
+
+
 def fixed_order_kernels(sh, errs):
     """The fixed-order kernels against their plain versions, bit for bit:
     phase_tiny's ladders (the shared-memory route), then FIXED_ORDER_ROWS'
     eight heaviest rows of that pair on every extended table size (the
-    cluster and global routes)."""
+    cluster and global routes), then the stress rows of
+    fixed_order_stress."""
     from repro_torch.core import nprod_into_rpt
     with fixed_order():
         A, B = phase_tiny(sh, errs, bitwise=True)
@@ -3206,6 +3299,7 @@ def fixed_order_kernels(sh, errs):
     log("phase fixed-order kernels: fused_bin and numeric_bin on the "
         "shared-memory, cluster and global routes, tables bitwise equal to "
         "the plain versions': ok")
+    fixed_order_stress(sh, errs)
     return {k: sorted(v | {"smem"}) for k, v in routes.items()}
 
 
@@ -3240,10 +3334,13 @@ def fixed_order_main_shapes(sh, A, jobs, atomic):
                         lvalid, bitwise=True)
                 del k, p
                 ms += kms
+                ctas = sh.ctas_per_sm(t_size, kernel=kind, ordered=True)
                 rungs.append(dict(rung=b, t_size=t_size, rows=int(count),
-                                  rows_cap=rows_cap, ms=kms))
+                                  rows_cap=rows_cap, ms=kms,
+                                  ctas_per_sm=ctas))
                 log(f"  fixed-order {kind} rung {b} (t={t_size}, rows "
-                    f"{int(count)}/{rows_cap}): {kms:.3f} ms (atomic "
+                    f"{int(count)}/{rows_cap}, {ctas} CTAs/SM): "
+                    f"{kms:.3f} ms (atomic "
                     f"{next(r['ms'] for r in atomic[kind]['rungs'] if r['rung'] == b):.3f}"
                     f" ms); {FIXED_ORDER_ROWS} rows bitwise: ok")
                 torch.cuda.empty_cache()

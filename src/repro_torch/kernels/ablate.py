@@ -48,6 +48,15 @@ subset of ``PARTS``):
   in turns, with the clusters in flight at each size: what fill, inserts
   and dump cost, and the cluster size that ``spgemm_hash.CLUSTER_SIZES``
   takes.
+- ``ordered``: the fixed-order ``fused_bin`` and ``numeric_bin`` (their
+  ORDERED instances) at mono_500Hz's cold-call rungs on the default
+  ladders and at its ``vmem_extended`` rungs past shared memory, on each
+  ``ORDERED_VARIANTS`` build (the value pass cut after the keys, after
+  making the products, after probing, after sorting them by owner) and,
+  with ``--baseline DIR``, on DIR's build, in turns, DIR's tables held bit
+  for bit to these, and which atomic kernel instances have DIR's SASS;
+  and torch's fill of the wrappers' uninitialised outputs in that mode,
+  timed apart.
 - ``baseline`` (with ``--baseline DIR``, another checkout's root): the
   float32 ``bsr_spmm`` on that layer and ``binning_histogram`` on
   delaunay_n24's 16,777,216 sizes and on the first 169,410 of them
@@ -62,12 +71,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
 import zlib
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -214,6 +225,36 @@ CLUSTER_VARIANTS: Dict[str, Callable[[str], str]] = {
     # fill, the entry lists, the two cluster barriers and the dump
     "fill_dump_only": _replace(_CLUSTER_CHUNKS, _CLUSTER_CHUNKS.replace(
         "g < chunks;", "g < chunks && t_size < 0;")),
+}
+
+_ORDERED_MADE = ("  int made = 0;  // batches of this round made so far, by "
+                 "every warp\n")
+_OWNER_LOOP = ("  for (int q = 0; q < total; q += 32) {\n"
+               "    const int t = q + lane;\n")
+_STAGE_CALL = ("        stage_batch(stage, slot, prod, warp, warps, "
+               "thread_index_now() % 32);\n")
+_no_owner = _replace(_OWNER_LOOP, _OWNER_LOOP.replace(
+    "q < total;", "q < total && warps < 0;"))
+_stage_raw = _replace(_STAGE_CALL, "        stage[32 * warp + "
+                      "thread_index_now() % 32] = make_int2(slot, "
+                      "__float_as_int(prod));\n")
+
+# Edits of the fixed-order value pass (ordered_values and what it calls),
+# which every ORDERED instance runs: each keeps the stages before one cut.
+ORDERED_VARIANTS: Dict[str, Callable[[str], str]] = {
+    "base": lambda src: src,
+    # the value pass returns at once: fill, keys and dump alone
+    "keys_only": _replace(_ORDERED_MADE,
+                          _ORDERED_MADE + "  if (a_lo >= 0) return;\n"),
+    # every product made (window loads, its entry, b_col / b_val, the
+    # rounded product) and staged where it lies: no probe, no owner's add
+    "make_no_probe": lambda src: _no_owner(_stage_raw(_replace(
+        "  return table.find(b_col[j]);\n}",
+        "  return b_col[j] & 1023;\n}")(src))),
+    # made and probed, staged where it lies: no owner's add
+    "make": lambda src: _no_owner(_stage_raw(src)),
+    # made, probed and sorted by owner: no owner's add
+    "make_sort": _no_owner,
 }
 
 BSR_VARIANTS: Dict[str, Callable[[str], str]] = {
@@ -738,12 +779,14 @@ def extended_outputs(kind: str, route: str, rung, device):
 
 
 def extended_launcher(lib, kind: str, route: str, A, rung, outs, *,
-                      cluster: Optional[int] = None) -> Callable[[], None]:
+                      cluster: Optional[int] = None,
+                      ordered: bool = False) -> Callable[[], None]:
     """A launch of one extended rung of A·A through ``lib``'s C entry point
     for ``route`` (``hash_bin_cluster`` at ``cluster`` blocks a row, or
-    ``hash_bin_global``) into ``outs`` (:func:`extended_outputs`), in the
-    wrapper's geometry (one row a cluster or a block of its
-    launch_geometry threads), single access."""
+    ``hash_bin_global``; their ``_ordered`` instances with ``ordered``)
+    into ``outs`` (:func:`extended_outputs`), in the wrapper's geometry
+    (one row a cluster or a block of its launch_geometry threads), single
+    access."""
     from . import spgemm_hash as sh
     nnz, acc, cols, vals = outs
     with_values = kind != "symbolic_bin"
@@ -758,14 +801,16 @@ def extended_launcher(lib, kind: str, route: str, A, rung, outs, *,
               ptr(A.val if with_values else None), rung.t_size,
               rung.rows_cap)
 
+    suffix = "_ordered" if ordered else ""
+
     def launch():
         if route == "cluster":
-            err = lib.hash_bin_cluster(
+            err = getattr(lib, "hash_bin_cluster" + suffix)(
                 int(with_values), 1, *inputs, cluster,
                 threads, ptr(nnz), ptr(cols), ptr(vals), acc.data_ptr(),
                 stream)
         else:
-            err = lib.hash_bin_global(
+            err = getattr(lib, "hash_bin_global" + suffix)(
                 1, *inputs, threads, ptr(nnz),
                 cols.data_ptr(), ptr(vals), acc.data_ptr(), stream)
         build.check(err, f"{kind} {route} launch")
@@ -911,8 +956,185 @@ def ablate_global(A, rounds: int = 3) -> Dict[str, Dict]:
     return result
 
 
+def ordered_launcher(lib, kind: str, A, rung, outs) -> Callable[[], None]:
+    """A launch of one shared-memory rung of A·A through ``lib``'s
+    fixed-order C entry point (``fused_bin_ordered`` or
+    ``numeric_bin_ordered``) into ``outs`` (:func:`extended_outputs`), in
+    the wrapper's geometry, single access."""
+    from . import spgemm_hash as sh
+    nnz, acc, cols, vals = outs
+    t, cap = rung.t_size, rung.rows_cap
+    stream = torch.cuda.current_stream().cuda_stream
+    inputs = (rung.rows.data_ptr(), rung.count.data_ptr(), A.rpt.data_ptr(),
+              A.col.data_ptr(), A.val.data_ptr(), A.rpt.data_ptr(),
+              A.col.data_ptr(), A.val.data_ptr(), t, cap)
+
+    def launch():
+        if kind == "numeric_bin":
+            err = lib.numeric_bin_ordered(
+                *inputs, *sh.numeric_launch_geometry(t), 1, *sh.hash_mod(t),
+                cols.data_ptr(), vals.data_ptr(), acc.data_ptr(), stream)
+        else:
+            err = lib.fused_bin_ordered(
+                *inputs, *sh.launch_geometry(t, rung.pack), 1,
+                nnz.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                acc.data_ptr(), stream)
+        build.check(err, f"{kind} ordered launch")
+    return launch
+
+
+def sass_listing(path: str) -> Dict[str, List[str]]:
+    """Per kernel of a built library, its SASS instructions as
+    ``cuobjdump -sass`` prints them, without their addresses."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out: Dict[str, List[str]] = {}
+    kernel = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = build.kernel_name(m.group(1))
+            out[kernel] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+([^;]*;)", line)
+        if kernel and m:
+            out[kernel].append(m.group(1).strip())
+    return out
+
+
+# The ORDERED template argument of each hash body, by its name and number
+# of arguments (another checkout's hash_rows_kernel may still carry it, as
+# the third of four; this tree's ORDERED instance is its own kernel).
+_ORDERED_ARG = {("hash_rows_kernel", 4): 2, ("slot_rows_kernel", 3): 1,
+                ("global_rows_kernel", 4): 2, ("cluster_rows_kernel", 4): 2}
+
+
+def _atomic_instance(kernel: str) -> Optional[str]:
+    """A kernel instance's name without its ORDERED argument (as this
+    tree's ``hash_rows_kernel`` names it), or None for an ORDERED one."""
+    name, _, args = kernel.partition("<")
+    if "ordered" in name:
+        return None
+    parts = args.rstrip(">").split(",") if args else []
+    at = _ORDERED_ARG.get((name, len(parts)))
+    if at is not None:
+        if parts[at] != "0":
+            return None
+        if name == "hash_rows_kernel":
+            del parts[at]
+    return f"{name}<{','.join(parts)}>" if parts else name
+
+
+def atomic_sass_equal(this: str, other: str) -> Dict[str, bool]:
+    """Whether each atomic kernel instance of the library at ``this`` has
+    the same SASS as in the one at ``other`` (another checkout's build of
+    csrc/spgemm_hash.cu)."""
+    mine, theirs = ({_atomic_instance(k): v
+                     for k, v in sass_listing(path).items()}
+                    for path in (this, other))
+    return {k: theirs.get(k) == v for k, v in mine.items()
+            if k is not None}
+
+
+def ablate_ordered(A, baseline: Optional[Path] = None,
+                   rounds: int = 2) -> Dict[str, Dict]:
+    """Part ``ordered``: the fixed-order fused_bin and numeric_bin at every
+    rung of A·A's exact-mode cold call on the default ladders (the
+    shared-memory route) and at the vmem_extended ladders' rungs past
+    shared memory (cluster, global), through their C entry points, on the
+    ORDERED_VARIANTS builds and, with ``baseline``, that checkout's build,
+    in turns; the baseline's valid rows held bit for bit to this tree's.
+    Also the time torch takes to fill the wrappers' uninitialised outputs
+    of the shared-memory rungs in the fixed-order mode (what the wrapper's
+    time adds to the kernel's)."""
+    from . import spgemm_hash as sh
+    libs = build_variants("spgemm_hash", ORDERED_VARIANTS)
+    if baseline is not None:
+        libs["baseline"] = build_variants(
+            "spgemm_hash", {"x": lambda src: src},
+            baseline / "src" / "repro_torch" / "kernels" / "csrc")["x"]
+    sass = None
+    if baseline is not None:
+        sass = atomic_sass_equal(libs["base"]._name, libs["baseline"]._name)
+        print(f"atomic kernel instances with the baseline's SASS: "
+              f"{sum(sass.values())} of {len(sass)}"
+              + "".join(f"; differs: {k}" for k, v in sass.items() if not v),
+              flush=True)
+    sym, num = cold_schedule("mono_500Hz", A)
+    ext_sym, ext_num = cold_schedule("mono_500Hz (vmem_extended)", A,
+                                     vmem_extended=True)
+    limit = sh._smem_limit(A.device)
+    jobs = [("fused_bin", r, "smem") for r in sym] + [
+        ("numeric_bin", r, "smem") for r in num]
+    for kind, rungs in (("fused_bin", ext_sym), ("numeric_bin", ext_num)):
+        for r in rungs:
+            rpc = (sh.numeric_launch_geometry(r.t_size)[0]
+                   if kind == "numeric_bin" else 1)
+            route = sh.hash_route(r.t_size, rpc, True, limit)
+            if route != "smem":
+                jobs.append((kind, r, route))
+    result = {}
+    for kind, r, route in jobs:
+        outs = extended_outputs(kind, "smem", r, A.device)
+        launchers = {
+            label: (ordered_launcher(lib, kind, A, r, outs) if route == "smem"
+                    else extended_launcher(
+                        lib, kind, route, A, r, outs, ordered=True,
+                        cluster=sh.cluster_size(r.t_size, True, limit)))
+            for label, lib in libs.items()}
+        n = int(r.count[0])
+        want = {}
+        for label in ("base", "baseline"):
+            if label not in launchers:
+                continue
+            launchers[label]()
+            cols, order = torch.sort(outs[2][:n], dim=1)
+            vals = outs[3][:n].gather(1, order).view(torch.int32)
+            if want and not (torch.equal(cols, want["cols"])
+                             and torch.equal(vals, want["vals"])):
+                raise RuntimeError(f"{kind} t={r.t_size}: the baseline's "
+                                   f"tables differ from this tree's")
+            want = dict(cols=cols, vals=vals)
+        del want
+        what = f"fixed-order {kind} t={r.t_size} ({route}, rows {n}/" \
+            f"{r.rows_cap})"
+        result[f"{kind} {r.t_size}"] = dict(
+            route=route, rows=n, rows_cap=r.rows_cap,
+            ms=in_turns(launchers, rounds, what, reps=3))
+        del outs, launchers
+        torch.cuda.empty_cache()
+    totals = {}
+    for key, rung in result.items():
+        group = f"{key.split()[0]} {rung['route']}"
+        for label, t in rung["ms"].items():
+            totals.setdefault(group, {}).setdefault(label, 0.0)
+            totals[group][label] += t["ms"]
+    for group, by_label in totals.items():
+        print(f"fixed-order {group}: " + ", ".join(
+            f"{label} {ms:.3f} ms" for label, ms in by_label.items()),
+            flush=True)
+
+    fill = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    for kind, rungs in (("fused_bin", sym), ("numeric_bin", num)):
+        def alloc():
+            for r in rungs:
+                sh.fused_outputs(r.rows_cap, r.t_size, A.device)
+        fill[kind] = {}
+        for mode in (True, False):
+            torch.use_deterministic_algorithms(mode)
+            fill[kind]["filled" if mode else "not filled"] = time_ms(alloc,
+                                                                     3)
+        print(f"{kind} outputs of the shared-memory rungs: "
+              f"{fill[kind]['filled']:.3f} ms filled in the fixed-order "
+              f"mode, {fill[kind]['not filled']:.3f} ms not", flush=True)
+    torch.use_deterministic_algorithms(was)
+    return dict(rungs=result, totals=totals, fill=fill, atomic_sass=sass)
+
+
 PARTS = ("cold", "fused", "two_pass", "pack", "bsr", "bsr_f32", "global",
-         "cluster", "baseline")
+         "cluster", "ordered", "baseline")
 
 
 def main() -> int:
@@ -921,13 +1143,16 @@ def main() -> int:
     parser.add_argument("--parts", default=",".join(PARTS[:-1]),
                         help="comma-separated subset of " + ",".join(PARTS))
     parser.add_argument("--baseline", type=Path, default=None,
-                        help="root of another checkout (part baseline)")
+                        help="root of another checkout (parts baseline, "
+                        "ordered)")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not parts <= set(PARTS):
         parser.error(f"--parts takes a subset of {','.join(PARTS)}")
-    if ("baseline" in parts) != (args.baseline is not None):
-        parser.error("part baseline and --baseline go together")
+    if ("baseline" in parts) and args.baseline is None:
+        parser.error("part baseline needs --baseline")
+    if args.baseline is not None and not parts & {"baseline", "ordered"}:
+        parser.error("--baseline goes with part baseline or ordered")
     if not torch.cuda.is_available():
         print("ablate: no CUDA device visible", file=sys.stderr)
         return 2
@@ -972,6 +1197,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "cluster" in parts:
         report["cluster"] = ablate_cluster(table3_matrix("mono_500Hz"))
+        torch.cuda.empty_cache()
+    if "ordered" in parts:
+        report["ordered"] = ablate_ordered(table3_matrix("mono_500Hz"),
+                                           args.baseline)
         torch.cuda.empty_cache()
     if "bsr" in parts:
         report["bsr_spmm_bf16"] = ablate_bsr()

@@ -96,9 +96,10 @@
 // dumped: the table is the output.  Row offsets are 64-bit (a bucket of
 // 4,096 rows of 524,288 entries holds 2^31 of them).  Padding rows write
 // nnz 0 and accesses 0 and leave their tables unwritten, as above.  At most
-// 32 registers a thread (__launch_bounds__(1024, 2)).  The tables of the
-// CTAs in flight (264 x 2 MB and up) exceed the 50 MB L2, so part of the
-// atomics reach HBM.
+// 32 registers a thread (__launch_bounds__(1024, 2)), the ORDERED instance
+// too, whose value pass stages in 12 KB of static shared memory.  The
+// tables of the CTAs in flight (264 x 2 MB and up) exceed the 50 MB L2, so
+// part of the atomics reach HBM.
 //
 // cluster_rows_kernel (tables of 32,768 to 262,144 entries that a cluster
 // holds: 8 B a slot with values, 4 B without, t_size / C slots a block,
@@ -133,7 +134,10 @@
 //   * At most 32 registers a thread (__launch_bounds__(1024, 2)), so that
 //     two blocks fit an SM where the slices are 64 KB or less; the row,
 //     rank and thread indices are read again from their special registers
-//     after the loops rather than held across them.
+//     after the loops rather than held across them; the ORDERED instance
+//     too (its table re-reads them at each find).  Its value pass runs
+//     between the second cluster.sync() and a third, reading the peers'
+//     keys, and stages in the entry list's memory.
 //
 // What bounds them on the card: device-memory bytes for the valid rows (B
 // reads, the raw table dump), and, inside a row, the latency of the chain
@@ -142,10 +146,16 @@
 //
 // The fixed-order value mode (the *_ordered entry points, which the
 // wrappers launch under torch.use_deterministic_algorithms(True)): an
-// ORDERED instance of each body that builds values (hash_rows_kernel with
-// values, slot_rows_kernel, global_rows_kernel, cluster_rows_kernel) adds
-// a row's products in the reference's order, so its values are the plain
-// version's bit for bit, run after run.  See ordered_values below.
+// ORDERED instance of each body that builds values (hash_rows_kernel_ordered,
+// slot_rows_kernel, global_rows_kernel, cluster_rows_kernel) inserts a
+// row's keys as the atomic kernels do, then adds its products in the
+// reference's order, so its values are the plain version's bit for bit,
+// run after run.  All of the row's warps share that value pass: each makes
+// batches of the row's products in turn (loads, rounded product, slot) and
+// adds those whose slot it owns (ordered_values below).  Its stage takes
+// about 12 B a thread of shared memory beside the tables (stage_bytes).
+// The ORDERED instances keep to 32 registers (__launch_bounds__(1024, 2))
+// without a spill, as the atomic ones do.
 //
 // Value types: every body that builds values is a template on its value
 // type V, float, __nv_bfloat16 or __half (template argument VT = 0, 1, 2;
@@ -233,6 +243,7 @@ using ValT = typename Val<VT>::T;
 constexpr int kEmpty = -1;
 constexpr unsigned kHashScale = 107u;
 constexpr int kGuardFactor = 2;
+constexpr int kMaxRowThreads = 1024;  // a row's threads: a block at most
 
 __device__ __forceinline__ int hash_init(int key, int t_size, bool pow2) {
   unsigned p = static_cast<unsigned>(key) * kHashScale;
@@ -245,100 +256,272 @@ __device__ __forceinline__ int hash_next(int h, int t_size) {
   return h + 1 == t_size ? 0 : h + 1;
 }
 
+// The thread's index and the block's size, read from their special
+// registers anew at each call (asm volatile), so that they need no register
+// across a loop.
+__device__ __forceinline__ int thread_index_now() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int block_threads_now() {
+  int v;
+  asm volatile("mov.u32 %0, %%ntid.x;" : "=r"(v));
+  return v;
+}
+
 // ---------------------------------------------------------------------------
 // The fixed-order value pass of the ORDERED instances.
 //
 // The row's keys go in first, in parallel, as in the atomic kernels (the
 // same probes, so the same access counts), with no values.  After a
-// barrier one warp walks the row's products in the reference's order -- A's
-// entries in order, each entry's B row in order -- 32 at a time, a product
-// a lane.  Each lane finds its product's slot by a read-only probe of the
-// final keys; then the lanes of each slot add their products onto its
-// value one at a time, in lane order.  So every value is the plain
-// version's left fold ((0 + p1) + p2) + ..., bit for bit: each product is
-// __fmul_rn(a, b) and each add __fadd_rn, which round every step and which
-// nvcc never contracts into an FMA, each rounded to the value type V
-// (Val<VT>::round; nothing for float).  Where a slot lands does not matter,
-// since the epilogue sorts each row by column.  The lookups of this pass
-// are not the reference's table transactions and are not counted.
+// barrier all W warps of the row add its products in the reference's order
+// -- A's entries in order, each entry's B row in order -- in batches of 32
+// products, a product a lane, W batches a round:
+//   * Every warp walks the row's A entries 32 at a time (an entry a lane,
+//     an inclusive scan of their B rows' lengths), so all of them number
+//     the same batches.  Warp w makes batch w of each round: for each
+//     lane's product it finds the entry (a binary search over the lanes'
+//     scan), loads b_col and b_val, rounds the product to V and finds its
+//     slot by a read-only probe of the final keys.  It stages the batch's
+//     (slot, product) pairs in shared memory sorted by owner, in lane
+//     order within an owner, with each owner's place and count
+//     (stage_batch).  The loads and probes of a round thus go W ways at
+//     once.  Warp w owns the slots s with s % W == w: the slot is the
+//     key's multiplicative hash (key * 107, then linear probing), not the
+//     column, so a banded row's columns spread over the warps.
+//   * After a barrier each warp gathers the products it owns from the
+//     round's batches, batch after batch, and adds them 32 at a time
+//     (add_staged).  A second barrier frees the stage.
+//   * Within such 32 the products of one slot are added by its lowest
+//     lane (the leader), in lane order (add_in_lane_order): when the
+//     slots are all distinct that is one add a lane, and with repeats one
+//     more step for each peer of the largest group.
+// With one warp a row (the packed rows, W = 1) the warp adds each batch
+// from its registers as soon as it has made it: no stage, no barrier.
+//
+// Why every value is the plain version's left fold ((0 + p1) + p2) + ...,
+// bit for bit: all products of a key land in the key's one slot, and the
+// slot's one owner adds them round after round, batch after batch within
+// a round and lane after lane within a batch (the staging keeps that
+// order), which is the reference's order.  Adds to other slots interleave with them in any order, which
+// changes no value.  Each product is __fmul_rn(a, b) and each add
+// __fadd_rn, which round every step and which nvcc never contracts into
+// an FMA, each rounded to the value type V (Val<VT>::round; nothing for
+// float).  Where a slot lands does not matter, since the epilogue sorts
+// each row by column.  The lookups of this pass are not the reference's
+// table transactions and are not counted.
 //
 // A table type gives find(key) (the slot holding the key, or -1 when this
-// warp adds nothing for it) and load / store of a slot's value (as float,
+// block adds nothing for it) and load / store of a slot's value (as float,
 // a V value exactly), and its value type VT.
 // ---------------------------------------------------------------------------
 
+constexpr unsigned kAllLanes = 0xffffffffu;
+
 // Adds each lane's product to its slot (slot < 0: nothing to add); the
-// products of one slot are summed by its lowest lane, in lane order.
+// products of one slot are summed by its lowest lane, in lane order.  The
+// loop takes as many steps as the largest group has peers.
 template <class Table>
 __device__ __forceinline__ void add_in_lane_order(const Table& table,
                                                   int slot, float prod,
                                                   int lane) {
   using Ops = Val<Table::VT>;
-  const unsigned lanes = __ballot_sync(0xffffffffu, slot >= 0);
+  const unsigned lanes = __ballot_sync(kAllLanes, slot >= 0);
   if (lanes == 0) return;  // warp uniform
-  const unsigned peers =
-      __match_any_sync(0xffffffffu, slot >= 0 ? slot : -1 - lane);
-  const bool leader = slot >= 0 && __ffs(peers) - 1 == lane;
-  float acc = leader ? table.load(slot) : 0.0f;
-  const int last = 31 - __clz(lanes);
-  for (int i = 0; i <= last; ++i) {
-    const float p = __shfl_sync(0xffffffffu, prod, i);
-    if (leader && ((peers >> i) & 1u)) acc = Ops::round(__fadd_rn(acc, p));
+  if ((lanes & (lanes - 1)) == 0) {  // one product: nothing to order
+    if (slot >= 0)
+      table.store(slot, Ops::round(__fadd_rn(table.load(slot), prod)));
+  } else {
+    const unsigned peers =
+        __match_any_sync(kAllLanes, slot >= 0 ? slot : -1 - lane);
+    const bool leader = slot >= 0 && __ffs(peers) - 1 == lane;
+    float acc = 0.0f;
+    unsigned rest = 0;  // the leader's peers still to add, lowest first
+    if (leader) {
+      acc = Ops::round(__fadd_rn(table.load(slot), prod));
+      rest = peers & (peers - 1);
+    }
+    for (int steps = __reduce_max_sync(kAllLanes, __popc(rest)); steps > 0;
+         --steps) {
+      const float p =
+          __shfl_sync(kAllLanes, prod, rest ? __ffs(rest) - 1 : lane);
+      if (rest) {
+        acc = Ops::round(__fadd_rn(acc, p));
+        rest &= rest - 1;
+      }
+    }
+    if (leader) table.store(slot, acc);
   }
-  if (leader) table.store(slot, acc);
-  __syncwarp();  // the next batch's leaders read these values
+  __syncwarp();  // the next batch's adds read these values
 }
 
-// One warp adds every product of a row (A entries [a_lo, a_hi)) in the
-// reference's order.  Lane l holds A entry base + l of each batch of 32, an
-// inclusive scan of their B rows' lengths places every product, and lane l
-// takes product q + l of the batch's products.
+// The inclusive scan of v over the warp's lanes.
+__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
+  for (int o = 1; o < 32; o *= 2) {
+    const int t = __shfl_up_sync(kAllLanes, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+// Lane i holds a range of a list (end: the inclusive scan of the ranges'
+// lengths); returns the lane whose range holds item t: the number of lanes
+// that end at or before t (a binary search over the lanes), at most 31.
+__device__ __forceinline__ int range_lane(int end, int t) {
+  int s = 0;
+  for (int step = 16; step > 0; step /= 2) {
+    const int at = __shfl_sync(kAllLanes, end, s + step - 1);
+    if (at <= t) s += step;
+  }
+  return min(s, 31);
+}
+
+// Product q + lane of a window of up to 32 A entries, one a lane (lane i:
+// its A value av, end, the inclusive scan of the window's B rows' lengths,
+// and off, where its B row starts less where its products start in the
+// window; the window holds `total` products): returns the product's slot
+// (-1 past the window's end, or where find has none) and sets *prod to the
+// product rounded to V.
+template <class Table>
+__device__ __forceinline__ int product_slot(
+    const Table& table, const int* __restrict__ b_col,
+    const ValT<Table::VT>* __restrict__ b_val, int off, float av, int end,
+    int total, int q, int lane, float* prod) {
+  using Ops = Val<Table::VT>;
+  const int t = q + lane;
+  const int s = range_lane(end, t);
+  const int j = __shfl_sync(kAllLanes, off, s) + t;
+  const float a = __shfl_sync(kAllLanes, av, s);
+  if (t >= total) return -1;
+  *prod = Ops::round(__fmul_rn(a, Ops::to_f(b_val[j])));
+  return table.find(b_col[j]);
+}
+
+// The stage of a row of `warps` (<= 32) warps: the round's batches, 32
+// (slot, product bits) pairs each, then for each batch b and owner w the
+// word counts[(warps + 1) * b + w] = (the owner's first place in the
+// batch) | (its products there) << 16 (padded by one word a batch, so that
+// the owner's reads of its column hit distinct banks).
+__host__ __device__ constexpr int stage_words(int warps) {
+  return 2 * 32 * warps + warps * (warps + 1);
+}
+
+// The warp of `warps` that owns a slot.
+__device__ __forceinline__ int slot_owner(int slot, int warps) {
+  return (warps & (warps - 1)) == 0 ? slot & (warps - 1) : slot % warps;
+}
+
+// Stages batch `warp` of a round: each lane's product (slot < 0: none)
+// goes to the batch's 32 pairs sorted by owner, in lane order within an
+// owner, and the batch's word of each owner is written.
+__device__ __forceinline__ void stage_batch(int2* stage, int slot, float prod,
+                                            int warp, int warps, int lane) {
+  int* counts = reinterpret_cast<int*>(stage + 32 * warps) +
+                (warps + 1) * warp;
+  const int owner = slot < 0 ? 32 : slot_owner(slot, warps);
+  const unsigned peers = __match_any_sync(kAllLanes, owner);
+  if (lane < warps) counts[lane] = 0;
+  __syncwarp();
+  if (owner < 32 && __ffs(peers) - 1 == lane) counts[owner] = __popc(peers);
+  __syncwarp();
+  const int n = lane < warps ? counts[lane] : 0;  // owner `lane`'s products
+  const int first = warp_inclusive_scan(n, lane) - n;
+  if (lane < warps) counts[lane] = first | n << 16;
+  const int at = __shfl_sync(kAllLanes, first, owner & 31) +
+                 __popc(peers & ((1u << lane) - 1));
+  if (owner < 32) stage[32 * warp + at] = make_int2(slot, __float_as_int(prod));
+}
+
+// Adds, in order, the products of the `made` staged batches of a round
+// whose slots warp `warp` of `warps` owns: batch after batch, 32 at a time
+// (add_in_lane_order).  Block barriers before (the round is staged) and
+// after (the stage may be reused).
+template <class Table>
+__device__ __forceinline__ void add_staged(const Table& table,
+                                           const int2* stage, int made,
+                                           int warp, int warps, int lane) {
+  __syncthreads();
+  const int word = lane < made ? reinterpret_cast<const int*>(
+                                     stage + 32 * warps)[(warps + 1) * lane +
+                                                         warp]
+                               : 0;
+  const int n = word >> 16, first = word & 0xffff;  // batch `lane`'s
+  const int end = warp_inclusive_scan(n, lane);
+  const int total = __shfl_sync(kAllLanes, end, 31);
+  for (int q = 0; q < total; q += 32) {
+    const int t = q + lane;
+    const int b = range_lane(end, t);
+    const int at = 32 * b + __shfl_sync(kAllLanes, first, b) + t -
+                   (__shfl_sync(kAllLanes, end, b) -
+                    __shfl_sync(kAllLanes, n, b));
+    int slot = -1;
+    float prod = 0.0f;
+    if (t < total) {
+      const int2 st = stage[at];
+      slot = st.x;
+      prod = __int_as_float(st.y);
+    }
+    add_in_lane_order(table, slot, prod, lane);
+  }
+  __syncthreads();
+}
+
+// A row's fixed-order value pass (A entries [a_lo, a_hi)), which each of
+// the row's `warps` warps (<= 32) runs.  With more than one warp the block
+// holds this one row, whose barriers are the block's, its warps are the
+// block's (warp threadIdx.x / 32), and `stage` is stage_words(warps) words
+// of its shared memory (8-byte aligned); with one, stage is not read.  The
+// lane is read from its special register at each use, which keeps the
+// ORDERED instances within 32 registers without a spill.
 template <class Table>
 __device__ __forceinline__ void ordered_values(
-    const Table& table, const int* __restrict__ a_col,
+    const Table& table, int2* stage, const int* __restrict__ a_col,
     const ValT<Table::VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
     const int* __restrict__ b_col, const ValT<Table::VT>* __restrict__ b_val,
-    int a_lo, int a_hi, int lane) {
+    int a_lo, int a_hi, int warps) {
   using Ops = Val<Table::VT>;
+  const int warp = threadIdx.x / 32;
+  int made = 0;  // batches of this round made so far, by every warp
   for (int base = a_lo; base < a_hi; base += 32) {
-    const int e = base + lane;
-    int lo = 0, len = 0;
+    const int e = base + thread_index_now() % 32;
+    int len = 0, off = 0;
     float av = 0.0f;
     if (e < a_hi) {
       const int k = a_col[e];
       av = Ops::to_f(a_val[e]);
-      lo = b_rpt[k];
-      len = b_rpt[k + 1] - lo;
+      off = b_rpt[k];
+      len = b_rpt[k + 1] - off;
     }
-    int end = len;  // where this entry's products end in the batch
-    for (int o = 1; o < 32; o *= 2) {
-      const int t = __shfl_up_sync(0xffffffffu, end, o);
-      if (lane >= o) end += t;
-    }
-    const int total = __shfl_sync(0xffffffffu, end, 31);
+    // Where this entry's products end in the window.
+    const int end = warp_inclusive_scan(len, thread_index_now() % 32);
+    const int total = __shfl_sync(kAllLanes, end, 31);
+    off -= end - len;
     for (int q = 0; q < total; q += 32) {
-      const int t = q + lane;
-      // The product's entry: the number of entries that end at or before
-      // it (a binary search over the lanes' ends).
-      int s = 0;
-      for (int step = 16; step > 0; step /= 2) {
-        const int at = __shfl_sync(0xffffffffu, end, s + step - 1);
-        if (at <= t) s += step;
+      if (warps == 1) {
+        float prod = 0.0f;
+        const int slot =
+            product_slot(table, b_col, b_val, off, av, end, total, q,
+                         thread_index_now() % 32, &prod);
+        add_in_lane_order(table, slot, prod, thread_index_now() % 32);
+        continue;
       }
-      s = min(s, 31);
-      const int s_end = __shfl_sync(0xffffffffu, end, s);
-      const int s_len = __shfl_sync(0xffffffffu, len, s);
-      const int s_lo = __shfl_sync(0xffffffffu, lo, s);
-      const float s_a = __shfl_sync(0xffffffffu, av, s);
-      int slot = -1;
-      float prod = 0.0f;
-      if (t < total) {
-        const int j = s_lo + t - (s_end - s_len);
-        prod = Ops::round(__fmul_rn(s_a, Ops::to_f(b_val[j])));
-        slot = table.find(b_col[j]);
+      if (made == warp) {
+        float prod = 0.0f;
+        const int slot =
+            product_slot(table, b_col, b_val, off, av, end, total, q,
+                         thread_index_now() % 32, &prod);
+        stage_batch(stage, slot, prod, warp, warps, thread_index_now() % 32);
       }
-      add_in_lane_order(table, slot, prod, lane);
+      if (++made == warps) {
+        add_staged(table, stage, made, warp, warps, thread_index_now() % 32);
+        made = 0;
+      }
     }
+  }
+  if (made > 0) {  // the last round
+    add_staged(table, stage, made, warp, warps, thread_index_now() % 32);
   }
 }
 
@@ -451,9 +634,9 @@ __host__ __device__ constexpr int value_words(int entries, int value_bytes) {
   return (entries * value_bytes + 3) / 4;
 }
 
-template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
-          int VT = 0>
-__global__ void hash_rows_kernel(
+// The body of hash_rows_kernel and of its ORDERED instance.
+template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED, int VT>
+__device__ __forceinline__ void hash_rows(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
     const ValT<VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
@@ -540,12 +723,14 @@ __global__ void hash_rows_kernel(
   }
   if (ORDERED) {
     __syncthreads();  // every key of the block's rows is in place
-    if (idx < n_valid && tid < 32) {  // the row's first warp
+    if (n_valid > idx) {  // every warp of the row (the block's, if several)
       const int r = rows[idx];
       const KeyValTable<VT> table{keys + local * t_size,
                                   vals + local * t_size, t_size, pow2};
-      ordered_values(table, a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
-                     a_rpt[r + 1], lane);
+      ordered_values(table, reinterpret_cast<int2*>(smem) +
+                                (row_acc + rows_per_cta - smem + 1) / 2,
+                     a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
+                     a_rpt[r + 1], warps);
     }
   }
   __syncthreads();
@@ -565,6 +750,35 @@ __global__ void hash_rows_kernel(
   }
 }
 
+#define HASH_ROWS_PARAMS                                                     \
+  const int *__restrict__ rows, const int *__restrict__ count,               \
+      const int *__restrict__ a_rpt, const int *__restrict__ a_col,          \
+      const ValT<VT> *__restrict__ a_val, const int *__restrict__ b_rpt,     \
+      const int *__restrict__ b_col, const ValT<VT> *__restrict__ b_val,     \
+      int t_size, int rows_per_cta, int threads_per_row,                     \
+      int *__restrict__ nnz_out, int *__restrict__ col_out,                  \
+      ValT<VT> *__restrict__ val_out, int *__restrict__ acc_out
+#define HASH_ROWS_ARGS                                                       \
+  rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,             \
+      rows_per_cta, threads_per_row, nnz_out, col_out, val_out, acc_out
+
+template <bool SINGLE_ACCESS, bool WITH_VALUES, int VT = 0>
+__global__ void hash_rows_kernel(HASH_ROWS_PARAMS) {
+  hash_rows<SINGLE_ACCESS, WITH_VALUES, false, VT>(HASH_ROWS_ARGS);
+}
+
+// The ORDERED instance (fused_bin in the fixed-order mode): at most 32
+// registers a thread, so that two 1024-thread blocks fit an SM where their
+// tables do (the 8,192- and 12,288-entry rungs).
+template <bool SINGLE_ACCESS, int VT = 0>
+__global__ void __launch_bounds__(1024, 2)
+    hash_rows_kernel_ordered(HASH_ROWS_PARAMS) {
+  hash_rows<SINGLE_ACCESS, true, true, VT>(HASH_ROWS_ARGS);
+}
+
+#undef HASH_ROWS_PARAMS
+#undef HASH_ROWS_ARGS
+
 // Dynamic shared memory of hash_rows_kernel: the keys, the values (of
 // value_bytes each, padded to a word; none without values) and the rows'
 // two counters.
@@ -576,6 +790,21 @@ size_t smem_bytes(int t_size, int rows_per_cta, bool with_values,
          2 * sizeof(int) * rows_per_cta;
 }
 
+// Shared memory the ORDERED instances add after their tables and counters
+// for the value pass's stage (stage_words, at the next 8-byte boundary)
+// where a block's one row has more than one warp; none with one warp a
+// row.  A block of several rows of several warps each has no stage, and
+// its ORDERED launch is refused.
+size_t stage_bytes(int rows_per_cta, int threads_per_row) {
+  return rows_per_cta == 1 && threads_per_row > 32
+             ? 4 * static_cast<size_t>(stage_words(threads_per_row / 32)) + 4
+             : 0;
+}
+
+bool stage_shape_ok(int rows_per_cta, int threads_per_row) {
+  return rows_per_cta == 1 || threads_per_row == 32;
+}
+
 template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
           int VT = 0>
 int launch(const int* rows, const int* count, const int* a_rpt,
@@ -583,10 +812,14 @@ int launch(const int* rows, const int* count, const int* a_rpt,
            const int* b_col, const ValT<VT>* b_val, int t_size, int rows_cap,
            int rows_per_cta, int threads_per_row, int* nnz_out, int* col_out,
            ValT<VT>* val_out, int* acc_out, cudaStream_t stream) {
+  if (ORDERED && !stage_shape_ok(rows_per_cta, threads_per_row))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (rows_cap == 0) return 0;
-  auto kernel = hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES, ORDERED, VT>;
-  const size_t smem = smem_bytes(t_size, rows_per_cta, WITH_VALUES,
-                                 sizeof(ValT<VT>));
+  auto kernel = hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES, VT>;
+  if constexpr (ORDERED) kernel = hash_rows_kernel_ordered<SINGLE_ACCESS, VT>;
+  const size_t smem =
+      smem_bytes(t_size, rows_per_cta, WITH_VALUES, sizeof(ValT<VT>)) +
+      (ORDERED ? stage_bytes(rows_per_cta, threads_per_row) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -804,10 +1037,9 @@ __device__ __forceinline__ void dump_slots(int* __restrict__ dst_cols,
 }
 
 // At most 32 registers a thread, so that two 1024-thread CTAs (the top
-// rungs) fit an SM as with hash_rows_kernel; the ORDERED instance may take
-// 64.
+// rungs) fit an SM as with hash_rows_kernel; the ORDERED instance too.
 template <bool SINGLE_ACCESS, bool ORDERED = false, int VT = 0>
-__global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) slot_rows_kernel(
+__global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
     const ValT<VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
@@ -881,11 +1113,15 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) slot_rows_kernel(
   }
   if (ORDERED) {
     __syncthreads();  // every key of the block's rows is in place
-    if (local < rows_here && idx < n_valid && tid < 32) {
+    if (idx < n_valid && local < rows_here) {  // every warp of the row
       const int r = rows[idx];
       const SlotTable<VT> table{slots + local * t_size, t_size, pow2, mod};
-      ordered_values(table, a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
-                     a_rpt[r + 1], lane);
+      // The stage follows the counters' 8 bytes a row.
+      ordered_values(table,
+                     reinterpret_cast<int2*>(slots + rows_per_cta * t_size +
+                                             rows_per_cta),
+                     a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
+                     a_rpt[r + 1], warps);
     }
   }
   __syncthreads();
@@ -905,9 +1141,13 @@ int launch_slot(HashMod mod, const int* rows, const int* count,
                 int t_size, int rows_cap, int rows_per_cta,
                 int threads_per_row, int* col_out, ValT<VT>* val_out,
                 int* acc_out, cudaStream_t stream) {
+  if (ORDERED && !stage_shape_ok(rows_per_cta, threads_per_row))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (rows_cap == 0) return 0;
   auto kernel = slot_rows_kernel<SINGLE_ACCESS, ORDERED, VT>;
-  const size_t smem = smem_bytes(t_size, rows_per_cta, true);
+  const size_t smem =
+      smem_bytes(t_size, rows_per_cta, true) +
+      (ORDERED ? stage_bytes(rows_per_cta, threads_per_row) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -963,7 +1203,7 @@ __device__ __forceinline__ void fill_words(int* dst, int value, int n) {
 // table the wrapper allocates); nnz_out may be nullptr (numeric_bin).
 template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
           int VT = 0>
-__global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) global_rows_kernel(
+__global__ void __launch_bounds__(1024, 2) global_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
     const ValT<VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
@@ -1039,10 +1279,12 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) global_rows_kernel(
   if (inserted) atomicAdd(&row_nnz, inserted);
   if (accesses) atomicAdd(&row_acc, accesses);
   __syncthreads();  // (ORDERED: every key of the row is in place)
-  if (ORDERED && warp == 0) {
+  if (ORDERED) {
+    __shared__ int2 stage[ORDERED ? stage_words(kMaxRowThreads / 32) / 2
+                                  : 1];
     const KeyValTable<VT> table{table_keys, table_vals, t_size, pow2};
-    ordered_values(table, a_col, a_val, b_rpt, b_col, b_val, a_lo, a_hi,
-                   lane);
+    ordered_values(table, stage, a_col, a_val, b_rpt, b_col, b_val, a_lo,
+                   a_hi, warps);
   }
   if (threadIdx.x == 0) {
     if (nnz_out) nnz_out[row] = row_nnz;
@@ -1126,7 +1368,8 @@ __device__ __forceinline__ void dsmem_add32(uint32_t addr, int v) {
 
 // This block's rank in its cluster, the cluster's size and the block's
 // index, read from their special registers anew at each call (asm
-// volatile), so that they need no register across the insert loop.
+// volatile), so that they need no register across the insert loop; the
+// thread's index and the block's size likewise (thread_index_now above).
 __device__ __forceinline__ unsigned cluster_rank_now() {
   unsigned v;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
@@ -1145,17 +1388,6 @@ __device__ __forceinline__ unsigned block_index_now() {
   return v;
 }
 
-__device__ __forceinline__ int thread_index_now() {
-  int v;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
-  return v;
-}
-
-__device__ __forceinline__ int block_threads_now() {
-  int v;
-  asm volatile("mov.u32 %0, %%ntid.x;" : "=r"(v));
-  return v;
-}
 
 // Inserts one product into a row's table spread over the cluster: slot h
 // lives in rank h >> rank_shift at offset h & (2^rank_shift - 1) (t_size
@@ -1244,6 +1476,9 @@ __device__ __forceinline__ int cluster_insert(uint32_t table, int rank_shift,
 constexpr int kEntryWindow = 1024;
 constexpr int kCountersOffset = (4 * kEntryWindow + 32) * sizeof(int);
 constexpr int kSliceOffset = kCountersOffset + 16;
+// The ORDERED instance stages its value pass in the entry list's memory.
+static_assert(kCountersOffset >= 4 * stage_words(kMaxRowThreads / 32),
+              "the value pass's stage must fit the entry list");
 
 extern __shared__ __align__(16) unsigned char cluster_smem[];
 
@@ -1268,16 +1503,20 @@ __device__ __forceinline__ int* row_counters() {
 // is read from its block through distributed shared memory; find returns
 // the slot's offset in this block's slice when this block holds it, else
 // -1 (the block that holds it adds its products).
+// The block's rank, the slice's address and its size are read again at
+// each find rather than held.
 template <int VT_>
 struct ClusterTable {
   static constexpr int VT = VT_;
   using Bits = typename Val<VT>::Bits;
-  uint32_t table;  // this block's slice, a shared::cta address
-  int rank_shift;  // log2 of the slots a block
   int t_size;
-  int rank;
 
   __device__ int find(int key) const {
+    const uint32_t table = static_cast<uint32_t>(
+        __cvta_generic_to_shared(cluster_smem + kSliceOffset));
+    // log2 of the slots a block (t_size and the cluster: powers of two)
+    const int rank_shift =
+        __ffs(t_size) - __ffs(static_cast<int>(cluster_blocks_now()));
     int h = static_cast<int>(static_cast<unsigned>(key) * kHashScale) &
             (t_size - 1);
     const int mask = (1 << rank_shift) - 1;
@@ -1285,7 +1524,11 @@ struct ClusterTable {
       const int k = dsmem_load32(cluster_addr(
           table + (static_cast<uint32_t>(h & mask) << 3),
           static_cast<uint32_t>(h >> rank_shift)));
-      if (k == key) return (h >> rank_shift) == rank ? (h & mask) : -1;
+      if (k == key) {
+        return (h >> rank_shift) == static_cast<int>(cluster_rank_now())
+                   ? (h & mask)
+                   : -1;
+      }
       if (k == kEmpty) return -1;
       h = (h + 1) & (t_size - 1);
     }
@@ -1373,7 +1616,7 @@ __device__ __forceinline__ int entry_of_chunk(const int* chunk, int n, int g,
 // row * t_size.
 template <bool SINGLE_ACCESS, bool WITH_VALUES, bool ORDERED = false,
           int VT = 0>
-__global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) cluster_rows_kernel(
+__global__ void __launch_bounds__(1024, 2) cluster_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const int* __restrict__ a_rpt, const int* __restrict__ a_col,
     const ValT<VT>* __restrict__ a_val, const int* __restrict__ b_rpt,
@@ -1462,18 +1705,15 @@ __global__ void __launch_bounds__(1024, ORDERED ? 1 : 2) cluster_rows_kernel(
   // peer's shared memory, so each may dump its own slice and leave.
   cluster.sync();
   if (ORDERED) {
-    // Each block's first warp adds, in the reference's order, the products
-    // whose slots its slice holds, reading the other blocks' keys; the
-    // barrier after it keeps every block (and its keys) until all are done.
-    if (threadIdx.x < 32) {
-      const int r = rows[row];
-      const ClusterTable<VT> table_now{
-          static_cast<uint32_t>(
-              __cvta_generic_to_shared(cluster_smem + kSliceOffset)),
-          __ffs(slice_now) - 1, t_size, static_cast<int>(rank)};
-      ordered_values(table_now, a_col, a_val, b_rpt, b_col, b_val, a_rpt[r],
-                     a_rpt[r + 1], lane);
-    }
+    // Each block's warps add, in the reference's order, the products whose
+    // slots its slice holds, reading the other blocks' keys; the stage is
+    // the entry list's memory, free since the barrier above.  The barrier
+    // after it keeps every block (and its keys) until all are done.
+    const int r = rows[row];
+    ordered_values(ClusterTable<VT>{t_size},
+                   reinterpret_cast<int2*>(entry_lo()), a_col, a_val, b_rpt,
+                   b_col, b_val, a_rpt[r], a_rpt[r + 1],
+                   block_threads_now() / 32);
     cluster.sync();
   }
 
@@ -1568,34 +1808,54 @@ const void* global_rows_fn() {
 template <bool SINGLE_ACCESS, bool WITH_VALUES, int VT = 0>
 const void* hash_rows_fn() {
   return reinterpret_cast<const void*>(
-      hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES, false, VT>);
+      hash_rows_kernel<SINGLE_ACCESS, WITH_VALUES, VT>);
 }
 
 template <bool SINGLE_ACCESS, int VT = 0>
+const void* hash_rows_ordered_fn() {
+  return reinterpret_cast<const void*>(
+      hash_rows_kernel_ordered<SINGLE_ACCESS, VT>);
+}
+
+template <bool SINGLE_ACCESS, int VT = 0, bool ORDERED = false>
 const void* slot_rows_fn() {
   return reinterpret_cast<const void*>(
-      slot_rows_kernel<SINGLE_ACCESS, false, VT>);
+      slot_rows_kernel<SINGLE_ACCESS, ORDERED, VT>);
 }
 
 // The bodies of the entry points below, by value type VT.  The keys-only
 // launches (symbolic_bin) exist for VT = 0 only: a 16-bit entry point asked
 // for one returns cudaErrorInvalidValue.
 
-// kernel: 0 symbolic_bin, 1 numeric_bin, 2 fused_bin.
+// kernel: 0 symbolic_bin, 1 numeric_bin, 2 fused_bin; 3 numeric_bin and 4
+// fused_bin in the fixed-order mode (their ORDERED instances, with the
+// value pass's stage).
 template <int VT>
 int ctas_per_sm(int kernel, int single_access, int t_size, int rows_per_cta,
                 int threads_per_row, int* out) {
-  if (VT != 0 && kernel == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn =
-      kernel == 0 ? (single_access ? hash_rows_fn<true, false>()
-                                   : hash_rows_fn<false, false>())
-      : kernel == 1 ? (single_access ? slot_rows_fn<true, VT>()
-                                     : slot_rows_fn<false, VT>())
-                    : (single_access ? hash_rows_fn<true, true, VT>()
-                                     : hash_rows_fn<false, true, VT>());
+  const bool ordered = kernel > 2;
+  if (kernel < 0 || kernel > 4 || (VT != 0 && kernel == 0) ||
+      (ordered && !stage_shape_ok(rows_per_cta, threads_per_row)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int body = ordered ? kernel - 2 : kernel;
+  const bool sa = single_access != 0;
+  const void* fn;
+  if (body == 0) {
+    fn = sa ? hash_rows_fn<true, false>() : hash_rows_fn<false, false>();
+  } else if (body == 1) {
+    fn = ordered ? (sa ? slot_rows_fn<true, VT, true>()
+                       : slot_rows_fn<false, VT, true>())
+                 : (sa ? slot_rows_fn<true, VT>() : slot_rows_fn<false, VT>());
+  } else {
+    fn = ordered ? (sa ? hash_rows_ordered_fn<true, VT>()
+                       : hash_rows_ordered_fn<false, VT>())
+                 : (sa ? hash_rows_fn<true, true, VT>()
+                       : hash_rows_fn<false, true, VT>());
+  }
   const size_t smem =
-      smem_bytes(t_size, rows_per_cta, kernel != 0,
-                 kernel == 2 ? static_cast<int>(sizeof(ValT<VT>)) : 4);
+      smem_bytes(t_size, rows_per_cta, body != 0,
+                 body == 2 ? static_cast<int>(sizeof(ValT<VT>)) : 4) +
+      (ordered ? stage_bytes(rows_per_cta, threads_per_row) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1756,7 +2016,8 @@ int symbolic_bin(const int* rows, const int* count, const int* a_rpt,
 //
 // hash_ctas_per_sm: CTAs of one rung's launch that fit on one SM at once
 //   (the runtime's occupancy calculator: threads, registers and shared
-//   memory together); kernel 0 symbolic_bin, 1 numeric_bin, 2 fused_bin.
+//   memory together); kernel 0 symbolic_bin, 1 numeric_bin, 2 fused_bin,
+//   3 / 4 numeric_bin / fused_bin's ORDERED instance.
 // hash_global_ctas_per_sm: the same for one global_rows_kernel launch.
 // hash_cluster_occupancy: clusters of one cluster_rows_kernel launch
 //   (`cluster` blocks of `threads` threads a row) resident at once.

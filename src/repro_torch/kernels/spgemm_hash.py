@@ -63,7 +63,11 @@ points).  It inserts the keys in parallel as the atomic kernels do, then
 adds each row's products in the reference's order (A entry by A entry,
 each B row in order, a rounded multiply and a rounded add per product), so
 its tables are the plain version's value for value, bit for bit, on every
-run.  Those launches are also counted in ``launches_ordered``.  The
+run: all of a row's warps make its batches of products, and each adds those
+whose slot it owns.  On the shared-memory route that takes a stage of
+about 12 B a thread beside the tables (:func:`ordered_smem_bytes`; a
+launch whose tables and stage pass the card's limit is refused).  Those
+launches are also counted in ``launches_ordered``.  The
 atomic kernels stay the default; ``symbolic_bin`` builds no values.  On
 the CPU the plain versions already add in that order and serve both
 modes.
@@ -379,6 +383,8 @@ def _smem_limit(device: Optional[torch.device]) -> int:
                            else torch.cuda.current_device())
 
 
+# The kernel ids of hash_ctas_per_sm (the fixed-order instances of
+# numeric_bin and fused_bin: their ids plus 2).
 _KERNEL_IDS = {"symbolic_bin": 0, "numeric_bin": 1, "fused_bin": 2}
 
 
@@ -392,12 +398,17 @@ def table_value_bytes(kernel: str, dtype: torch.dtype) -> int:
 def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
                 single_access: bool = True,
                 device: Optional[torch.device] = None,
-                dtype: torch.dtype = torch.float32) -> int:
+                dtype: torch.dtype = torch.float32,
+                ordered: bool = False) -> int:
     """CTAs of one rung's launch of ``kernel`` (symbolic_bin, numeric_bin
     or fused_bin, in the geometry and on the kernel its wrapper launches,
     :func:`hash_route`, with values of ``dtype``) that fit on one SM at
-    once, by the CUDA occupancy calculator.  A ``"cluster"`` rung raises:
+    once, by the CUDA occupancy calculator; with ``ordered``, of its
+    fixed-order instance (numeric_bin and fused_bin on the shared-memory
+    route, the value pass's stage included).  A ``"cluster"`` rung raises:
     its residency is :func:`clusters_in_flight`."""
+    if ordered and kernel == "symbolic_bin":
+        raise ValueError("symbolic_bin has no fixed-order instance")
     rows_per_cta, threads = (numeric_launch_geometry(t_size)
                              if kernel == "numeric_bin"
                              else launch_geometry(t_size, pack))
@@ -413,6 +424,10 @@ def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
             raise ValueError(f"{kernel} t_size={t_size} runs in clusters: "
                              f"see clusters_in_flight")
         if route == "global":
+            if ordered:
+                raise ValueError(f"{kernel} t_size={t_size} runs on the "
+                                 "global route: ctas_per_sm(ordered=True) "
+                                 "takes shared-memory rungs")
             entry = "hash_global_ctas_per_sm" + suffix
             build.check(getattr(lib, entry)(
                 int(with_values), int(single_access), threads,
@@ -420,8 +435,9 @@ def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
         else:
             entry = "hash_ctas_per_sm" + suffix
             build.check(getattr(lib, entry)(
-                _KERNEL_IDS[kernel], int(single_access), t_size,
-                rows_per_cta, threads, out.data_ptr()), entry)
+                _KERNEL_IDS[kernel] + (2 if ordered else 0),
+                int(single_access), t_size, rows_per_cta, threads,
+                out.data_ptr()), entry)
     return int(out[0])
 
 
@@ -491,6 +507,24 @@ def table_bytes(t_size: int, rows_per_cta: int, with_values: bool,
     entries = rows_per_cta * t_size
     values = -(-entries * value_bytes // 4) * 4 if with_values else 0
     return 4 * entries + values + rows_per_cta * ROW_COUNTER_BYTES
+
+
+def ordered_smem_bytes(t_size: int, rows_per_cta: int, threads_per_row: int,
+                       value_bytes: int = 4) -> int:
+    """Shared memory of a block of a fixed-order launch on the
+    shared-memory route: :func:`table_bytes` with values, and where the
+    block's one row has W > 1 warps the value pass's stage at the next
+    8-byte boundary: an 8-byte (slot, product) pair a thread and a 4-byte
+    word for each batch and owner, W (W + 1) of them (csrc/spgemm_hash.cu,
+    stage_bytes, which this mirrors).  A block of several rows of several
+    warps each has no stage: the kernel refuses it."""
+    if rows_per_cta > 1 and threads_per_row > 32:
+        raise ValueError(f"no fixed-order launch of {rows_per_cta} rows of "
+                         f"{threads_per_row} threads a block")
+    warps = threads_per_row // 32
+    stage = 8 * threads_per_row + 4 * warps * (warps + 1) + 4 \
+        if warps > 1 else 0
+    return table_bytes(t_size, rows_per_cta, True, value_bytes) + stage
 
 
 def cluster_slice_bytes(t_size: int, cluster: int, with_values: bool) -> int:

@@ -420,7 +420,8 @@ def test_kernel_name_reads_template_arguments(args, name):
 
 @pytest.mark.parametrize("source", ["spgemm_hash", "bsr_spmm",
                                     "spgemm_hash slot", "bsr_spmm f32",
-                                    "spgemm_hash cluster"])
+                                    "spgemm_hash cluster",
+                                    "spgemm_hash ordered"])
 def test_ablation_variants_edit_the_current_sources(source):
     """Every ablation build of ``repro_torch.kernels.ablate`` finds its
     anchor in today's source, and all but the baseline change it."""
@@ -429,7 +430,8 @@ def test_ablation_variants_edit_the_current_sources(source):
                 "bsr_spmm": ablate.BSR_VARIANTS,
                 "spgemm_hash slot": ablate.SLOT_VARIANTS,
                 "bsr_spmm f32": ablate.BSR_F32_VARIANTS,
-                "spgemm_hash cluster": ablate.CLUSTER_VARIANTS}[source]
+                "spgemm_hash cluster": ablate.CLUSTER_VARIANTS,
+                "spgemm_hash ordered": ablate.ORDERED_VARIANTS}[source]
     src = (build.CSRC / f"{source.split()[0]}.cu").read_text()
     edited = [edit(src) for edit in variants.values()]
     assert edited[0] == src
@@ -479,3 +481,22 @@ def test_cluster_ablations_keep_to_their_kernel():
         for label, edit in table.items():
             out = edit(src)
             assert src[start:end] in out, label
+
+
+def test_ordered_ablations_keep_to_the_value_pass():
+    """The ORDERED_VARIANTS edit the fixed-order value pass's section only
+    (which every ORDERED instance runs, and no atomic kernel), and the
+    other kernels' variants leave that section as it is."""
+    from repro_torch.kernels import ablate, build
+    src = (build.CSRC / "spgemm_hash.cu").read_text()
+    start = src.index("// The fixed-order value pass of the ORDERED "
+                      "instances.")
+    end = src.index("// A row's table as keys[] and vals[] side by side")
+    for label, edit in ablate.ORDERED_VARIANTS.items():
+        out = edit(src)
+        assert out[:start] == src[:start], label
+        assert out.endswith(src[end:]), label
+    for table in (ablate.HASH_VARIANTS, ablate.SLOT_VARIANTS,
+                  ablate.CLUSTER_VARIANTS):
+        for label, edit in table.items():
+            assert src[start:end] in edit(src), label

@@ -441,3 +441,224 @@ def test_cuda_16bit_kernels_match_plain(cuda_device, kind, t_size, pack,
     else:
         bound = order_bound(A, B, rows, count, t_size, rows_cap, dtype)
         assert bool(((kvs.float() - pvs.float()).abs() <= bound).all())
+
+
+# ---------------------------------------------------------------------------
+# The fixed-order value pass under stress: rows whose slots take long or
+# lopsided chains of adds.  Each of a row's warps adds the products whose
+# slot it owns, so these are the shapes where a wrong order would show.
+# ---------------------------------------------------------------------------
+
+STRESS_N = 96
+STRESS_PATTERNS = ("one_column", "long_b_row", "dense_30")
+
+
+def stress_pair(pattern, seed=11):
+    """(A, B): two 96 x 96 matrices as numpy CSR triples (rpt, col, val
+    float32 from a normal draw, so that another summation order gives
+    other bits):
+      one_column  every A row dense, every B row column 7 alone: a row's
+                  96 products all go to one slot, which one warp owns;
+      long_b_row  every A row one entry, every B row dense: one entry's
+                  products fill the row's batches;
+      dense_30    A rows of 90 entries, B rows of 30: about 28 products a
+                  column, more than mono_500Hz's compression of 4.93."""
+    rng = np.random.default_rng(seed)
+    n = STRESS_N
+    if pattern == "one_column":
+        a_rows, b_rows = [np.arange(n)] * n, [np.array([7])] * n
+    elif pattern == "long_b_row":
+        a_rows = [np.array([(7 * i) % n]) for i in range(n)]
+        b_rows = [np.arange(n)] * n
+    else:
+        a_rows = [rng.choice(n, 90, replace=False) for _ in range(n)]
+        b_rows = [rng.choice(n, 30, replace=False) for _ in range(n)]
+
+    def csr(rows):
+        col = np.concatenate([np.sort(r) for r in rows]).astype(np.int32)
+        rpt = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+        return (rpt.astype(np.int32), col,
+                rng.standard_normal(col.size).astype(np.float32))
+    return csr(a_rows), csr(b_rows)
+
+
+def _products_per_column(a, b, row):
+    """The row of A B's products on each of its columns (numpy)."""
+    (a_rpt, a_col, _), (b_rpt, b_col, _) = a, b
+    ks = a_col[a_rpt[row]:a_rpt[row + 1]]
+    cols = np.concatenate([b_col[b_rpt[k]:b_rpt[k + 1]] for k in ks])
+    counts = np.bincount(cols, minlength=STRESS_N)
+    return counts[counts > 0]
+
+
+def _occupied_sorted(cols, vals, row):
+    """A raw table row's occupied entries sorted by column: (cols, value
+    bits)."""
+    c = np.asarray(cols[row])
+    v = np.asarray(vals[row], dtype=np.float32)
+    keep = c >= 0
+    order = np.argsort(c[keep], kind="stable")
+    return c[keep][order], v[keep][order].view(np.int32)
+
+
+@pytest.mark.parametrize("pattern", ["one_column", "dense_30"])
+@pytest.mark.parametrize("kind,t_size", [("fused", 128), ("numeric", 127)])
+def test_plain_matches_reference_bitwise_at_high_compression(kind, t_size,
+                                                             pattern):
+    """The reference's fused_bin_call / numeric_bin_call (Pallas, in
+    interpret mode off the TPU, as its own tests run them) and the port's
+    plain versions on rows of 16 or more products a column: nnz and
+    accesses equal, and each row's occupied entries the same columns with
+    the same float32 bits.  The card's fixed-order kernels are held to
+    these plain versions bit for bit."""
+    a, b = stress_pair(pattern)
+    n_rows, rows_cap = 8, 16
+    assert all(_products_per_column(a, b, i).mean() >= 16
+               for i in range(n_rows))
+    rows = np.zeros(rows_cap, np.int32)
+    rows[:n_rows] = np.arange(n_rows)
+    count = np.array([n_rows], np.int32)
+    mats = (*a, *b)
+    ref_fn = getattr(spgemm_hash, f"{kind}_bin_call")
+    port_fn = getattr(tsh, f"{kind}_bin_call")
+    want = ref_fn(jnp.asarray(rows), jnp.asarray(count),
+                  *(jnp.asarray(x) for x in mats), t_size=t_size,
+                  rows_cap=rows_cap, single_access=True)
+    got = port_fn(torch.from_numpy(rows), torch.from_numpy(count),
+                  *(torch.from_numpy(x) for x in mats), t_size=t_size,
+                  rows_cap=rows_cap, single_access=True)
+    got = [np.asarray(x) for x in got]
+    want = [np.asarray(x) for x in want]
+    if kind == "fused":
+        np.testing.assert_array_equal(got[0], want[0])      # nnz
+        got, want = got[1:], want[1:]
+    np.testing.assert_array_equal(got[2], want[2])          # accesses
+    for i in range(n_rows):
+        gc, gv = _occupied_sorted(got[0], got[1], i)
+        wc, wv = _occupied_sorted(want[0], want[1], i)
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(gv, wv)
+
+
+def test_ordered_shared_memory_fits_every_rung():
+    """Every rung of the reference's ladders that takes the shared-memory
+    route on the H100 (232,448 B a block) keeps it in the fixed-order mode:
+    its tables and the value pass's stage (ordered_smem_bytes) fit, in
+    every value type."""
+    limit = 232_448
+    ladders = {
+        "fused_bin": [tranges.symbolic_ladder(vmem_extended=e)
+                      for e in (False, True)],
+        "numeric_bin": [tranges.numeric_ladder(vmem_extended=e)
+                        for e in (False, True)]}
+    seen = 0
+    for kind, lads in ladders.items():
+        for lad in lads:
+            for t_size in lad.table_sizes:
+                for dtype in tsh.VALUE_TYPES:
+                    rpc, threads = (tsh.numeric_launch_geometry(t_size)
+                                    if kind == "numeric_bin"
+                                    else tsh.launch_geometry(t_size, 1))
+                    vb = tsh.table_value_bytes(kind, dtype)
+                    if tsh.hash_route(t_size, rpc, True, limit,
+                                      vb) != "smem":
+                        continue
+                    need = tsh.ordered_smem_bytes(t_size, rpc, threads, vb)
+                    assert need <= limit, (kind, t_size, dtype, need)
+                    seen += 1
+    assert seen > 0
+    # One warp a row: no stage; W warps: 8 B a thread, W (W + 1) words of
+    # counts and 4 B to align.
+    assert tsh.ordered_smem_bytes(255, 8, 32) == tsh.table_bytes(255, 8,
+                                                                 True)
+    assert tsh.ordered_smem_bytes(8192, 1, 1024) == (
+        tsh.table_bytes(8192, 1, True) + 8 * 1024 + 4 * 32 * 33 + 4)
+    with pytest.raises(ValueError):
+        tsh.ordered_smem_bytes(256, 4, 64)
+
+
+def stress_case(pattern, dtype, device, n_rows):
+    """stress_pair's matrices in ``dtype`` on ``device``, and a bin of
+    their first ``n_rows`` rows with 8 rows of padding after them.
+    -> (A, B, rows, count, rows_cap)."""
+    mats = []
+    for rpt, col, val in stress_pair(pattern):
+        M = convert.csr_from_reference(rpt, col, val, (STRESS_N, STRESS_N),
+                                       device=device)
+        mats.append(_with_val(M, M.val.to(dtype)))
+    rows_cap = n_rows + 8
+    rows = torch.zeros(rows_cap, dtype=torch.int32, device=device)
+    rows[:n_rows] = torch.arange(n_rows, dtype=torch.int32, device=device)
+    count = torch.tensor([n_rows], dtype=torch.int32, device=device)
+    return (*mats, rows, count, rows_cap)
+
+
+# (kind, t_size, pack, route): one warp a row (256, packed and not), a few
+# warps (numeric 1023) and 32 (8192 / 8191) on the shared-memory route,
+# then the cluster and the global-memory routes.
+STRESS_ROUTES = [("fused", 256, 1, "smem"), ("fused", 256, 4, "smem"),
+                 ("fused", 8192, 1, "smem"), ("fused", 65536, 1, "cluster"),
+                 ("fused", 262144, 1, "global"),
+                 ("numeric", 1023, 1, "smem"), ("numeric", 8191, 1, "smem"),
+                 ("numeric", 131072, 1, "cluster"),
+                 ("numeric", 524288, 1, "global")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pattern", STRESS_PATTERNS)
+@pytest.mark.parametrize("kind,t_size,pack,route", STRESS_ROUTES)
+def test_cuda_fixed_order_stress_bitwise(cuda_device, kind, t_size, pack,
+                                         route, pattern, dtype):
+    """The fixed-order kernel on stress_pair's rows, on each route, against
+    its plain version: the valid rows' sorted columns exactly and their
+    values bit for bit; the launch counted as fixed-order on the route
+    named."""
+    n_rows = 16 if route == "smem" else 8
+    A, B, rows, count, rows_cap = stress_case(pattern, dtype, cuda_device,
+                                              n_rows)
+    rpc = (tsh.numeric_launch_geometry(t_size)[0] if kind == "numeric"
+           else tsh.launch_geometry(t_size, pack)[0])
+    assert tsh.rung_route(t_size, rpc, True, cuda_device,
+                          tsh.table_value_bytes(f"{kind}_bin",
+                                                dtype)) == route
+    pc, pv = kernel_tables(kind, A.to("cpu"), B.to("cpu"), rows.cpu(),
+                           count.cpu(), t_size, rows_cap, pack)
+    fn = getattr(tsh, f"{kind}_bin_call")
+    before = fn.launches_ordered
+    mode = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        kc, kv = kernel_tables(kind, A, B, rows, count, t_size, rows_cap,
+                               pack)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(mode)
+    assert fn.launches_ordered == before + 1
+    ks, kvs = sorted_rows(kc.cpu(), kv.cpu(), n_rows)
+    ps, pvs = sorted_rows(pc, pv, n_rows)
+    assert torch.equal(ks, ps)
+    bits = torch.int16 if dtype != torch.float32 else torch.int32
+    assert torch.equal(kvs.view(bits), pvs.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fused_bin", "numeric_bin"])
+def test_cuda_ordered_residency_matches_the_atomic(cuda_device, kind):
+    """On every shared-memory rung of the default ladders in float32 the
+    fixed-order instance (32 registers, its stage beside the tables) fits
+    as many CTAs on an SM as the atomic kernel; symbolic_bin has none."""
+    lad = (tranges.symbolic_ladder() if kind == "fused_bin"
+           else tranges.numeric_ladder())
+    for t_size in lad.table_sizes:
+        rpc = (tsh.numeric_launch_geometry(t_size)[0]
+               if kind == "numeric_bin" else 1)
+        if tsh.rung_route(t_size, rpc, True, cuda_device) != "smem":
+            continue
+        assert tsh.ctas_per_sm(t_size, kernel=kind, device=cuda_device,
+                               ordered=True) == tsh.ctas_per_sm(
+            t_size, kernel=kind, device=cuda_device), t_size
+    with pytest.raises(ValueError, match="no fixed-order"):
+        tsh.ctas_per_sm(1024, kernel="symbolic_bin", device=cuda_device,
+                        ordered=True)
+
