@@ -8,9 +8,11 @@ Phases, in order; any failure exits non-zero:
      source in src/repro_torch/kernels/csrc built with nvcc (one process
      each, all started together) and each kernel's ptxas line
      (registers, shared memory, spills); the float32 bsr_spmm kernel,
-     binning_histogram and cluster_rows_kernel must spill nothing, and
-     cluster_rows_kernel's SASS must reach its tables through
-     distributed-shared-memory atomics (no device-memory atomic).
+     binning_histogram, cluster_rows_kernel and slot_rows_kernel must
+     spill nothing, cluster_rows_kernel's SASS must reach its tables
+     through distributed-shared-memory atomics (no device-memory atomic),
+     and every 16-bit instance of the shared-memory hash bodies must be
+     slot_rows_kernel's, its only CAS an ATOMS.CAS.64 (phase_value_sass).
   1b. opslint (phase_opslint): the port's static analysis
      (python -m repro_torch.analysis_static src/repro_torch --fail-on-new
      --baseline opslint_torch_baseline.json --format json) in a
@@ -170,17 +172,21 @@ Phases, in order; any failure exits non-zero:
      and two steady calls bitwise equal, steady ms with and without
      torch's fill of uninitialised memory beside the atomic kernels'.
   7f. 16-bit values (phase_dtypes): fused_bin and numeric_bin in bfloat16
-     and float16 on every route (DTYPE_CASES: shared memory, cluster,
-     global memory), both disciplines, against their plain versions on
-     the card: fixed order bitwise, atomic within 3 n (u S + e); then
-     scircuit and mono_500Hz A·A through spgemm(method="hash") in both
-     types on a fresh engine (one cold and STEADY_CALLS steady calls, the
-     counts set to 0 just before; C's pattern equal to torch.sparse's
-     float32 product of the same 16-bit inputs, values within
-     2 n (u S + e); times and peak GiB), each 16-bit kernel at scircuit's
-     main shapes (time, plain version, bound), and the fused rungs of
-     mono's steady call timed alone in each type.  bsr_spmm's float16
-     layer runs in phase 6 beside the other two types.
+     and float16, both on slot_rows_kernel's 64-bit key+value slot on the
+     shared-memory route (their SASS checked in phase 1), on every route
+     (DTYPE_CASES: shared memory, cluster, global memory), both
+     disciplines, against their plain versions on the card: fixed order
+     bitwise, atomic within 3 n (u S + e), nnz equal, single access below
+     check-then-CAS; then scircuit and mono_500Hz A·A through
+     spgemm(method="hash") in both types on a fresh engine (one cold and
+     STEADY_CALLS steady calls, the counts set to 0 just before; C's
+     pattern equal to torch.sparse's float32 product of the same 16-bit
+     inputs, values within 2 n (u S + e); times and peak GiB), each 16-bit
+     kernel at scircuit's main shapes (time, plain version, bound), and on
+     mono the fused rungs of a steady call and the numeric rungs of a cold
+     call timed alone in each type, with their byte bound, beside
+     float32's in the same phase.  bsr_spmm's float16 layer runs in phase
+     6 beside the other two types.
   7g. the paper's figure benches (phase_figures): benchmarks.torch.run
      --reference-cut (all six benches, rows printed); Fig. 9's and Figs.
      10/11's per-case functions on the scircuit and mono_500Hz analogs,
@@ -266,7 +272,9 @@ Phases, in order; any failure exits non-zero:
      the slice phase, their times at the largest shape a steady mono
      call gives them; fused_bin and numeric_bin in bfloat16 and float16
      as <kernel>_bf16 / _f16, their launches those of scircuit's 16-bit
-     product and their times at its main shapes; bsr_spmm (float32,
+     product and their times at its main shapes, and under "mono" the
+     launches of mono's 16-bit product, its rungs' time alone, their
+     bound and float32's time beside them; bsr_spmm (float32,
      with its bfloat16 layer) and bsr_spmm_f16, each its own type's
      launches in the layer's run, counted by C entry point),
      the card line, and the result line.
@@ -382,9 +390,9 @@ UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 SUBNORMAL_STEP = {torch.bfloat16: 2.0 ** -133, torch.float16: 2.0 ** -24}
 # phase_dtypes' kernel cases, one per route of each 16-bit kernel:
 # (kind, t_size, pack, valid rows): the shared-memory rungs (packed and
-# not; numeric's mod-hashed sizes), fused 32,768 (shared memory in 16-bit
-# values, a cluster in float32), and the cluster and global-memory rungs of
-# the extended ladders.
+# not; numeric's mod-hashed sizes), fused 32,768 (8 B an entry in every
+# type, so a cluster, as in float32), and the cluster and global-memory
+# rungs of the extended ladders.
 DTYPE_CASES = (("fused_bin", 256, 1, 96), ("fused_bin", 256, 4, 96),
                ("fused_bin", 32768, 1, 8), ("fused_bin", 65536, 1, 8),
                ("fused_bin", 262144, 1, 8), ("numeric_bin", 255, 1, 96),
@@ -437,7 +445,8 @@ LM_RATE_KEYS = ("tokens_per_s", "decode_ms_median", "prefill_ms", "peak_gib",
 # Kernels whose ptxas report must show no spill (source, kernel).
 NO_SPILLS = (("bsr_spmm", "bsr_spmm_f32_kernel"),
              ("binning_histogram", "binning_histogram_kernel"),
-             ("spgemm_hash", "cluster_rows_kernel"))
+             ("spgemm_hash", "cluster_rows_kernel"),
+             ("spgemm_hash", "slot_rows_kernel"))
 
 
 class SmokeError(Exception):
@@ -869,14 +878,13 @@ def bound_bytes(kind, A, B, rows, count, t_size, rows_cap):
     return read + n * per_row, (rows_cap - n) * per_row
 
 
-def route_of(sh, kind, t_size, dtype=torch.float32):
+def route_of(sh, kind, t_size):
     """The kernel the wrapper of ``kind`` launches on a rung of ``t_size``
-    entries (in its own launch geometry, with values of ``dtype``):
+    entries (in its own launch geometry; the same in every value type):
     "smem", "cluster" or "global"."""
     rows_per_cta = (sh.numeric_launch_geometry(t_size)[0]
                     if kind == "numeric_bin" else 1)
-    return sh.rung_route(t_size, rows_per_cta, kind != "symbolic_bin",
-                         value_bytes=sh.table_value_bytes(kind, dtype))
+    return sh.rung_route(t_size, rows_per_cta, kind != "symbolic_bin")
 
 
 def main_path_jobs(plan, result):
@@ -916,7 +924,7 @@ def phase_main_shapes(sh, A, jobs, errs, *, B=None, route="smem",
         rungs = []
         for b, t_size in enumerate(ladder.table_sizes):
             rows_cap = buckets[b]
-            if not rows_cap or route_of(sh, kind, t_size, dtype) != route:
+            if not rows_cap or route_of(sh, kind, t_size) != route:
                 continue
             rows, count, valid = bin_inputs(binning, b, rows_cap, limit)
             nprod_rows = nprod[rows.long()].long().masked_fill(~valid, 0)
@@ -1731,6 +1739,34 @@ def phase_cluster_sass():
             f"the SASS lacks an instance of cluster_rows_kernel: "
             f"{sorted(picked)}")
     log(f"phase cluster SASS (cuobjdump): table atomics {picked}: ok")
+    return picked
+
+
+def phase_value_sass():
+    """The 16-bit value instances of the shared-memory hash bodies in their
+    SASS (cuobjdump): each is slot_rows_kernel's (none of hash_rows_kernel
+    or hash_rows_kernel_ordered), with a 64-bit shared-memory CAS
+    (ATOMS.CAS.64) on its insert path and no other CAS: no 32-bit CAS spin
+    loop on a value word (ATOM.E.CAS, ATOMS.CAST.SPIN)."""
+    from repro_torch.kernels import build
+    picked = {}
+    for kernel, counts in build.sass_opcodes("spgemm_hash").items():
+        name, _, args = kernel.partition("<")
+        if name not in ("hash_rows_kernel", "hash_rows_kernel_ordered",
+                        "slot_rows_kernel") or args.rstrip(">").split(
+                            ",")[-1] == "0":
+            continue
+        picked[kernel] = {op: n for op, n in sorted(counts.items())
+                          if "CAS" in op or op.startswith("ATOM")}
+        require(name == "slot_rows_kernel", f"{kernel}: a 16-bit instance "
+                f"of {name}")
+        require(counts.get("ATOMS.CAS.64", 0) > 0
+                and all(op == "ATOMS.CAS.64" for op in counts if "CAS" in op),
+                f"{kernel}: no ATOMS.CAS.64, or another CAS: "
+                f"{picked[kernel]}")
+    # 2 disciplines x 2 modes x 2 types
+    require(len(picked) == 8, f"16-bit instances: {sorted(picked)}")
+    log(f"phase value SASS (cuobjdump): 16-bit instances {picked}: ok")
     return picked
 
 
@@ -3230,7 +3266,7 @@ def fixed_order_stress(sh, errs):
                 A, B = ordered_stress_pair(pattern, dtype)
                 nprod = nprod_into_rpt(A, B)
                 for kind, t_size, pack, route in ORDERED_STRESS_ROUTES:
-                    require(route_of(sh, kind, t_size, dtype) == route,
+                    require(route_of(sh, kind, t_size) == route,
                             f"{kind} t={t_size}: not on the {route} route")
                     n = 16 if route == "smem" else 8
                     rows = torch.zeros(n + 8, dtype=torch.int32,
@@ -3607,7 +3643,7 @@ def dtype_kernel_routes(sh, errs):
                             rows_cap)
             bound = order_bound(sums, dtype, rows, valid,
                                 plain["cols"].shape[1])
-            route = route_of(sh, kind, t_size, dtype)
+            route = route_of(sh, kind, t_size)
             seen.setdefault(name, set()).add(route)
             totals = {}
             for ordered in (False, True):
@@ -3725,22 +3761,26 @@ def dtype_product(name, M, dtype):
     return stats, launches, plan, res
 
 
-def mono_fused_rungs_ms(sh, A, plan, res):
-    """The steady call's fused rungs on A·A timed alone, rung by rung (CUDA
-    events), with their byte bound (valid rows): the fused section of a
-    steady call in A's value type."""
-    binning, ladder, buckets = main_path_jobs(plan, res)["fused_bin"]
+def mono_rungs_ms(sh, kind, A, job):
+    """The shared-memory rungs of ``kind`` (fused_bin: a steady call's,
+    numeric_bin: a cold call's) on A·A timed alone, rung by rung (CUDA
+    events), with their byte bound (valid rows), in A's value type; ``job``
+    as :func:`main_path_jobs` gives it.  -> (ms, bound ms, {t_size: CTAs
+    per SM})."""
+    binning, ladder, buckets = job
     ms = nbytes = 0.0
+    ctas = {}
     for b, t_size in enumerate(ladder.table_sizes):
         rows_cap = buckets[b]
-        if not rows_cap:
+        if not rows_cap or route_of(sh, kind, t_size) != "smem":
             continue
         rows, count, _ = bin_inputs(binning, b, rows_cap)
-        ms += time_cuda(lambda: bin_call(sh, "fused_bin", False, A, A, rows,
+        ms += time_cuda(lambda: bin_call(sh, kind, False, A, A, rows,
                                          count, t_size, rows_cap), 3)
-        nbytes += bound_bytes("fused_bin", A, A, rows, count, t_size,
-                              rows_cap)[0]
-    return ms, nbytes / h100().hbm_bw * 1e3
+        nbytes += bound_bytes(kind, A, A, rows, count, t_size, rows_cap)[0]
+        ctas[t_size] = sh.ctas_per_sm(t_size, kernel=kind,
+                                      dtype=A.val.dtype)
+    return ms, nbytes / h100().hbm_bw * 1e3, ctas
 
 
 def phase_dtypes(sh, A, S, errs, slice_stats):
@@ -3748,21 +3788,24 @@ def phase_dtypes(sh, A, S, errs, slice_stats):
     against the plain versions; scircuit and mono_500Hz A·A through
     spgemm(method="hash") in both types (C against torch.sparse's float32
     product of the same inputs); each 16-bit kernel at scircuit's main
-    shapes (its time, the plain version's, the bound); the fused section
-    of mono's steady call in each type.  bsr_spmm's float16 layer runs in
-    phase_bsr beside the other two types."""
+    shapes (its time, the plain version's, the bound); on mono, the fused
+    section of a steady call and the numeric rungs of a cold call timed
+    alone in each type, with their byte bound, beside float32's on the same
+    rungs and rows.  bsr_spmm's float16 layer runs in phase_bsr beside the
+    other two types."""
     t0 = time.perf_counter()
     out = dict(routes=dtype_kernel_routes(sh, errs), products={},
-               mono_fused={})
+               mono_rungs={})
+    kinds = ("fused_bin", "numeric_bin")
     stats = {}
     for dtype in UNIT_ROUNDOFF:
         sfx = sh.VALUE_TYPES[dtype]
         s_stats, s_launches, plan, res = dtype_product(SCIRCUIT["name"], S,
                                                        dtype)
         S16 = _with_values(S, S.val.to(dtype))
-        jobs = {k: v for k, v in main_path_jobs(plan, res).items()
-                if k != "symbolic_bin"}
-        shapes = phase_main_shapes(sh, S16, jobs, errs,
+        s_jobs = {k: v for k, v in main_path_jobs(plan, res).items()
+                  if k != "symbolic_bin"}
+        shapes = phase_main_shapes(sh, S16, s_jobs, errs,
                                    label=f"{dtype} scircuit main shape")
         for kind in ("fused_bin", "numeric_bin"):
             stats[kind + sfx] = dict(shapes[kind + sfx],
@@ -3770,19 +3813,31 @@ def phase_dtypes(sh, A, S, errs, slice_stats):
                                      library_ms=None, bound_by="bytes",
                                      matrix=SCIRCUIT["name"])
         del res, S16
-        m_stats, _, plan, res = dtype_product(MONO["name"], A, dtype)
+        m_stats, m_launches, plan, res = dtype_product(MONO["name"], A,
+                                                       dtype)
         A16 = _with_values(A, A.val.to(dtype))
-        fused_ms, fused_bound = mono_fused_rungs_ms(sh, A16, plan, res)
-        del res, A16
-        torch.cuda.empty_cache()
+        m_jobs = main_path_jobs(plan, res)
         key = str(dtype).removeprefix("torch.")
+        out["mono_rungs"][key] = mono = {}
+        for kind in kinds:
+            ms, bound, ctas = mono_rungs_ms(sh, kind, A16, m_jobs[kind])
+            mono[kind] = dict(ms=ms, bound_ms=bound, bound_by="bytes",
+                              launches=m_launches[kind], ctas_per_sm=ctas,
+                              float32_ms=mono_rungs_ms(sh, kind, A,
+                                                       m_jobs[kind])[0])
+            stats[kind + sfx]["mono"] = mono[kind]
+        del res, A16, m_jobs
+        torch.cuda.empty_cache()
         out["products"][key] = dict(scircuit=s_stats, mono=m_stats)
-        out["mono_fused"][key] = dict(ms=fused_ms, bound_ms=fused_bound)
         log(f"phase dtypes mono_500Hz {key}: steady median "
             f"{m_stats['steady_median_ms']:.1f} ms against float32's "
-            f"{slice_stats['steady_median_ms']:.1f} ms (slice phase); the "
-            f"fused rungs alone {fused_ms:.3f} ms per steady call, bound "
-            f"{fused_bound:.3f} ms ({fused_bound / fused_ms:.1%})")
+            f"{slice_stats['steady_median_ms']:.1f} ms (slice phase); "
+            + "; ".join(
+                f"the {kind} rungs alone {m['ms']:.3f} ms per "
+                f"{'steady' if kind == 'fused_bin' else 'cold'} call "
+                f"(float32 {m['float32_ms']:.3f}), bound {m['bound_ms']:.3f}"
+                f" ms ({m['bound_ms'] / m['ms']:.1%}), CTAs/SM by t_size "
+                f"{m['ctas_per_sm']}" for kind, m in mono.items()))
     out["seconds"] = time.perf_counter() - t0
     log(f"phase dtypes: {out['seconds']:.1f} s")
     return out, stats
@@ -4910,6 +4965,7 @@ def run():
     errs = {k: 0.0 for k in REPLACES}
     fixed_errs = {k: 0.0 for k in REPLACES}   # bitwise: stays 0.0
     cluster_sass = phase_cluster_sass()
+    value_sass = phase_value_sass()
     phase_tiny(sh, errs)
     A = table3_matrix(MONO)
     res, plan, launches, slice_stats = phase_slice(A)
@@ -4990,7 +5046,7 @@ def run():
             entry.update(bound_share=s["bound_share"])
         if name in VALUE_KERNELS:
             entry.update(bound_share=s["bound_share"], matrix=s["matrix"],
-                         routes=dtypes["routes"][name])
+                         routes=dtypes["routes"][name], mono=s["mono"])
         if name == "bsr_spmm_f16":
             entry.update(dtype="float16", bound_share=s["bound_share"],
                          ctas_per_sm=s["ctas_per_sm"])
@@ -5008,7 +5064,7 @@ def run():
     return dict(
         card=card, kernels=kernels, build_s=secs, ptxas=ptxas,
         opslint=opslint,
-        cluster_sass=cluster_sass,
+        cluster_sass=cluster_sass, value_sass=value_sass,
         slice=slice_stats, extended=ext_stats, extended_top=top_path,
         esc=esc_stats,
         main_shapes=stats, request_path=request, governor=governor,

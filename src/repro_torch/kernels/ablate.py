@@ -57,6 +57,14 @@ subset of ``PARTS``):
   for bit to these, and which atomic kernel instances have DIR's SASS;
   and torch's fill of the wrappers' uninitialised outputs in that mode,
   timed apart.
+- ``dtypes``: the 16-bit ``fused_bin`` at mono_500Hz's steady-call rungs
+  and ``numeric_bin`` at its cold-call rungs, in bfloat16 and float16,
+  on each ``DTYPE_VARIANTS`` build (no value add, keys only, fill and
+  dump only) and, with ``--baseline DIR``, on DIR's builds, in turns, the
+  float32 instances beside them; each 16-bit instance's registers, spill
+  bytes and SASS opcodes; with ``--baseline``, DIR's fixed-order tables
+  held bit for bit to these, whether every float32 instance has DIR's
+  SASS, and the 16-bit ``fused_bin`` at t_size 32,768 in both trees.
 - ``baseline`` (with ``--baseline DIR``, another checkout's root): the
   float32 ``bsr_spmm`` on that layer and ``binning_histogram`` on
   delaunay_n24's 16,777,216 sizes and on the first 169,410 of them
@@ -257,6 +265,43 @@ ORDERED_VARIANTS: Dict[str, Callable[[str], str]] = {
     "make_sort": _no_owner,
 }
 
+def _no_value_add(src: str) -> str:
+    """Inserts that claim their key and add no value: hash_rows_kernel's
+    ``insert`` (the 16-bit fused_bin of trees before the 64-bit slot) drops
+    its atomicAdd on V, ``insert_slot`` writes the key beside the value it
+    saw (no conversion, add or rounding)."""
+    src = _replace("if (WITH_VALUES) atomicAdd(&vals[h], prod);", "")(src)
+    for seen in ("seen", "cur"):
+        src = _replace(f"pack_slot<VT>(key, slot_val<VT>({seen}) + prod)",
+                       f"({seen} >> 32 << 32 | static_cast<unsigned>(key))"
+                       )(src)
+    return src
+
+
+def _keys_only(src: str) -> str:
+    """:func:`_no_value_add`, and no product made: B's values are not
+    read."""
+    src = _replace("Ops::from_f(WITH_VALUES ? a * Ops::to_f(b_val[j]) : "
+                   "0.0f)", "Ops::from_f(0.0f)")(src)
+    src = _replace("ORDERED ? 0.0f : Ops::round(a * Ops::to_f(b_val[j]))",
+                   "0.0f")(src)
+    return _no_value_add(src)
+
+
+# Edits that price the stages of the 16-bit value kernels (part
+# ``dtypes``), in both bodies a tree may run them on: hash_rows_kernel and
+# slot_rows_kernel.  Their anchors are in this tree's source and in its
+# parent's, so that ``--baseline`` prices the other tree's stages too.
+DTYPE_VARIANTS: Dict[str, Callable[[str], str]] = {
+    "base": lambda src: src,
+    "no_value_add": _no_value_add,
+    "keys_only": _keys_only,
+    # valid CTAs fill and dump their tables, nothing else
+    "fill_dump_only": lambda src: SLOT_VARIANTS["fill_dump_only"](
+        HASH_VARIANTS["fill_dump_only"](src)),
+}
+
+
 BSR_VARIANTS: Dict[str, Callable[[str], str]] = {
     "3 stages, 2 CTAs/SM": lambda src: src,
     "2 stages, 2 CTAs/SM": _replace("constexpr int kStages = 3;",
@@ -305,6 +350,7 @@ def build_variants(name: str, variants: Dict[str, Callable[[str], str]],
         if proc.returncode:
             raise RuntimeError(f"variant {label!r} of {name}.cu failed:\n{out}")
         lib = ctypes.CDLL(str(so))
+        lib.ptxas = build.ptxas_lines(out)
         for fn, argtypes in build.SIGNATURES[name].items():
             if not hasattr(lib, fn):    # another checkout's source
                 continue
@@ -763,9 +809,10 @@ def ablate_baseline(root: Path, rounds: int = 4) -> Dict[str, Dict]:
     return result
 
 
-def extended_outputs(kind: str, route: str, rung, device):
-    """(nnz, accesses, col_tabs, val_tabs) of one extended rung's launch,
-    None where the route writes no such output."""
+def extended_outputs(kind: str, route: str, rung, device,
+                     dtype: torch.dtype = torch.float32):
+    """(nnz, accesses, col_tabs, val_tabs) of one rung's launch (values of
+    ``dtype``), None where the route writes no such output."""
     n, t = rung.rows_cap, rung.t_size
     with_values = kind != "symbolic_bin"
     nnz = (torch.empty(n, dtype=torch.int32, device=device)
@@ -773,7 +820,7 @@ def extended_outputs(kind: str, route: str, rung, device):
     acc = torch.empty(n, dtype=torch.int32, device=device)
     cols = (torch.empty((n, t), dtype=torch.int32, device=device)
             if with_values or route == "global" else None)
-    vals = (torch.empty((n, t), dtype=torch.float32, device=device)
+    vals = (torch.empty((n, t), dtype=dtype, device=device)
             if with_values else None)
     return nnz, acc, cols, vals
 
@@ -786,10 +833,11 @@ def extended_launcher(lib, kind: str, route: str, A, rung, outs, *,
     ``hash_bin_global``; their ``_ordered`` instances with ``ordered``)
     into ``outs`` (:func:`extended_outputs`), in the wrapper's geometry
     (one row a cluster or a block of its launch_geometry threads), single
-    access."""
+    access, in A's value type."""
     from . import spgemm_hash as sh
     nnz, acc, cols, vals = outs
     with_values = kind != "symbolic_bin"
+    value_type = sh.VALUE_TYPES[A.val.dtype] if with_values else ""
     threads = sh.launch_geometry(rung.t_size, 1)[1]
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -801,7 +849,7 @@ def extended_launcher(lib, kind: str, route: str, A, rung, outs, *,
               ptr(A.val if with_values else None), rung.t_size,
               rung.rows_cap)
 
-    suffix = "_ordered" if ordered else ""
+    suffix = ("_ordered" if ordered else "") + value_type
 
     def launch():
         if route == "cluster":
@@ -956,11 +1004,13 @@ def ablate_global(A, rounds: int = 3) -> Dict[str, Dict]:
     return result
 
 
-def ordered_launcher(lib, kind: str, A, rung, outs) -> Callable[[], None]:
-    """A launch of one shared-memory rung of A·A through ``lib``'s
-    fixed-order C entry point (``fused_bin_ordered`` or
-    ``numeric_bin_ordered``) into ``outs`` (:func:`extended_outputs`), in
-    the wrapper's geometry, single access."""
+def smem_launcher(lib, kind: str, A, rung, outs, *,
+                  ordered: bool = True) -> Callable[[], None]:
+    """A launch of one shared-memory rung of A·A through ``lib``'s C entry
+    point of ``kind`` (``fused_bin`` or ``numeric_bin``; their fixed-order
+    instance with ``ordered``) in A's value type into ``outs``
+    (:func:`extended_outputs`), in the wrapper's geometry, single
+    access."""
     from . import spgemm_hash as sh
     nnz, acc, cols, vals = outs
     t, cap = rung.t_size, rung.rows_cap
@@ -968,18 +1018,19 @@ def ordered_launcher(lib, kind: str, A, rung, outs) -> Callable[[], None]:
     inputs = (rung.rows.data_ptr(), rung.count.data_ptr(), A.rpt.data_ptr(),
               A.col.data_ptr(), A.val.data_ptr(), A.rpt.data_ptr(),
               A.col.data_ptr(), A.val.data_ptr(), t, cap)
+    entry = getattr(lib, sh.entry_point(kind, A.val.dtype, ordered))
 
     def launch():
         if kind == "numeric_bin":
-            err = lib.numeric_bin_ordered(
+            err = entry(
                 *inputs, *sh.numeric_launch_geometry(t), 1, *sh.hash_mod(t),
                 cols.data_ptr(), vals.data_ptr(), acc.data_ptr(), stream)
         else:
-            err = lib.fused_bin_ordered(
+            err = entry(
                 *inputs, *sh.launch_geometry(t, rung.pack), 1,
                 nnz.data_ptr(), cols.data_ptr(), vals.data_ptr(),
                 acc.data_ptr(), stream)
-        build.check(err, f"{kind} ordered launch")
+        build.check(err, f"{kind} launch")
     return launch
 
 
@@ -1037,6 +1088,23 @@ def atomic_sass_equal(this: str, other: str) -> Dict[str, bool]:
             if k is not None}
 
 
+def _same_tables(what: str, outs, want: Optional[Dict], n: int) -> Dict:
+    """The valid rows' sorted tables (and nnz) of ``outs``; raises unless
+    they equal ``want``'s bit for bit."""
+    nnz, _, cols, vals = outs
+    c, order = torch.sort(cols[:n], dim=1)
+    v = vals[:n].gather(1, order)
+    got = dict(cols=c, bits=v.view(torch.int16 if v.element_size() == 2
+                                   else torch.int32),
+               nnz=None if nnz is None else nnz[:n].clone())
+    if want is not None and not all(
+            (x is None and y is None) or torch.equal(x, y)
+            for x, y in ((got[k], want[k]) for k in got)):
+        raise RuntimeError(f"{what}: the baseline's tables differ from "
+                           f"this tree's")
+    return got
+
+
 def ablate_ordered(A, baseline: Optional[Path] = None,
                    rounds: int = 2) -> Dict[str, Dict]:
     """Part ``ordered``: the fixed-order fused_bin and numeric_bin at every
@@ -1078,24 +1146,17 @@ def ablate_ordered(A, baseline: Optional[Path] = None,
     for kind, r, route in jobs:
         outs = extended_outputs(kind, "smem", r, A.device)
         launchers = {
-            label: (ordered_launcher(lib, kind, A, r, outs) if route == "smem"
+            label: (smem_launcher(lib, kind, A, r, outs) if route == "smem"
                     else extended_launcher(
                         lib, kind, route, A, r, outs, ordered=True,
                         cluster=sh.cluster_size(r.t_size, True, limit)))
             for label, lib in libs.items()}
         n = int(r.count[0])
-        want = {}
+        want = None
         for label in ("base", "baseline"):
-            if label not in launchers:
-                continue
-            launchers[label]()
-            cols, order = torch.sort(outs[2][:n], dim=1)
-            vals = outs[3][:n].gather(1, order).view(torch.int32)
-            if want and not (torch.equal(cols, want["cols"])
-                             and torch.equal(vals, want["vals"])):
-                raise RuntimeError(f"{kind} t={r.t_size}: the baseline's "
-                                   f"tables differ from this tree's")
-            want = dict(cols=cols, vals=vals)
+            if label in launchers:
+                launchers[label]()
+                want = _same_tables(f"{kind} t={r.t_size}", outs, want, n)
         del want
         what = f"fixed-order {kind} t={r.t_size} ({route}, rows {n}/" \
             f"{r.rows_cap})"
@@ -1133,8 +1194,171 @@ def ablate_ordered(A, baseline: Optional[Path] = None,
     return dict(rungs=result, totals=totals, fill=fill, atomic_sass=sass)
 
 
+# The kernel bodies of csrc/spgemm_hash.cu; each instance's last template
+# argument is its value type (0 float32, 1 bfloat16, 2 float16).
+HASH_BODIES = ("hash_rows_kernel", "hash_rows_kernel_ordered",
+               "slot_rows_kernel", "global_rows_kernel", "cluster_rows_kernel")
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# The rows of a 32,768-entry fused rung: n_prod past the default ladder's
+# top rung (20,480) up to the ladder's load, 5/6 of the table.
+T32K = 32768
+T32K_PRODUCTS = (20480, T32K * 5 // 6)
+
+
+def value_type_arg(kernel: str) -> Optional[int]:
+    """The value type of a hash kernel instance (its last template
+    argument), None for any other kernel."""
+    name, _, args = kernel.partition("<")
+    if name not in HASH_BODIES or not args:
+        return None
+    return int(args.rstrip(">").split(",")[-1])
+
+
+def _opcodes(listing: List[str]) -> Dict[str, int]:
+    """How many instructions of each opcode a SASS listing holds (the
+    predicate dropped)."""
+    out: Dict[str, int] = {}
+    for ins in listing:
+        op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].rstrip(";")
+        out[op] = out.get(op, 0) + 1
+    return out
+
+
+def _with_dtype(A, dtype):
+    from repro_torch.core import CSR
+    return CSR(A.rpt, A.col, A.val.to(dtype), A.shape)
+
+
+def ablate_dtypes(A, baseline: Optional[Path] = None,
+                  rounds: int = 2) -> Dict[str, Dict]:
+    """Part ``dtypes``: fused_bin at mono_500Hz's steady-call rungs and
+    numeric_bin at its cold-call rungs in bfloat16 and float16, on each
+    DTYPE_VARIANTS build (with ``baseline``, that checkout's builds too),
+    in turns, the float32 instances' base builds beside them; through the
+    C entry points.  Before the timing, with ``baseline``, each rung's
+    fixed-order tables (and fused nnz) of the two base builds are held bit
+    for bit to each other, and each float32 instance's SASS to the
+    baseline's.  Prints each 16-bit instance's registers, spill bytes and
+    SASS opcodes, and, with ``baseline``, fused_bin at t_size 32,768 on
+    the rows such a rung takes (each tree's 16-bit launch on its own
+    route; the baseline's on shared memory, as trees of 6-byte 16-bit
+    entries ran it)."""
+    from repro_torch.core import nprod_into_rpt
+    from . import spgemm_hash as sh
+    trees = {"": build_variants("spgemm_hash", DTYPE_VARIANTS)}
+    if baseline is not None:
+        trees["baseline "] = build_variants(
+            "spgemm_hash", DTYPE_VARIANTS,
+            baseline / "src" / "repro_torch" / "kernels" / "csrc")
+    libs = {prefix + label: lib for prefix, built in trees.items()
+            for label, lib in built.items()}
+    report: Dict[str, Dict] = dict(ptxas={}, sass={})
+    listings = {prefix: sass_listing(built["base"]._name)
+                for prefix, built in trees.items()}
+    for prefix, built in trees.items():
+        tree = prefix.strip() or "this tree"
+        lines = [x for x in built["base"].ptxas
+                 if value_type_arg(x.split(":")[0]) in (1, 2)]
+        report["ptxas"][tree] = lines
+        report["sass"][tree] = {}
+        for line in lines:
+            print(f"{tree} ptxas {line}", flush=True)
+        for kernel, listing in listings[prefix].items():
+            if value_type_arg(kernel) not in (1, 2):
+                continue
+            ops = {op: k for op, k in sorted(_opcodes(listing).items())
+                   if op.startswith(("ATOM", "RED", "LDS", "STS", "LDG",
+                                     "STG", "LDL", "STL"))}
+            report["sass"][tree][kernel] = ops
+            print(f"{tree} SASS {kernel}: {ops}", flush=True)
+    if baseline is not None:
+        mine, theirs = listings[""], listings["baseline "]
+        same = {k: theirs.get(k) == v for k, v in mine.items()
+                if value_type_arg(k) == 0}
+        report["float32_sass_equal"] = same
+        print(f"float32 instances with the baseline's SASS: "
+              f"{sum(same.values())} of {len(same)}"
+              + "".join(f"; differs: {k}" for k, v in same.items() if not v),
+              flush=True)
+
+    sym, num = cold_schedule("mono_500Hz", A)
+    report["rungs"] = {}
+    for dtype in DTYPES:
+        At = _with_dtype(A, dtype)
+        key = str(dtype).removeprefix("torch.")
+        labels = [k for k in libs if dtype != torch.float32
+                  or k.endswith("base")]
+        for kind, rungs in (("fused_bin", sym), ("numeric_bin", num)):
+            outs = {r.b: extended_outputs(kind, "smem", r, A.device, dtype)
+                    for r in rungs}
+            if baseline is not None:
+                for r in rungs:
+                    want = None
+                    for label in ("base", "baseline base"):
+                        smem_launcher(libs[label], kind, At, r,
+                                      outs[r.b])()
+                        want = _same_tables(
+                            f"fixed-order {kind} {key} t={r.t_size}",
+                            outs[r.b], want, int(r.count[0]))
+                print(f"fixed-order {kind} {key}: the baseline's tables "
+                      f"equal these bit for bit on {len(rungs)} rungs",
+                      flush=True)
+            launchers = {label: [smem_launcher(libs[label], kind, At, r,
+                                               outs[r.b], ordered=False)
+                                 for r in rungs] for label in labels}
+            per_rung = {label: {r.b: time_ms(launch, 3)
+                                for r, launch in zip(rungs, launchers[label])}
+                        for label in labels if label.endswith("base")}
+            for label, per in per_rung.items():
+                print(f"{kind} {key} {label} by rung: " + ", ".join(
+                    f"t={r.t_size} {per[r.b]:.3f}" for r in rungs),
+                    flush=True)
+            timed = in_turns(
+                {label: (lambda ls=ls: [launch() for launch in ls])
+                 for label, ls in launchers.items()}, rounds,
+                f"{kind} {key} ({len(rungs)} rungs)", reps=3)
+            report["rungs"][f"{kind} {key}"] = dict(per_rung=per_rung,
+                                                    ms=timed)
+            del outs, launchers
+            torch.cuda.empty_cache()
+
+    if baseline is not None:
+        nprod = nprod_into_rpt(A, A)[:A.nrows]
+        lo, hi = T32K_PRODUCTS
+        rows = ((nprod > lo) & (nprod <= hi)).nonzero().flatten()
+        n = int(rows.numel())
+        cap = sh.next_bucket(n, minimum=8)
+        padded = torch.zeros(cap, dtype=torch.int32, device=A.device)
+        padded[:n] = rows.to(torch.int32)
+        rung = sh.FusedRung(0, T32K, cap, 1, padded, torch.tensor(
+            [n], dtype=torch.int32, device=A.device))
+        limit = sh._smem_limit(A.device)
+        route = sh.hash_route(T32K, 1, True, limit)
+        cluster = sh.cluster_size(T32K, True, limit)
+        report["t32768"] = dict(rows=n, rows_cap=cap, route=route,
+                                cluster=cluster)
+        for dtype in DTYPES:
+            At = _with_dtype(A, dtype)
+            outs = extended_outputs("fused_bin", "smem", rung, A.device,
+                                    dtype)
+            launchers = {f"this tree ({route}, C={cluster})": extended_launcher(
+                libs["base"], "fused_bin", route, At, rung, outs,
+                cluster=cluster)}
+            if dtype != torch.float32:
+                launchers["baseline (smem)"] = smem_launcher(
+                    libs["baseline base"], "fused_bin", At, rung, outs,
+                    ordered=False)
+            key = str(dtype).removeprefix("torch.")
+            report["t32768"][key] = in_turns(
+                launchers, rounds, f"fused_bin {key} t={T32K} ({n} rows)",
+                reps=3)
+            del outs
+            torch.cuda.empty_cache()
+    return report
+
+
 PARTS = ("cold", "fused", "two_pass", "pack", "bsr", "bsr_f32", "global",
-         "cluster", "ordered", "baseline")
+         "cluster", "ordered", "dtypes", "baseline")
 
 
 def main() -> int:
@@ -1144,15 +1368,16 @@ def main() -> int:
                         help="comma-separated subset of " + ",".join(PARTS))
     parser.add_argument("--baseline", type=Path, default=None,
                         help="root of another checkout (parts baseline, "
-                        "ordered)")
+                        "ordered, dtypes)")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not parts <= set(PARTS):
         parser.error(f"--parts takes a subset of {','.join(PARTS)}")
     if ("baseline" in parts) and args.baseline is None:
         parser.error("part baseline needs --baseline")
-    if args.baseline is not None and not parts & {"baseline", "ordered"}:
-        parser.error("--baseline goes with part baseline or ordered")
+    if args.baseline is not None and not parts & {"baseline", "ordered",
+                                                  "dtypes"}:
+        parser.error("--baseline goes with part baseline, ordered or dtypes")
     if not torch.cuda.is_available():
         print("ablate: no CUDA device visible", file=sys.stderr)
         return 2
@@ -1201,6 +1426,10 @@ def main() -> int:
     if "ordered" in parts:
         report["ordered"] = ablate_ordered(table3_matrix("mono_500Hz"),
                                            args.baseline)
+        torch.cuda.empty_cache()
+    if "dtypes" in parts:
+        report["dtypes"] = ablate_dtypes(table3_matrix("mono_500Hz"),
+                                         args.baseline)
         torch.cuda.empty_cache()
     if "bsr" in parts:
         report["bsr_spmm_bf16"] = ablate_bsr()

@@ -174,8 +174,13 @@ def kernel_name(mangled: str) -> str:
 def ptxas_report(name: str) -> List[str]:
     """``ptxas -v`` of one source's last build, one line per kernel:
     its registers, barriers, static shared memory, stack and spills."""
+    return ptxas_lines(BUILD_LOG.get(name, ""))
+
+
+def ptxas_lines(log: str) -> List[str]:
+    """:func:`ptxas_report` of one ``nvcc`` run's output."""
     out, kernel, info = [], None, {}
-    for line in BUILD_LOG.get(name, "").splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             kernel = kernel_name(m.group(1))

@@ -9,8 +9,9 @@
 //                    table build per row: nnz, raw tables and accesses)
 //
 // What each computes is the TPU kernel's function, not its block layout.
-// Four kernel bodies: hash_rows_kernel runs fused_bin and symbolic_bin,
-// slot_rows_kernel runs numeric_bin, both with tables in shared memory;
+// Four kernel bodies: hash_rows_kernel runs symbolic_bin and float32
+// fused_bin, slot_rows_kernel numeric_bin and 16-bit fused_bin, both with
+// tables in shared memory;
 // on the rungs whose tables do not fit a block's shared memory (the
 // vmem_extended ladders) cluster_rows_kernel runs all three where the
 // table fits the shared memory of a thread-block cluster of up to 8
@@ -43,27 +44,30 @@
 //     (numeric-ladder sizes, 2^k - 1, are not multiples of 4, so the ends
 //     go word by word).
 //
-// hash_rows_kernel (fused_bin, symbolic_bin): the lanes of a warp stride
-// over one B row at a time (j = lo + lane), and every lane inserts with
-// `insert`: keys with a 32-bit atomicCAS, values with atomicAdd (a CAS
-// loop for float).
+// hash_rows_kernel (symbolic_bin, fused_bin in float32): the lanes of a
+// warp stride over one B row at a time (j = lo + lane), and every lane
+// inserts with `insert`: keys with a 32-bit atomicCAS, values with
+// atomicAdd (a CAS loop for float).
 // Accesses per row: one per probe with single access (Alg 4/5: the CAS is
 // the probe), and with check-then-CAS one for the read plus one for the
 // CAS whenever an empty slot is claimed.  fused_scheduled (spgemm_hash.py)
 // launches its rungs on side streams, so a rung's tail, where few CTAs of
 // the top rung hold most SMs' shared memory, overlaps the other rungs.
 //
-// slot_rows_kernel (numeric_bin) walks a row's products as
-// hash_rows_kernel does (entry by entry, the lanes striding the entry's B
-// row), with:
-//   * One 64-bit slot per entry, the key in the low word and the float
-//     value's bits in the high word (empty: key -1, +0.0f).  One 64-bit
-//     atomicCAS claims an empty slot and stores the value; a hit on the
-//     row's own key adds by CAS on the value it saw.  This replaces the key
-//     CAS plus the float atomicAdd, which compiles to a CAS spin loop
-//     (ATOMS.CAST.SPIN), by one native ATOMS.CAS.64.  8 B per entry, as
-//     before, so CTAs per SM do not change.  The dump splits the slots into
-//     col_tabs and val_tabs.
+// slot_rows_kernel (numeric_bin; fused_bin in bfloat16 and float16) walks a
+// row's products as hash_rows_kernel does (entry by entry, the lanes
+// striding the entry's B row), with:
+//   * One 64-bit slot per entry, the key in the low word and the value's
+//     bits in the high word (empty: key -1, +0.0).  One 64-bit atomicCAS
+//     claims an empty slot and stores the value; a hit on the row's own key
+//     adds by CAS on the value it saw.  This replaces the key CAS plus the
+//     value atomicAdd: on float a CAS spin loop (ATOMS.CAST.SPIN), on a
+//     16-bit value a CAS loop on the 32-bit word it shares with its
+//     neighbour's (ATOM.E.CAS), which linear probing's neighbouring claims
+//     make fail and retry.  8 B per entry, as a float32 key and value side
+//     by side take, so CTAs per SM do not change.  The dump splits the
+//     slots into col_tabs and val_tabs; for fused_bin the 16-bit instances
+//     count each row's occupied slots after the inserts (its nnz).
 //   * No divide in the hash: the floor mod by a t_size that is not a power
 //     of two (the numeric ladder's 2^k - 1) is a multiply-high by constants
 //     the wrapper computes once per t_size (HashMod below), exact for every
@@ -72,7 +76,12 @@
 //     (numeric_launch_geometry); the last CTA may hold fewer rows when
 //     rows_per_cta does not divide rows_cap.
 //   * At most 32 registers a thread (__launch_bounds__(1024, 2)), so two
-//     1024-thread CTAs still fit an SM on the top rungs.
+//     1024-thread CTAs still fit an SM on the top rungs.  (hash_rows_kernel
+//     in 16-bit values held 40, which left room for one.)
+//   On fused_bin's default ladder (one block a row, t_size / 8 threads) the
+//   threads bound the blocks an SM holds, 32 down to 2, not the 8 B an
+//   entry; the top rung (24,576 entries, 196,616 B) holds one, as it would
+//   at 6 B.
 //   Accesses per row: one per shared-memory transaction on the table.
 //   Single access: each atomicCAS is one; a product claims an empty slot
 //   in one, adds to its own key in two (the CAS that expected an empty
@@ -167,13 +176,14 @@
 // has more than twice V's digits plus two, so the one rounding of the
 // float32 sum to V is V's correctly rounded sum), so the ORDERED instances
 // are the plain version's value for value in every type.  Where a type
-// changes a table's size: hash_rows_kernel keeps keys and values side by
-// side (4 + sizeof(V) bytes an entry, the value array padded to a word);
-// slot_rows_kernel and cluster_rows_kernel keep their 64-bit key+value
-// slot in every type (the 16-bit value's bits in bits 32-47), so the one
-// 64-bit CAS still claims a slot and adds; global_rows_kernel's tables are
-// its outputs (int32 keys, V values).  The value atomics of hash_rows_kernel
-// and global_rows_kernel are atomicAdd on V, native on sm_90 for all three.
+// changes a table's size: hash_rows_kernel, whose value add is atomicAdd on
+// V, takes float32 only (fused_bin's 16-bit launches go to
+// slot_rows_kernel); slot_rows_kernel and cluster_rows_kernel keep their
+// 64-bit key+value slot in every type (the 16-bit value's bits in bits
+// 32-47), so the one 64-bit CAS still claims a slot and adds, and every
+// shared-memory table takes 8 B an entry in every type; global_rows_kernel's
+// tables are its outputs (int32 keys, V values), its value add atomicAdd on
+// V (on device memory, native on sm_90 for all three).
 //
 // Every entry point returns cudaGetLastError() right after its launch (or
 // the error of the shared-memory opt-in); the Python wrapper raises on
@@ -256,9 +266,9 @@ __device__ __forceinline__ int hash_next(int h, int t_size) {
   return h + 1 == t_size ? 0 : h + 1;
 }
 
-// The thread's index and the block's size, read from their special
-// registers anew at each call (asm volatile), so that they need no register
-// across a loop.
+// The thread's index, the block's size and the block's index, read from
+// their special registers anew at each call (asm volatile), so that they
+// need no register across a loop.
 __device__ __forceinline__ int thread_index_now() {
   int v;
   asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
@@ -268,6 +278,12 @@ __device__ __forceinline__ int thread_index_now() {
 __device__ __forceinline__ int block_threads_now() {
   int v;
   asm volatile("mov.u32 %0, %%ntid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ unsigned block_index_now() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
   return v;
 }
 
@@ -767,9 +783,9 @@ __global__ void hash_rows_kernel(HASH_ROWS_PARAMS) {
   hash_rows<SINGLE_ACCESS, WITH_VALUES, false, VT>(HASH_ROWS_ARGS);
 }
 
-// The ORDERED instance (fused_bin in the fixed-order mode): at most 32
-// registers a thread, so that two 1024-thread blocks fit an SM where their
-// tables do (the 8,192- and 12,288-entry rungs).
+// The ORDERED instance (float32 fused_bin in the fixed-order mode): at
+// most 32 registers a thread, so that two 1024-thread blocks fit an SM
+// where their tables do (the 8,192- and 12,288-entry rungs).
 template <bool SINGLE_ACCESS, int VT = 0>
 __global__ void __launch_bounds__(1024, 2)
     hash_rows_kernel_ordered(HASH_ROWS_PARAMS) {
@@ -852,7 +868,8 @@ int dispatch(int single_access, const int* rows, const int* count,
 }
 
 // ---------------------------------------------------------------------------
-// slot_rows_kernel: numeric_bin (see the header).
+// slot_rows_kernel: numeric_bin, and fused_bin in 16-bit values (see the
+// header).
 // ---------------------------------------------------------------------------
 
 // A numeric slot: the key in the low word, the value's bits in the high
@@ -1038,6 +1055,15 @@ __device__ __forceinline__ void dump_slots(int* __restrict__ dst_cols,
 
 // At most 32 registers a thread, so that two 1024-thread CTAs (the top
 // rungs) fit an SM as with hash_rows_kernel; the ORDERED instance too.
+// The 16-bit instances (VT != 0) serve fused_bin as well as numeric_bin:
+// unless nnz_out is nullptr (numeric_bin; the float32 instances never read
+// it) they count each row's occupied slots after the inserts, its nnz, and
+// write them there, so that numeric_bin pays no count in its insert loop.
+// To stay within the 32 registers without a spill, they compute the
+// block's first row and its row count anew after the inserts rather than
+// hold them and the bin size across the loop, and take a padding row for
+// one whose counters stayed 0.  (Reading the lane and the row's place in
+// the block anew as well was slower on the card: they stay held.)
 template <bool SINGLE_ACCESS, bool ORDERED = false, int VT = 0>
 __global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
@@ -1046,8 +1072,9 @@ __global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
     const int* __restrict__ b_col, const ValT<VT>* __restrict__ b_val,
     int t_size, int rows_cap, int rows_per_cta, int threads_per_row,
     HashMod mod, int* __restrict__ col_out, ValT<VT>* __restrict__ val_out,
-    int* __restrict__ acc_out) {
+    int* __restrict__ acc_out, int* __restrict__ nnz_out) {
   using Ops = Val<VT>;
+  constexpr bool kNnz = VT != 0;
   const int n_valid = *count;
   const long long first = static_cast<long long>(blockIdx.x) * rows_per_cta;
   // The last CTA may hold fewer rows when rows_per_cta does not divide
@@ -1056,17 +1083,23 @@ __global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
       min(static_cast<long long>(rows_per_cta), rows_cap - first));
   if (first >= n_valid) {
     // Padding CTA: counts only; its tables stay unwritten.
-    if (threadIdx.x < rows_here) acc_out[first + threadIdx.x] = 0;
+    if (threadIdx.x < rows_here) {
+      acc_out[first + threadIdx.x] = 0;
+      if (kNnz && nnz_out) nnz_out[first + threadIdx.x] = 0;
+    }
     return;
   }
 
   extern __shared__ __align__(16) unsigned char slot_smem[];
   unsigned long long* slots = reinterpret_cast<unsigned long long*>(slot_smem);
+  // The rows' counters: accesses, then (16-bit) nnz.
   int* row_acc = reinterpret_cast<int*>(slots + rows_per_cta * t_size);
   const int cta_entries = rows_here * t_size;
   for (int i = threadIdx.x; i < cta_entries; i += blockDim.x)
     slots[i] = kEmptySlot;
   if (threadIdx.x < rows_per_cta) row_acc[threadIdx.x] = 0;
+  if (kNnz && threadIdx.x < rows_per_cta)
+    row_acc[rows_per_cta + threadIdx.x] = 0;
   __syncthreads();
 
   const int local = threadIdx.x / threads_per_row;
@@ -1111,10 +1144,19 @@ __global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
     }
     if (accesses) atomicAdd(&row_acc[local], accesses);
   }
+  // What the 16-bit instances read anew (see above).
+  const long long first_now =
+      kNnz ? static_cast<long long>(block_index_now()) * rows_per_cta
+           : first;
+  const int rows_here_now =
+      kNnz ? static_cast<int>(min(static_cast<long long>(rows_per_cta),
+                                  rows_cap - first_now))
+           : rows_here;
   if (ORDERED) {
     __syncthreads();  // every key of the block's rows is in place
-    if (idx < n_valid && local < rows_here) {  // every warp of the row
-      const int r = rows[idx];
+    if (kNnz ? local < rows_here_now && row_acc[local] > 0
+             : idx < n_valid && local < rows_here) {  // every warp of the row
+      const int r = rows[kNnz ? first_now + local : idx];
       const SlotTable<VT> table{slots + local * t_size, t_size, pow2, mod};
       // The stage follows the counters' 8 bytes a row.
       ordered_values(table,
@@ -1125,13 +1167,30 @@ __global__ void __launch_bounds__(1024, 2) slot_rows_kernel(
     }
   }
   __syncthreads();
-
-  if (threadIdx.x < rows_here) {
-    const bool valid = first + threadIdx.x < n_valid;
-    acc_out[first + threadIdx.x] = valid ? row_acc[threadIdx.x] : 0;
+  if constexpr (kNnz) {
+    if (nnz_out) {  // block-uniform
+      int occupied = 0;
+      if (local < rows_here_now) {
+        for (int i = thread_index_now() - local * threads_per_row;
+             i < t_size; i += threads_per_row)
+          occupied += slot_key(slots[local * t_size + i]) != kEmpty;
+      }
+      occupied = __reduce_add_sync(kAllLanes, occupied);  // a row's warp
+      if (occupied && lane == 0)
+        atomicAdd(&row_acc[rows_per_cta + local], occupied);
+      __syncthreads();
+    }
   }
-  const long long base = first * t_size;
-  dump_slots(col_out + base, val_out + base, slots, cta_entries);
+
+  if (threadIdx.x < rows_here_now) {
+    const bool valid = kNnz || first + threadIdx.x < n_valid;
+    acc_out[first_now + threadIdx.x] = valid ? row_acc[threadIdx.x] : 0;
+    if (kNnz && nnz_out)
+      nnz_out[first_now + threadIdx.x] = row_acc[rows_per_cta + threadIdx.x];
+  }
+  const long long base = first_now * t_size;
+  dump_slots(col_out + base, val_out + base, slots,
+             kNnz ? rows_here_now * t_size : cta_entries);
 }
 
 template <bool SINGLE_ACCESS, bool ORDERED = false, int VT = 0>
@@ -1140,7 +1199,7 @@ int launch_slot(HashMod mod, const int* rows, const int* count,
                 const int* b_rpt, const int* b_col, const ValT<VT>* b_val,
                 int t_size, int rows_cap, int rows_per_cta,
                 int threads_per_row, int* col_out, ValT<VT>* val_out,
-                int* acc_out, cudaStream_t stream) {
+                int* acc_out, int* nnz_out, cudaStream_t stream) {
   if (ORDERED && !stage_shape_ok(rows_per_cta, threads_per_row))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows_cap == 0) return 0;
@@ -1157,7 +1216,7 @@ int launch_slot(HashMod mod, const int* rows, const int* count,
   kernel<<<grid, block, smem, stream>>>(
       rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
       rows_cap, rows_per_cta, threads_per_row, mod, col_out, val_out,
-      acc_out);
+      acc_out, nnz_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1167,16 +1226,33 @@ int slot_dispatch(HashMod mod, int single_access, const int* rows,
                   const ValT<VT>* a_val, const int* b_rpt, const int* b_col,
                   const ValT<VT>* b_val, int t_size, int rows_cap,
                   int rows_per_cta, int threads_per_row, int* col_out,
-                  ValT<VT>* val_out, int* acc_out, void* stream) {
+                  ValT<VT>* val_out, int* acc_out, void* stream,
+                  int* nnz_out = nullptr) {
   auto s = static_cast<cudaStream_t>(stream);
   if (single_access)
     return launch_slot<true, ORDERED, VT>(
         mod, rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
         rows_cap, rows_per_cta, threads_per_row, col_out, val_out, acc_out,
-        s);
+        nnz_out, s);
   return launch_slot<false, ORDERED, VT>(
       mod, rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val, t_size,
-      rows_cap, rows_per_cta, threads_per_row, col_out, val_out, acc_out, s);
+      rows_cap, rows_per_cta, threads_per_row, col_out, val_out, acc_out,
+      nnz_out, s);
+}
+
+// The constants of hash_slot's floor mod by t_size, as the wrapper's
+// spgemm_hash.hash_mod computes them for numeric_bin (l = ceil(log2
+// t_size): magic = floor(2^32 (2^l - t_size) / t_size) + 1, shift l - 1,
+// wrap 2^32 mod t_size; all 0 for a power of two).  fused_bin's entry
+// points take none: its 16-bit launches compute them here.
+HashMod hash_mod_of(int t_size) {
+  if ((t_size & (t_size - 1)) == 0) return HashMod{0u, 0, 0u};
+  int lg = 0;
+  while ((1 << lg) < t_size) ++lg;
+  const unsigned long long two32 = 1ull << 32;
+  return HashMod{
+      static_cast<unsigned>(two32 * ((1ull << lg) - t_size) / t_size + 1),
+      lg - 1, static_cast<unsigned>(two32 % t_size)};
 }
 
 // ---------------------------------------------------------------------------
@@ -1366,10 +1442,10 @@ __device__ __forceinline__ void dsmem_add32(uint32_t addr, int v) {
                :: "r"(addr), "r"(v) : "memory");
 }
 
-// This block's rank in its cluster, the cluster's size and the block's
-// index, read from their special registers anew at each call (asm
-// volatile), so that they need no register across the insert loop; the
-// thread's index and the block's size likewise (thread_index_now above).
+// This block's rank in its cluster and the cluster's size, read from their
+// special registers anew at each call (asm volatile), so that they need no
+// register across the insert loop; the thread's index, the block's size and
+// the block's index likewise (thread_index_now above).
 __device__ __forceinline__ unsigned cluster_rank_now() {
   unsigned v;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
@@ -1379,12 +1455,6 @@ __device__ __forceinline__ unsigned cluster_rank_now() {
 __device__ __forceinline__ unsigned cluster_blocks_now() {
   unsigned v;
   asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(v));
-  return v;
-}
-
-__device__ __forceinline__ unsigned block_index_now() {
-  unsigned v;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
   return v;
 }
 
@@ -1846,15 +1916,18 @@ int ctas_per_sm(int kernel, int single_access, int t_size, int rows_per_cta,
     fn = ordered ? (sa ? slot_rows_fn<true, VT, true>()
                        : slot_rows_fn<false, VT, true>())
                  : (sa ? slot_rows_fn<true, VT>() : slot_rows_fn<false, VT>());
+  } else if constexpr (VT != 0) {  // fused_bin in 16-bit: the slot kernel
+    fn = ordered ? (sa ? slot_rows_fn<true, VT, true>()
+                       : slot_rows_fn<false, VT, true>())
+                 : (sa ? slot_rows_fn<true, VT>() : slot_rows_fn<false, VT>());
   } else {
-    fn = ordered ? (sa ? hash_rows_ordered_fn<true, VT>()
-                       : hash_rows_ordered_fn<false, VT>())
-                 : (sa ? hash_rows_fn<true, true, VT>()
-                       : hash_rows_fn<false, true, VT>());
+    fn = ordered ? (sa ? hash_rows_ordered_fn<true>()
+                       : hash_rows_ordered_fn<false>())
+                 : (sa ? hash_rows_fn<true, true>()
+                       : hash_rows_fn<false, true>());
   }
   const size_t smem =
-      smem_bytes(t_size, rows_per_cta, body != 0,
-                 body == 2 ? static_cast<int>(sizeof(ValT<VT>)) : 4) +
+      smem_bytes(t_size, rows_per_cta, body != 0) +
       (ordered ? stage_bytes(rows_per_cta, threads_per_row) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1971,6 +2044,10 @@ int numeric(const int* rows, const int* count, const int* a_rpt,
       threads_per_row, col_out, static_cast<V*>(val_out), acc_out, stream);
 }
 
+// fused_bin: float32 on hash_rows_kernel, 16-bit values on
+// slot_rows_kernel with its nnz count (one 64-bit CAS claims a slot and
+// adds a product).
+
 template <int VT, bool ORDERED>
 int fused(const int* rows, const int* count, const int* a_rpt,
           const int* a_col, const void* a_val, const int* b_rpt,
@@ -1979,11 +2056,20 @@ int fused(const int* rows, const int* count, const int* a_rpt,
           int* nnz_out, int* col_out, void* val_out, int* acc_out,
           void* stream) {
   using V = ValT<VT>;
-  return dispatch<true, ORDERED, VT>(
-      single_access, rows, count, a_rpt, a_col, static_cast<const V*>(a_val),
-      b_rpt, b_col, static_cast<const V*>(b_val), t_size, rows_cap,
-      rows_per_cta, threads_per_row, nnz_out, col_out,
-      static_cast<V*>(val_out), acc_out, stream);
+  if constexpr (VT != 0) {
+    return slot_dispatch<ORDERED, VT>(
+        hash_mod_of(t_size), single_access, rows, count, a_rpt, a_col,
+        static_cast<const V*>(a_val), b_rpt, b_col,
+        static_cast<const V*>(b_val), t_size, rows_cap, rows_per_cta,
+        threads_per_row, col_out, static_cast<V*>(val_out), acc_out, stream,
+        nnz_out);
+  } else {
+    return dispatch<true, ORDERED>(
+        single_access, rows, count, a_rpt, a_col, static_cast<const V*>(a_val),
+        b_rpt, b_col, static_cast<const V*>(b_val), t_size, rows_cap,
+        rows_per_cta, threads_per_row, nnz_out, col_out,
+        static_cast<V*>(val_out), acc_out, stream);
+  }
 }
 
 }  // namespace

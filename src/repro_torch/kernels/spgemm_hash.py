@@ -77,11 +77,16 @@ float16 (``VALUE_TYPES``; ``a_val``, ``b_val`` and the value tables all of
 one type; anything else raises).  Tables hold that type and each product
 is rounded to it and added in it, as the reference's tables in
 ``a_val.dtype`` are, so a 16-bit call is the plain version's (and the
-reference's) arithmetic and not a float32 one.  A 16-bit value takes 2
-bytes of ``fused_bin``'s shared-memory table (6 B an entry with the key,
-against 8), so its rungs' routes follow the type (:func:`hash_route`'s
-``value_bytes``); ``numeric_bin`` and the cluster kernel keep their 64-bit
-key+value slot in every type.
+reference's) arithmetic and not a float32 one.  In 16-bit values both
+``fused_bin`` and ``numeric_bin`` run on ``slot_rows_kernel``: a table
+entry is one 64-bit word (the key, the value's bits above it), and one
+64-bit CAS claims a slot and adds a product, where a 16-bit add to a
+value array would be a CAS loop on the word it shares with its neighbour.
+float32 ``fused_bin`` keeps ``hash_rows_kernel`` (keys and values side by
+side), also 8 B an entry; so every table entry is 8 B in every type, the
+routes do not depend on the type, and on the default fused ladder (one
+block a row, t/8 threads) the threads, not the 8 B, bound the blocks an
+SM holds up to the top rung, which holds one in any layout.
 """
 from __future__ import annotations
 
@@ -388,13 +393,6 @@ def _smem_limit(device: Optional[torch.device]) -> int:
 _KERNEL_IDS = {"symbolic_bin": 0, "numeric_bin": 1, "fused_bin": 2}
 
 
-def table_value_bytes(kernel: str, dtype: torch.dtype) -> int:
-    """Bytes a value takes in ``kernel``'s shared-memory table beside its
-    4-byte key: ``fused_bin``'s values are ``dtype``'s, ``numeric_bin``'s
-    64-bit slot gives 4 to any type."""
-    return dtype.itemsize if kernel == "fused_bin" else 4
-
-
 def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
                 single_access: bool = True,
                 device: Optional[torch.device] = None,
@@ -418,8 +416,7 @@ def ctas_per_sm(t_size: int, pack: int = 1, *, kernel: str,
     suffix = VALUE_TYPES[dtype] if with_values else ""
     with torch.cuda.device(device):
         route = hash_route(t_size, rows_per_cta, with_values,
-                           _smem_limit(device),
-                           value_bytes=table_value_bytes(kernel, dtype))
+                           _smem_limit(device))
         if route == "cluster":
             raise ValueError(f"{kernel} t_size={t_size} runs in clusters: "
                              f"see clusters_in_flight")
@@ -457,8 +454,7 @@ def clusters_in_flight(t_size: int, *, kernel: str,
     lib = build.library("spgemm_hash")
     with torch.cuda.device(device):
         limit = _smem_limit(device)
-        route = hash_route(t_size, 1, with_values, limit,
-                           value_bytes=table_value_bytes(kernel, dtype))
+        route = hash_route(t_size, 1, with_values, limit)
         if route != "cluster":
             raise ValueError(f"{kernel} t_size={t_size} runs on the "
                              f"{route} route: see ctas_per_sm")
@@ -498,19 +494,18 @@ def _slot_bytes(with_values: bool) -> int:
     return 8 if with_values else 4
 
 
-def table_bytes(t_size: int, rows_per_cta: int, with_values: bool,
-                value_bytes: int = 4) -> int:
+def table_bytes(t_size: int, rows_per_cta: int, with_values: bool) -> int:
     """Shared memory of a block of ``rows_per_cta`` tables of ``t_size``
-    entries and their counters: a 4-byte key an entry, and with values
-    ``value_bytes`` more (the block's values padded to a word;
-    csrc/spgemm_hash.cu, smem_bytes)."""
+    entries and their counters: a 4-byte key an entry, and with values 4
+    more in every value type (a float32 value beside its key, or the
+    64-bit slot of the slot kernel; csrc/spgemm_hash.cu, smem_bytes)."""
     entries = rows_per_cta * t_size
-    values = -(-entries * value_bytes // 4) * 4 if with_values else 0
-    return 4 * entries + values + rows_per_cta * ROW_COUNTER_BYTES
+    return (8 if with_values else 4) * entries \
+        + rows_per_cta * ROW_COUNTER_BYTES
 
 
-def ordered_smem_bytes(t_size: int, rows_per_cta: int, threads_per_row: int,
-                       value_bytes: int = 4) -> int:
+def ordered_smem_bytes(t_size: int, rows_per_cta: int,
+                       threads_per_row: int) -> int:
     """Shared memory of a block of a fixed-order launch on the
     shared-memory route: :func:`table_bytes` with values, and where the
     block's one row has W > 1 warps the value pass's stage at the next
@@ -524,7 +519,7 @@ def ordered_smem_bytes(t_size: int, rows_per_cta: int, threads_per_row: int,
     warps = threads_per_row // 32
     stage = 8 * threads_per_row + 4 * warps * (warps + 1) + 4 \
         if warps > 1 else 0
-    return table_bytes(t_size, rows_per_cta, True, value_bytes) + stage
+    return table_bytes(t_size, rows_per_cta, True) + stage
 
 
 def cluster_slice_bytes(t_size: int, cluster: int, with_values: bool) -> int:
@@ -561,14 +556,13 @@ def cluster_size(t_size: int, with_values: bool, smem_limit: int) -> int:
 
 
 def hash_route(t_size: int, rows_per_cta: int, with_values: bool,
-               smem_limit: int, value_bytes: int = 4) -> str:
+               smem_limit: int) -> str:
     """Which kernel a rung's launch takes, from its tables and a block's
     shared-memory limit (232,448 B on the H100) alone:
 
       ``"smem"``     the block's ``rows_per_cta`` tables fit its shared
-                     memory (:func:`table_bytes` at ``value_bytes``: a
-                     16-bit ``fused_bin`` table takes 2, ``numeric_bin``'s
-                     slot 4 in any type): the shared-memory kernels;
+                     memory (:func:`table_bytes`, 8 B an entry with values
+                     in every type): the shared-memory kernels;
       ``"cluster"``  one table fits the shared memory of a cluster of at
                      most ``CLUSTER_MAX`` blocks (:func:`smallest_cluster`):
                      ``cluster_rows_kernel``;
@@ -577,7 +571,7 @@ def hash_route(t_size: int, rows_per_cta: int, with_values: bool,
 
     Raises where no kernel takes the rung: several rows to a block past
     shared memory, or a table past ``GLOBAL_MAX_T_SIZE``."""
-    need = table_bytes(t_size, rows_per_cta, with_values, value_bytes)
+    need = table_bytes(t_size, rows_per_cta, with_values)
     if need <= smem_limit:
         return "smem"
     if rows_per_cta != 1:
@@ -595,11 +589,10 @@ def hash_route(t_size: int, rows_per_cta: int, with_values: bool,
 
 
 def rung_route(t_size: int, rows_per_cta: int, with_values: bool,
-               device: Optional[torch.device] = None,
-               value_bytes: int = 4) -> str:
+               device: Optional[torch.device] = None) -> str:
     """:func:`hash_route` at the shared-memory limit of ``device``'s card."""
     return hash_route(t_size, rows_per_cta, with_values,
-                      _smem_limit(device), value_bytes)
+                      _smem_limit(device))
 
 
 def _launch_extended(fn, route, dev, rows, count, a_rpt, a_col, a_val,
@@ -670,6 +663,15 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def entry_point(kernel: str, dtype: torch.dtype, ordered: bool) -> str:
+    """The C entry point of a shared-memory launch of ``kernel``
+    (``numeric_bin`` or ``fused_bin``) with values of ``dtype``: its
+    fixed-order instance with ``ordered``.  Both kernels' bfloat16 and
+    float16 entry points launch ``slot_rows_kernel``; float32
+    ``fused_bin`` launches ``hash_rows_kernel``."""
+    return kernel + ("_ordered" if ordered else "") + VALUE_TYPES[dtype]
+
+
 def symbolic_bin_call(rows, count, a_rpt, a_col, b_rpt, b_col, *,
                       t_size: int, rows_cap: int, pack: int = 1,
                       single_access: bool = True):
@@ -736,8 +738,8 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     :func:`numeric_launch_geometry`: 8 rows to a block, a warp each, on
     the rungs where one row gets one warp, one row to a block above.  The
     output is (rows_cap, t_size) per row either way.  A table entry is one
-    64-bit word in shared memory (the key and the float value's bits), so
-    a single 64-bit CAS claims a slot and adds the value; the hash's mod
+    64-bit word in shared memory (the key and the value's bits), so a
+    single 64-bit CAS claims a slot and adds the value; the hash's mod
     by t_size (2^k - 1 on the numeric ladder) is a multiply-high by the
     constants of :func:`hash_mod`, with the reference's slots.  A rung
     whose tables exceed shared memory (the extended ladder's 32,768 and
@@ -770,8 +772,7 @@ def numeric_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                          col_tabs=col_tabs, val_tabs=val_tabs, acc=acc,
                          ordered=ordered)
     elif rows_cap:
-        entry = ("numeric_bin_ordered" if ordered else "numeric_bin") \
-            + VALUE_TYPES[a_val.dtype]
+        entry = entry_point("numeric_bin", a_val.dtype, ordered)
         with torch.cuda.device(dev):
             err = getattr(build.library("spgemm_hash"), entry)(
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),
@@ -815,7 +816,9 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
     ``out`` (CUDA only) takes the four outputs from :func:`fused_outputs`,
     so a caller can allocate them on another stream than the launch's.
     Under ``torch.use_deterministic_algorithms(True)`` every route takes
-    its fixed-order instance.
+    its fixed-order instance.  In bfloat16 and float16 the shared-memory
+    rungs run on ``numeric_bin``'s slot kernel (:func:`entry_point`): one
+    64-bit CAS claims a slot and adds, the row's nnz its claimed slots.
     """
     if not rows.is_cuda:
         return fused_bin_plain(rows, count, a_rpt, a_col, a_val, b_rpt,
@@ -835,9 +838,8 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
         raise ValueError(f"val_tabs is {val_tabs.dtype}, the values "
                          f"{a_val.dtype}")
     ordered = torch.are_deterministic_algorithms_enabled()
-    route = rung_route(t_size, rows_per_cta, True, dev,
-                       table_value_bytes("fused_bin", a_val.dtype)) \
-        if rows_cap else "smem"
+    route = rung_route(t_size, rows_per_cta, True, dev) if rows_cap \
+        else "smem"
     if route != "smem":
         _launch_extended(fused_bin_call, route, dev, rows, count, a_rpt,
                          a_col, a_val, b_rpt, b_col, b_val, t_size=t_size,
@@ -846,8 +848,7 @@ def fused_bin_call(rows, count, a_rpt, a_col, a_val, b_rpt, b_col, b_val,
                          col_tabs=col_tabs, val_tabs=val_tabs, acc=acc,
                          ordered=ordered)
     elif rows_cap:
-        entry = ("fused_bin_ordered" if ordered else "fused_bin") \
-            + VALUE_TYPES[a_val.dtype]
+        entry = entry_point("fused_bin", a_val.dtype, ordered)
         with torch.cuda.device(dev):
             err = getattr(build.library("spgemm_hash"), entry)(
                 rows.data_ptr(), count.data_ptr(), a_rpt.data_ptr(),

@@ -24,6 +24,8 @@ orders of the same sum can differ by: 3 n (u S + e) for n products of
 absolute sum S (the same rounded products, n - 1 rounded sums each way;
 e the type's subnormal step).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -270,24 +272,75 @@ def test_spgemm_value_types_match_reference(dtype, method):
         rtol=BOUND[dtype][0], atol=BOUND[dtype][1])
 
 
-@pytest.mark.parametrize("dtype,value_bytes,route", [
-    (torch.float32, 4, "cluster"), (torch.bfloat16, 2, "smem"),
-    (torch.float16, 2, "smem")])
-def test_fused_route_follows_the_value_type(dtype, value_bytes, route):
-    """A 16-bit fused table takes 6 B an entry in shared memory, so the
-    32,768-entry rung fits a block (196,616 B of 232,448) where a float32
-    one (262,152 B) goes to a cluster; numeric_bin's 64-bit slot routes
-    alike in every type."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_fused_route_follows_the_value_type(dtype):
+    """A fused table takes 8 B an entry in shared memory in every value
+    type (float32 keys and values side by side, a 16-bit value in the slot
+    kernel's 64-bit slot), so the 32,768-entry rung (262,152 B of a
+    block's 232,448) goes to a cluster in every type, as numeric_bin's
+    does, and the default ladder's top rung (196,616 B) fits a block; the
+    launch is the type's own entry point."""
     limit = 232448
-    assert tsh.table_value_bytes("fused_bin", dtype) == value_bytes
-    assert tsh.table_value_bytes("numeric_bin", dtype) == 4
-    assert tsh.table_bytes(32768, 1, True, value_bytes) == \
-        32768 * (4 + value_bytes) + tsh.ROW_COUNTER_BYTES
-    assert tsh.hash_route(32768, 1, True, limit, value_bytes) == route
+    assert tsh.table_bytes(32768, 1, True) == \
+        32768 * 8 + tsh.ROW_COUNTER_BYTES
     assert tsh.hash_route(32768, 1, True, limit) == "cluster"
-    assert tsh.hash_route(65536, 1, True, limit, value_bytes) == "cluster"
-    # An odd number of 16-bit values pads to a word.
-    assert tsh.table_bytes(255, 1, True, 2) == 255 * 4 + 512 + 8
+    assert tsh.hash_route(24576, 1, True, limit) == "smem"
+    assert tsh.hash_route(65536, 1, True, limit) == "cluster"
+    assert tsh.table_bytes(255, 1, True) == 255 * 8 + 8
+    assert tsh.table_bytes(255, 1, False) == 255 * 4 + 8
+    sfx = {torch.float32: "", torch.bfloat16: "_bf16",
+           torch.float16: "_f16"}[dtype]
+    assert tsh.entry_point("fused_bin", dtype, False) == "fused_bin" + sfx
+    assert tsh.entry_point("numeric_bin", dtype, True) == \
+        "numeric_bin_ordered" + sfx
+
+
+# The default fused ladder's rungs and the blocks of their launch an SM
+# holds: one block a row of t/8 threads (64 to 1,024), 8 B an entry.
+FUSED_CTAS_PER_SM = {512: 32, 1024: 16, 2048: 8, 4096: 4, 8192: 2,
+                     12288: 2, 24576: 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("ordered", [False, True])
+def test_fused_16bit_launch_geometry_and_shared_memory(dtype, ordered):
+    """The 16-bit fused_bin call on the shared-memory route: its entry
+    point (which launches slot_rows_kernel), float32's geometry, and a
+    block's shared memory at 8 B an entry (the fixed-order instance's
+    stage beside it) within the card's 232,448 B on every rung of both
+    ladders that takes that route.  On the default ladder the threads, not
+    the 8 B, bound the blocks an SM holds (2,048 threads, 32 blocks,
+    233,472 B with 1 KB a block), but on the top rung, which one block
+    fills in 6 B an entry as well."""
+    limit, sm_bytes = 232448, 233472
+    seen = 0
+    for lad in (tranges.symbolic_ladder(), tranges.symbolic_ladder(
+            vmem_extended=True)):
+        for t_size in lad.table_sizes:
+            rows_per_cta, threads = tsh.launch_geometry(t_size, 1)
+            if tsh.hash_route(t_size, rows_per_cta, True, limit) != "smem":
+                assert t_size > 24576
+                continue
+            smem = (tsh.ordered_smem_bytes(t_size, rows_per_cta, threads)
+                    if ordered else tsh.table_bytes(t_size, rows_per_cta,
+                                                    True))
+            assert smem <= limit, (t_size, smem)
+            assert tsh.table_bytes(t_size, rows_per_cta, True) == \
+                8 * t_size + tsh.ROW_COUNTER_BYTES
+            seen += 1
+    assert seen == 2 * len(tranges.symbolic_ladder().table_sizes)
+    for t_size, want in FUSED_CTAS_PER_SM.items():
+        rows_per_cta, threads = tsh.launch_geometry(t_size, 1)
+        assert rows_per_cta == 1 and threads == min(1024, t_size // 8)
+        by_threads = min(32, 2048 // threads)
+        by_smem = sm_bytes // (tsh.table_bytes(t_size, 1, True) + 1024)
+        assert min(by_threads, by_smem) == want
+        assert by_threads == want or (t_size == 24576 and sm_bytes // (
+            6 * t_size + 8 + 1024) == want)
+    assert tsh.entry_point("fused_bin", dtype, ordered) == (
+        "fused_bin" + ("_ordered" if ordered else "")
+        + ("_bf16" if dtype == torch.bfloat16 else "_f16"))
 
 
 def test_cuda_inputs_of_mixed_or_other_types_raise():
@@ -334,8 +387,9 @@ def test_cuda_numeric_kernel_sweep(cuda_device, dtype, single_access):
 
 
 # (kind, t_size, pack, rows): the shared-memory rungs (packed and not, the
-# mod-hashed numeric sizes), the 16-bit-only shared-memory fused rung, and
-# the cluster and global-memory rungs of the extended ladders.
+# mod-hashed numeric sizes), fused 32,768 (past a block at 8 B an entry: a
+# cluster, as in float32), and the cluster and global-memory rungs of the
+# extended ladders.
 CARD_CASES = [("fused", 256, 1, 96), ("fused", 256, 4, 96),
               ("fused", 32768, 1, 8), ("fused", 65536, 1, 8),
               ("fused", 262144, 1, 8), ("numeric", 255, 1, 96),
@@ -359,20 +413,24 @@ def card_case(kind, t_size, pack, n_rows, dtype, device, seed=3):
     return A, B, rows, count, rows_cap
 
 
-def kernel_tables(kind, A, B, rows, count, t_size, rows_cap, pack,
-                  single_access=True):
-    """(col_tabs, val_tabs) of one launch of ``kind``'s wrapper (the plain
-    version on CPU tensors)."""
+def kernel_outputs(kind, A, B, rows, count, t_size, rows_cap, pack,
+                   single_access=True):
+    """(nnz, col_tabs, val_tabs, accesses) of one launch of ``kind``'s
+    wrapper (the plain version on CPU tensors); nnz None for numeric."""
     args = (rows, count, A.rpt, A.col, A.val, B.rpt, B.col, B.val)
     if kind == "numeric":
-        cols, vals, _ = tsh.numeric_bin_call(
+        return (None, *tsh.numeric_bin_call(
             *args, t_size=t_size, rows_cap=rows_cap,
-            single_access=single_access)
-        return cols, vals
-    _, cols, vals, _ = tsh.fused_bin_call(
-        *args, t_size=t_size, rows_cap=rows_cap, pack=pack,
-        single_access=single_access)
-    return cols, vals
+            single_access=single_access))
+    return tsh.fused_bin_call(*args, t_size=t_size, rows_cap=rows_cap,
+                              pack=pack, single_access=single_access)
+
+
+def kernel_tables(kind, A, B, rows, count, t_size, rows_cap, pack,
+                  single_access=True):
+    """(col_tabs, val_tabs) of :func:`kernel_outputs`."""
+    return kernel_outputs(kind, A, B, rows, count, t_size, rows_cap, pack,
+                          single_access)[1:3]
 
 
 def sorted_rows(cols, vals, n_valid):
@@ -407,28 +465,35 @@ def test_cuda_16bit_kernels_match_plain(cuda_device, kind, t_size, pack,
     """Each 16-bit kernel on each route against its plain version on the
     card: the valid rows' sorted columns exactly; values bit for bit under
     torch.use_deterministic_algorithms(True), else within the bound of two
-    summation orders; the launch counted on the route hash_route names."""
+    summation orders; fused_bin's nnz equal to the plain version's; at
+    least one access a product on every valid row and none on padding;
+    the launch counted on the route hash_route names."""
     A, B, rows, count, rows_cap = card_case(kind, t_size, pack, n_rows,
                                             dtype, cuda_device)
     n = int(count[0])
-    pc, pv = kernel_tables(kind, A.to("cpu"), B.to("cpu"), rows.cpu(),
-                           count.cpu(), t_size, rows_cap, pack)
+    pn, pc, pv, _ = kernel_outputs(kind, A.to("cpu"), B.to("cpu"),
+                                   rows.cpu(), count.cpu(), t_size, rows_cap,
+                                   pack)
     fn = getattr(tsh, f"{kind}_bin_call")
     rpc = (tsh.numeric_launch_geometry(t_size)[0] if kind == "numeric"
            else tsh.launch_geometry(t_size, pack)[0])
-    route = tsh.rung_route(t_size, rpc, True, cuda_device,
-                           tsh.table_value_bytes(f"{kind}_bin", dtype))
+    route = tsh.rung_route(t_size, rpc, True, cuda_device)
     before = (fn.launches, fn.launches_cluster, fn.launches_global,
               fn.launches_ordered)
     mode = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(ordered)
     try:
-        kc, kv = kernel_tables(kind, A, B, rows, count, t_size, rows_cap,
-                               pack)
+        kn, kc, kv, ka = kernel_outputs(kind, A, B, rows, count, t_size,
+                                        rows_cap, pack)
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(mode)
     assert kv.dtype == dtype
+    if kind == "fused":
+        assert torch.equal(kn.cpu(), pn)
+    nprod = tnprod(A, B)[rows.long()].cpu().long()
+    acc = ka.cpu().long()
+    assert bool((acc[:n] >= nprod[:n]).all()) and not acc[n:].any()
     assert (fn.launches - before[0], fn.launches_cluster - before[1],
             fn.launches_global - before[2],
             fn.launches_ordered - before[3]) == (
@@ -441,6 +506,59 @@ def test_cuda_16bit_kernels_match_plain(cuda_device, kind, t_size, pack,
     else:
         bound = order_bound(A, B, rows, count, t_size, rows_cap, dtype)
         assert bool(((kvs.float() - pvs.float()).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kind,t_size,pack,n_rows", CARD_CASES)
+def test_cuda_16bit_single_access_below_check_then_cas(cuda_device, kind,
+                                                       t_size, pack, n_rows,
+                                                       dtype):
+    """Each 16-bit kernel on each route: single access takes fewer table
+    accesses than check-then-CAS on the same bin, and both build the same
+    tables (sorted columns, and fused_bin's nnz)."""
+    A, B, rows, count, rows_cap = card_case(kind, t_size, pack, n_rows,
+                                            dtype, cuda_device)
+    n = int(count[0])
+    out = {sa: kernel_outputs(kind, A, B, rows, count, t_size, rows_cap,
+                              pack, single_access=sa)
+           for sa in (True, False)}
+    torch.cuda.synchronize()
+    acc = {sa: int(o[3].long().sum()) for sa, o in out.items()}
+    assert acc[True] < acc[False], acc
+    assert torch.equal(sorted_rows(out[True][1], out[True][2], n)[0],
+                       sorted_rows(out[False][1], out[False][2], n)[0])
+    if kind == "fused":
+        assert torch.equal(out[True][0], out[False][0])
+
+
+@pytest.mark.gpu
+def test_cuda_16bit_instances_one_cas_and_no_spill(cuda_device):
+    """Every 16-bit instance of the shared-memory kernels is
+    slot_rows_kernel's (hash_rows_kernel has none): 0 spill bytes at its
+    32 registers, a 64-bit shared-memory CAS (ATOMS.CAS.64) on its insert
+    path and no CAS spin loop on a value word."""
+    from repro_torch.kernels import build
+    build.library("spgemm_hash")
+    bodies = ("hash_rows_kernel", "hash_rows_kernel_ordered",
+              "slot_rows_kernel")
+
+    def value_type(kernel):
+        return int(kernel.rstrip(">").split(",")[-1])
+    lines = [x for x in build.ptxas_report("spgemm_hash")
+             if x.split("<")[0] in bodies and value_type(x.split(":")[0])]
+    assert lines and all(x.startswith("slot_rows_kernel<") for x in lines)
+    assert len(lines) == 8, lines        # 2 disciplines x 2 modes x 2 types
+    for x in lines:
+        assert int(re.search(r"Used (\d+) registers", x).group(1)) <= 32, x
+        assert "0 bytes spill stores, 0 bytes spill loads" in x, x
+    for kernel, ops in build.sass_opcodes("spgemm_hash").items():
+        if kernel.split("<")[0] in bodies and value_type(kernel):
+            # (the parent's 16-bit add was a CAS loop: ATOM.E.CAS on the
+            # value's 32-bit word, beside the key's ATOMS.CAS)
+            assert ops.get("ATOMS.CAS.64", 0) > 0, (kernel, ops)
+            assert all(op == "ATOMS.CAS.64" for op in ops if "CAS" in op), \
+                (kernel, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -543,8 +661,8 @@ def test_plain_matches_reference_bitwise_at_high_compression(kind, t_size,
 def test_ordered_shared_memory_fits_every_rung():
     """Every rung of the reference's ladders that takes the shared-memory
     route on the H100 (232,448 B a block) keeps it in the fixed-order mode:
-    its tables and the value pass's stage (ordered_smem_bytes) fit, in
-    every value type."""
+    its tables and the value pass's stage (ordered_smem_bytes) fit (8 B an
+    entry in every value type)."""
     limit = 232_448
     ladders = {
         "fused_bin": [tranges.symbolic_ladder(vmem_extended=e)
@@ -555,17 +673,14 @@ def test_ordered_shared_memory_fits_every_rung():
     for kind, lads in ladders.items():
         for lad in lads:
             for t_size in lad.table_sizes:
-                for dtype in tsh.VALUE_TYPES:
-                    rpc, threads = (tsh.numeric_launch_geometry(t_size)
-                                    if kind == "numeric_bin"
-                                    else tsh.launch_geometry(t_size, 1))
-                    vb = tsh.table_value_bytes(kind, dtype)
-                    if tsh.hash_route(t_size, rpc, True, limit,
-                                      vb) != "smem":
-                        continue
-                    need = tsh.ordered_smem_bytes(t_size, rpc, threads, vb)
-                    assert need <= limit, (kind, t_size, dtype, need)
-                    seen += 1
+                rpc, threads = (tsh.numeric_launch_geometry(t_size)
+                                if kind == "numeric_bin"
+                                else tsh.launch_geometry(t_size, 1))
+                if tsh.hash_route(t_size, rpc, True, limit) != "smem":
+                    continue
+                need = tsh.ordered_smem_bytes(t_size, rpc, threads)
+                assert need <= limit, (kind, t_size, need)
+                seen += 1
     assert seen > 0
     # One warp a row: no stage; W warps: 8 B a thread, W (W + 1) words of
     # counts and 4 B to align.
@@ -619,9 +734,7 @@ def test_cuda_fixed_order_stress_bitwise(cuda_device, kind, t_size, pack,
                                               n_rows)
     rpc = (tsh.numeric_launch_geometry(t_size)[0] if kind == "numeric"
            else tsh.launch_geometry(t_size, pack)[0])
-    assert tsh.rung_route(t_size, rpc, True, cuda_device,
-                          tsh.table_value_bytes(f"{kind}_bin",
-                                                dtype)) == route
+    assert tsh.rung_route(t_size, rpc, True, cuda_device) == route
     pc, pv = kernel_tables(kind, A.to("cpu"), B.to("cpu"), rows.cpu(),
                            count.cpu(), t_size, rows_cap, pack)
     fn = getattr(tsh, f"{kind}_bin_call")
