@@ -18,7 +18,7 @@ and keeps its single host sync for finalize.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -146,16 +146,29 @@ def bin_by_id(ids: torch.Tensor, num_bins: int
     return out if batch else tuple(t[0] for t in out)
 
 
+def _range(name: str):
+    """``engine.telemetry.profiler_range``, bound at the first call (the
+    engine package imports this module, so this one cannot import it)."""
+    global _range
+    from repro_torch.engine.telemetry import profiler_range as _range
+    return _range(name)
+
+
 def bin_rows_for_ladder(sizes: torch.Tensor, ladder: BinLadder,
-                        *, allow_fast_path: bool = True) -> Binning:
+                        *, allow_fast_path: bool = True,
+                        max_size: Optional[int] = None) -> Binning:
     """Cold-path entry: host-checks the Alg-3 fast path, then bins.
 
     The host read of ``max(sizes)`` mirrors the paper: the binning kernel
     writes d_max_row_nnz and the HOST decides which second-pass kernel to
-    launch.
+    launch.  A caller that made the read itself passes it as ``max_size``
+    (the engine's steps path, which counts it); otherwise it is made here,
+    in the profiler range ``sync:max``.
     """
     if allow_fast_path:
-        max_size = int(sizes.max()) if sizes.shape[0] else 0
+        if max_size is None:
+            with _range("sync:max"):
+                max_size = int(sizes.max()) if sizes.shape[0] else 0
         if max_size <= ladder.upper[0]:
             return bin_rows_identity(sizes, num_bins=ladder.num_bins)
     return bin_rows(sizes, upper=ladder.upper, num_bins=ladder.num_bins)

@@ -85,7 +85,8 @@ from .partition import (ShardSpec, data_axis_devices, plan_shards,
                         shard_devices)
 from .plan import HashSchedule, MatrixSig, SpgemmPlan, plan as make_plan
 from .stats import EngineStats
-from .telemetry import Span, Telemetry, resolve_telemetry
+from .telemetry import (NULL, Span, Telemetry, profiler_range,
+                        resolve_telemetry)
 
 # Capacity buckets (product expansion / C storage) get a smaller margin: it
 # only moves the pow-2 bucket when the observed total sits in the top fifth
@@ -98,36 +99,60 @@ def _sync(value: torch.Tensor) -> None:
         torch.cuda.synchronize(value.device)
 
 
-class StepTimer:
-    """Per-step wall clock of the steps path (waits only when enabled).
+def host_read(tel: Telemetry, stats: Optional[EngineStats], name: str, *,
+              uid: Optional[int] = None, range_name: Optional[str] = None):
+    """The ``with``-span of one wait of the host on the device: a span
+    marked ``sync=True`` (so a profiler range, traced or not), counted in
+    the engine's ``host_syncs``."""
+    if stats is not None:
+        stats.host_syncs += 1
+    return tel.span(name, uid=uid, range_name=range_name, sync=True)
 
-    With an enabled ``tracer`` each measured step also records a span,
-    nested under the tracer's current ``with``-span (``cold_steps``): the
-    steps path waits for the device at each step anyway.  Under
-    ``torch.profiler`` each wait is a range ``step_wait:<step>``.
+
+class StepTimer:
+    """Per-step wall clock of the steps path (waits only when enabled),
+    and the span of each of its host reads (:meth:`read`).
+
+    Each measured step is a span nested under the tracer's current
+    ``with``-span (``cold_steps``), recorded when the tracer is enabled:
+    the steps path waits for the device at each step anyway.  Under
+    ``torch.profiler`` each wait is a range ``step_wait:<step>``.  Every
+    wait and read is counted in ``stats.host_syncs``.
     """
 
     def __init__(self, enabled: bool, tracer: Optional[Telemetry] = None,
-                 uid: Optional[int] = None):
-        self.tracer = tracer if (tracer is not None
-                                 and tracer.enabled) else None
-        self.enabled = enabled or self.tracer is not None
+                 uid: Optional[int] = None,
+                 stats: Optional[EngineStats] = None):
+        self.tracer = tracer if tracer is not None else NULL
+        self.enabled = enabled or self.tracer.enabled
         self.uid = uid
+        self.stats = stats
         self.timings: Dict[str, float] = {}
+
+    def read(self, name: str, range_name: Optional[str] = None):
+        """The span of one host read (:func:`host_read`)."""
+        return host_read(self.tracer, self.stats, name, uid=self.uid,
+                         range_name=range_name)
 
     def measure(self, name: str, value: torch.Tensor) -> torch.Tensor:
         """Wait for ``value`` and charge the wait to ``name``."""
         if self.enabled:
-            span = (self.tracer.start_span(name, uid=self.uid)
-                    if self.tracer is not None else None)
             t0 = time.perf_counter()
-            with torch.profiler.record_function("step_wait:" + name):
+            with self.read(name, "step_wait:" + name):
                 _sync(value)
             self.timings[name] = self.timings.get(name, 0.0) + (
                 time.perf_counter() - t0)
-            if span is not None:
-                self.tracer.end_span(span)
         return value
+
+
+def _bin_for_ladder(sizes: torch.Tensor, ladder, timer: StepTimer):
+    """``bin_rows_for_ladder`` with its read of ``max(sizes)`` made here,
+    so the read (``sync:max``) and the binning (``hash_binning``) are
+    sibling ranges."""
+    with timer.read("sync:max"):
+        max_size = int(sizes.max()) if sizes.shape[0] else 0
+    with profiler_range("hash_binning"):
+        return bin_rows_for_ladder(sizes, ladder, max_size=max_size)
 
 
 # ---------------------------------------------------------------------------
@@ -162,12 +187,15 @@ def _execute_steps(A: CSR, B: CSR, plan: SpgemmPlan, timer: StepTimer, *,
     sched = plan.hash_schedule
 
     # ---- step1: setup -------------------------------------------------------
-    rpt_buf = timer.measure("setup", nprod_into_rpt(A, B))  # n_prod in C.rpt
+    with profiler_range("hash_setup"):
+        rpt_buf = nprod_into_rpt(A, B)                      # n_prod in C.rpt
+    timer.measure("setup", rpt_buf)
     nprod = rpt_buf[:m]
-    total_nprod = int(nprod.sum())              # host sync #1 (sizes launches)
+    with timer.read("sync:nprod"):
+        total_nprod = int(nprod.sum())      # host sync #1 (sizes launches)
 
     # ---- step2: symbolic binning ---------------------------------------------
-    sym_binning = bin_rows_for_ladder(nprod, sym_ladder)
+    sym_binning = _bin_for_ladder(nprod, sym_ladder, timer)
     timer.measure("symbolic_binning", sym_binning.bins)
     prod_capacity = max(plan.prod_bucket or 0,
                         next_bucket(max(int(total_nprod
@@ -181,7 +209,8 @@ def _execute_steps(A: CSR, B: CSR, plan: SpgemmPlan, timer: StepTimer, *,
         sym_packs = sym_ladder.rows_per_block if config.row_packing else None
         sym_buckets, sym_fall = _floor_schedule(
             *spgemm_hash.host_schedule(A, B, sym_binning, sym_ladder,
-                                       headroom=headroom, packs=sym_packs),
+                                       headroom=headroom, packs=sym_packs,
+                                       read=timer.read),
             sched.sym_row_buckets if sched else None,
             sched.fall_prod_bucket if sched else 0)
         nnz_buf, _, _ = spgemm_hash.symbolic_scheduled(
@@ -196,13 +225,17 @@ def _execute_steps(A: CSR, B: CSR, plan: SpgemmPlan, timer: StepTimer, *,
     # ---- step4: alloc ------------------------------------------------------------
     nnz = nnz_buf[:m]
     # Numeric binning is dispatched BEFORE the host reads total_nnz: the
-    # launch-early / allocate-later ordering of §5.4.
-    num_binning = bin_rows_for_ladder(nnz, num_ladder)
-    total_nnz = int(nnz.sum())                  # host sync #2 (alloc C)
+    # launch-early / allocate-later ordering of §5.4 (its own read of
+    # max(nnz), sync:max, still comes first).
+    num_binning = _bin_for_ladder(nnz, num_ladder, timer)
+    with timer.read("sync:nnz"):
+        total_nnz = int(nnz.sum())              # host sync #2 (alloc C)
     nnz_capacity = max(plan.nnz_bucket or 0,
                        next_bucket(max(int(total_nnz
                                            * _CAPACITY_HEADROOM), 1)))
-    rpt = timer.measure("alloc", exclusive_sum_in_place(nnz_buf))
+    with profiler_range("hash_alloc"):
+        rpt = exclusive_sum_in_place(nnz_buf)
+    timer.measure("alloc", rpt)
     timer.measure("numeric_binning", num_binning.bins)
 
     # ---- step6: numeric ----------------------------------------------------------
@@ -210,7 +243,7 @@ def _execute_steps(A: CSR, B: CSR, plan: SpgemmPlan, timer: StepTimer, *,
     if config.method == "hash":
         num_buckets, num_fall = _floor_schedule(
             *spgemm_hash.host_schedule(A, B, num_binning, num_ladder,
-                                       headroom=headroom),
+                                       headroom=headroom, read=timer.read),
             sched.num_row_buckets if sched else None,
             sched.fall_prod_bucket if sched else 0)
         # Both phases share ONE fallback expansion capacity.
@@ -288,10 +321,12 @@ def _build_hash_executable(plan: SpgemmPlan) -> Callable:
     nnz_cap = plan.nnz_bucket
 
     def body(A: CSR, B: CSR, ws=None):  # opslint: steady
-        nprod = nprod_into_rpt(A, B)[:m]
-        total_nprod = nprod.sum()
-        sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
-                               num_bins=sym_ladder.num_bins)
+        with profiler_range("hash_setup"):
+            nprod = nprod_into_rpt(A, B)[:m]
+            total_nprod = nprod.sum()
+        with profiler_range("hash_binning"):
+            sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
+                                   num_bins=sym_ladder.num_bins)
         nnz_buf, sym_fall_prod, _ = spgemm_hash.symbolic_scheduled(
             A, B, sym_binning, sym_ladder,
             row_buckets=sched.sym_row_buckets,
@@ -299,11 +334,14 @@ def _build_hash_executable(plan: SpgemmPlan) -> Callable:
             single_access=config.hash_single_access,
             row_packing=config.row_packing, workspace=ws)
         nnz = nnz_buf[:m]
-        num_binning = bin_rows(nnz, upper=num_ladder.upper,
-                               num_bins=num_ladder.num_bins)
-        total_nnz = nnz.sum()
+        with profiler_range("hash_binning"):
+            num_binning = bin_rows(nnz, upper=num_ladder.upper,
+                                   num_bins=num_ladder.num_bins)
+            total_nnz = nnz.sum()
+        with profiler_range("hash_alloc"):
+            rpt = exclusive_sum_in_place(nnz_buf)
         C, num_fall_prod, _ = spgemm_hash.numeric_scheduled(
-            A, B, exclusive_sum_in_place(nnz_buf), num_binning, num_ladder,
+            A, B, rpt, num_binning, num_ladder,
             row_buckets=sched.num_row_buckets, nnz_capacity=nnz_cap,
             fallback_prod_capacity=sched.fall_prod_bucket,
             single_access=config.hash_single_access, workspace=ws)
@@ -328,21 +366,24 @@ def _build_fused_hash_executable(plan: SpgemmPlan) -> Callable:
     nnz_cap = plan.nnz_bucket
 
     def body(A: CSR, B: CSR, ws=None):  # opslint: steady
-        nprod = nprod_into_rpt(A, B)[:m]
-        total_nprod = nprod.sum()
-        sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
-                               num_bins=sym_ladder.num_bins)
+        with profiler_range("hash_setup"):
+            nprod = nprod_into_rpt(A, B)[:m]
+            total_nprod = nprod.sum()
+        with profiler_range("hash_binning"):
+            sym_binning = bin_rows(nprod, upper=sym_ladder.upper,
+                                   num_bins=sym_ladder.num_bins)
         C, nnz, sym_fall_prod, _ = spgemm_hash.fused_scheduled(
             A, B, sym_binning, sym_ladder,
             row_buckets=sched.sym_row_buckets, nnz_capacity=nnz_cap,
             fallback_prod_capacity=sched.fall_prod_bucket,
             single_access=config.hash_single_access,
             row_packing=config.row_packing, workspace=ws)
-        total_nnz = nnz.sum()
         # No numeric phase runs; the n_nz binning stays in the result so
         # steady calls report what cold calls report.
-        num_binning = bin_rows(nnz, upper=num_ladder.upper,
-                               num_bins=num_ladder.num_bins)
+        with profiler_range("hash_binning"):
+            total_nnz = nnz.sum()
+            num_binning = bin_rows(nnz, upper=num_ladder.upper,
+                                   num_bins=num_ladder.num_bins)
         return (C, total_nprod, total_nnz, sym_binning, num_binning,
                 sym_fall_prod)
 
@@ -540,54 +581,58 @@ class SpgemmEngine:
                  arena: Optional[Arena] = None,
                  governor: Optional[MemoryGovernor] = None,
                  faults: Optional[FaultPlan] = None):
-        if shards != "auto" and (isinstance(shards, str)
-                                 or int(shards) < 1):
-            raise ValueError(f"shards must be >= 1 or 'auto', got "
-                             f"{shards!r}")
-        self.config = config or SpgemmConfig()
-        self.shards = shards
-        self.mesh = tuple(mesh) if mesh is not None else None
-        self.policy = policy or AdaptivePolicy()
-        # Every engine shares ONE arena by default, so the traffic of all
-        # of them is bounded together; pass an Arena for isolation.  The
-        # default governor is unbounded.
-        self.arena = arena if arena is not None else default_arena()
-        self.governor = governor or MemoryGovernor()
-        # Disabled by default: spans and events are no-ops, but the
-        # registry still backs EngineStats and the plan counters.
-        self.telemetry = resolve_telemetry(telemetry)
-        # Fault injection at the sites lease_denial (workspace lease),
-        # verify_overflow (finalize), executor_raise and slow_dispatch
-        # (dispatch); the disabled default costs one attribute read.
-        self.faults = resolve_faults(faults)
-        self.cache = PlanCache(cache_capacity, telemetry=self.telemetry,
-                               arena=self.arena)
-        self.stats = EngineStats(registry=self.telemetry.registry)
-        # The estimator's headroom is learned across plans: its misses are
-        # a property of the traffic, not of one signature.
-        self.est_state = autotune.EstimatorState(self.policy)
-        reg = self.telemetry.registry
-        self._hist_request = reg.histogram("opsparse_request_latency_seconds")
-        self._hist_cold = reg.histogram("opsparse_cold_steps_seconds")
-        self._hist_finalize = reg.histogram("opsparse_finalize_seconds")
-        # Snapshots of the (possibly shared) arena's accounting, set on
-        # every lease transition.
-        self._arena_gauges = {name: reg.gauge(name) for name in (
-            "opsparse_arena_bytes_in_use", "opsparse_arena_bytes_reserved",
-            "opsparse_arena_peak_bytes", "opsparse_arena_lease_hits_total",
-            "opsparse_arena_lease_misses_total",
-            "opsparse_arena_pressure_events_total")}
-        self._queue: List[SpgemmRequest] = []
-        self._uids = itertools.count()
-        # Replicas of B per shard device, made once per B (streams reuse
-        # the same B request after request); a new B drops them all, so
-        # stale replicas do not pin device memory.
-        self._b_src = None
-        self._b_placed: Dict[torch.device, CSR] = {}
-        # (completion, sink) of results whose C was still in flight at
-        # finalize (sharded, on the card), observed once complete.
-        self._in_flight: List[Tuple[Completion, Callable[[float], None]]] = []
-        self._in_flight_lock = threading.Lock()
+        with profiler_range("engine_init"):
+            if shards != "auto" and (isinstance(shards, str)
+                                     or int(shards) < 1):
+                raise ValueError(f"shards must be >= 1 or 'auto', got "
+                                 f"{shards!r}")
+            self.config = config or SpgemmConfig()
+            self.shards = shards
+            self.mesh = tuple(mesh) if mesh is not None else None
+            self.policy = policy or AdaptivePolicy()
+            # Every engine shares ONE arena by default, so the traffic of
+            # all of them is bounded together; pass an Arena for isolation.
+            # The default governor is unbounded.
+            self.arena = arena if arena is not None else default_arena()
+            self.governor = governor or MemoryGovernor()
+            # Disabled by default: spans and events are no-ops, but the
+            # registry still backs EngineStats and the plan counters.
+            self.telemetry = resolve_telemetry(telemetry)
+            # Fault injection at the sites lease_denial (workspace lease),
+            # verify_overflow (finalize), executor_raise and slow_dispatch
+            # (dispatch); the disabled default costs one attribute read.
+            self.faults = resolve_faults(faults)
+            self.cache = PlanCache(cache_capacity, telemetry=self.telemetry,
+                                   arena=self.arena)
+            self.stats = EngineStats(registry=self.telemetry.registry)
+            # The estimator's headroom is learned across plans: its misses
+            # are a property of the traffic, not of one signature.
+            self.est_state = autotune.EstimatorState(self.policy)
+            reg = self.telemetry.registry
+            self._hist_request = reg.histogram(
+                "opsparse_request_latency_seconds")
+            self._hist_cold = reg.histogram("opsparse_cold_steps_seconds")
+            self._hist_finalize = reg.histogram("opsparse_finalize_seconds")
+            # Snapshots of the (possibly shared) arena's accounting, set on
+            # every lease transition.
+            self._arena_gauges = {name: reg.gauge(name) for name in (
+                "opsparse_arena_bytes_in_use",
+                "opsparse_arena_bytes_reserved",
+                "opsparse_arena_peak_bytes", "opsparse_arena_lease_hits_total",
+                "opsparse_arena_lease_misses_total",
+                "opsparse_arena_pressure_events_total")}
+            self._queue: List[SpgemmRequest] = []
+            self._uids = itertools.count()
+            # Replicas of B per shard device, made once per B (streams reuse
+            # the same B request after request); a new B drops them all, so
+            # stale replicas do not pin device memory.
+            self._b_src = None
+            self._b_placed: Dict[torch.device, CSR] = {}
+            # (completion, sink) of results whose C was still in flight at
+            # finalize (sharded, on the card), observed once complete.
+            self._in_flight: List[
+                Tuple[Completion, Callable[[float], None]]] = []
+            self._in_flight_lock = threading.Lock()
 
     # -- public API ---------------------------------------------------------
     def _effective_config(self, config: Optional[SpgemmConfig]
@@ -1039,8 +1084,8 @@ class SpgemmEngine:
         # finalize: it rides the record and _finalize closes it.
         span = tel.start_span("shard" if _sub else "request",
                               parent=_parent, uid=uid, method=config.method)
-        a_sig, b_sig = MatrixSig.of(A), MatrixSig.of(B)
         with tel.span("plan_lookup", parent=span, uid=uid) as lookup:
+            a_sig, b_sig = MatrixSig.of(A), MatrixSig.of(B)
             entry = self.cache.get((a_sig, b_sig, config))
             lookup.set(hit=entry is not None)
             if entry is None:
@@ -1048,8 +1093,9 @@ class SpgemmEngine:
         entry.stats.calls += 1
         # Operand storage padded to the signature buckets, so every request
         # in the bucket presents the same shapes.
-        A = A.with_capacity(a_sig.cap_bucket)
-        B = B.with_capacity(b_sig.cap_bucket)
+        with profiler_range("operand_pad"):
+            A = A.with_capacity(a_sig.cap_bucket)
+            B = B.with_capacity(b_sig.cap_bucket)
 
         plan = entry.plan
         est_timings: Optional[Dict[str, float]] = None
@@ -1071,25 +1117,27 @@ class SpgemmEngine:
                 result, prod_cap, nnz_cap, hash_sched = _execute_steps(
                     A, B, plan,
                     StepTimer(config.timing or not plan.is_specialized,
-                              tracer=tel, uid=uid),
+                              tracer=tel, uid=uid, stats=self.stats),
                     headroom=state.headroom)
             if tel.enabled:
                 self._hist_cold.observe(cold.dur)
             if not plan.is_specialized:
                 # Progressive allocation: learn the buckets (and the launch
                 # schedule the run just used) for the steady state.
-                specialized = plan.with_capacities(prod_cap, nnz_cap)
-                if hash_sched is not None:
-                    specialized = specialized.with_hash_schedule(
-                        hash_sched).with_policy(state)
-                self.cache.specialize(entry, specialized)
+                with profiler_range("plan_specialize"):
+                    specialized = plan.with_capacities(prod_cap, nnz_cap)
+                    if hash_sched is not None:
+                        specialized = specialized.with_hash_schedule(
+                            hash_sched).with_policy(state)
+                    self.cache.specialize(entry, specialized)
             entry.stats.steps_calls += 1
             entry.stats.time_s += time.perf_counter() - t0
             return _Finished(uid, result, span=span, t0=t0)
 
         # The lease comes BEFORE the pipeline: a forced pressure trim
         # re-specializes the entry, and the build must see that plan.
-        lease, spill = self._lease_workspace(entry, uid, A.device)
+        with profiler_range("lease"):
+            lease, spill = self._lease_workspace(entry, uid, A.device)
         if spill:
             # Fused->two-pass spill: this call runs the unleased steps
             # path (the same C); the plan and its pipeline stay cached for
@@ -1099,7 +1147,8 @@ class SpgemmEngine:
             with tel.span("arena_spill_steps", parent=span, uid=uid):
                 result, _, _, _ = _execute_steps(
                     A, B, entry.plan,
-                    StepTimer(config.timing, tracer=tel, uid=uid),
+                    StepTimer(config.timing, tracer=tel, uid=uid,
+                              stats=self.stats),
                     headroom=state.headroom)
             entry.stats.steps_calls += 1
             entry.stats.time_s += time.perf_counter() - t0
@@ -1308,7 +1357,7 @@ class SpgemmEngine:
         t_fin = time.perf_counter()
         tel = self.telemetry
         spec = rec.spec
-        with tel.span("verify_slices", uid=rec.uid):
+        with host_read(tel, self.stats, "verify_slices", uid=rec.uid):
             bounds = torch.tensor(spec.bounds, dtype=torch.long,
                                   device=rec.A.rpt.device)
             slice_nnz = rec.A.rpt[bounds].tolist()
@@ -1384,7 +1433,7 @@ class SpgemmEngine:
         if method == "hash" and plan.config.fuse_numeric:
             C, tnp, tnz, sym_binning, num_binning, sym_fall = rec.handles
             nb = sym_binning.bin_size.shape[0]
-            with tel.span("verify_sync", uid=rec.uid):
+            with host_read(tel, self.stats, "verify_sync", uid=rec.uid):
                 fetched = _host_ints(tnp, tnz, sym_binning.bin_size,
                                      sym_fall)
             total_nprod, total_nnz = fetched[0], fetched[1]
@@ -1397,7 +1446,7 @@ class SpgemmEngine:
              sym_fall, num_fall) = rec.handles
             ns = sym_binning.bin_size.shape[0]
             nn = num_binning.bin_size.shape[0]
-            with tel.span("verify_sync", uid=rec.uid):
+            with host_read(tel, self.stats, "verify_sync", uid=rec.uid):
                 fetched = _host_ints(tnp, tnz, sym_binning.bin_size,
                                      num_binning.bin_size, sym_fall,
                                      num_fall)
@@ -1411,7 +1460,7 @@ class SpgemmEngine:
                 admit["num_fall"])
         else:
             C, tnp, tnz, sym_binning, num_binning = rec.handles
-            with tel.span("verify_sync", uid=rec.uid):
+            with host_read(tel, self.stats, "verify_sync", uid=rec.uid):
                 total_nprod, total_nnz = _host_ints(tnp, tnz)
             schedule_ok = True
             admit = None
@@ -1531,7 +1580,7 @@ class SpgemmEngine:
         with tel.span("grow_redo", uid=rec.uid):
             result, prod_cap, nnz_cap, hash_sched = _execute_steps(
                 rec.A, rec.B, grown,
-                StepTimer(False, tracer=tel, uid=rec.uid),
+                StepTimer(False, tracer=tel, uid=rec.uid, stats=self.stats),
                 headroom=state.headroom)
         rec.entry.stats.steps_calls += 1
         respecialized = grown.with_capacities(prod_cap, nnz_cap)

@@ -152,6 +152,9 @@ class EngineStats(_RegistryStats):
     estimate_hits     estimated plans confirmed by an admitted finalize
     estimate_misses   estimated plans corrected by an overflow redo
     faults_injected   scheduled FaultPlan injections this engine consumed
+    host_syncs        waits of the host on the device (each a span marked
+                      ``sync=True``): the steps path's reads and step
+                      waits, finalize's verify read; always counted
     """
 
     _PREFIX = "opsparse_engine_"
@@ -160,7 +163,7 @@ class EngineStats(_RegistryStats):
                  "auto_requests", "policy_revisions", "schedule_trims",
                  "arena_pressure", "arena_trims", "arena_spills",
                  "estimates", "estimate_hits", "estimate_misses",
-                 "faults_injected")
+                 "faults_injected", "host_syncs")
     _GAUGES = ("peak_inflight",)
 
 

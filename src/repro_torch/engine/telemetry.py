@@ -1,14 +1,15 @@
 """Structured tracing and metrics for the port's SpGEMM engine.
 
-A port of ``repro/engine/telemetry.py`` (it imports neither torch nor
-anything of the engine, so stats, cache and executor depend on it freely):
+A port of ``repro/engine/telemetry.py`` (it imports nothing of the
+engine, and torch only at the first profiler range, so stats, cache and
+executor depend on it freely):
 
 :class:`Telemetry`
     One handle per engine: a span tracer, a :class:`MetricsRegistry` and a
     bounded :class:`EventLog`.  Disabled by default: every span or event
-    call returns at once and reads no clock, so the steady dispatch stays
-    free of host work; the registry still backs ``EngineStats`` and
-    ``PlanStats``.
+    call returns at once, reads no clock and, with the profiler off, runs
+    no torch op, so the steady dispatch stays free of host work; the
+    registry still backs ``EngineStats`` and ``PlanStats``.
 
 Spans
     Wall-clock intervals with explicit parent/child links and a request
@@ -16,7 +17,11 @@ Spans
     span stays open across dispatch and finalize on the engine's record.
     Spans time the host: a span around a dispatch measures the enqueue,
     and only a span that ends in a host read (``verify_sync``) covers the
-    device work before it.
+    device work before it.  A ``with``-span is also a ``torch.profiler``
+    range while the profiler records, enabled or not
+    (:func:`profiler_range`, the port's one range helper): the trace
+    names what the host did and which range launched each device
+    operation, on the trace's own clock.
 
 Metrics
     Counters, gauges and histograms with fixed pow-2 latency buckets.
@@ -260,13 +265,14 @@ class Span:
     """One wall-clock interval with explicit parentage.
 
     Usable as a context manager (pushes onto the telemetry's thread-local
-    stack so inner spans nest under it) or held open across async
-    boundaries and closed with :meth:`Telemetry.end_span` — the engine
-    keeps each request's span on its pending record until finalize.
+    stack so inner spans nest under it, and opens the span's profiler
+    range, ``range_name`` or its name, for as long) or held open across
+    async boundaries and closed with :meth:`Telemetry.end_span` — the
+    engine keeps each request's span on its pending record until finalize.
     """
 
     __slots__ = ("_tel", "name", "span_id", "parent_id", "uid", "t0", "t1",
-                 "attrs")
+                 "attrs", "range_name", "_range")
 
     def __init__(self, tel: "Telemetry", name: str, span_id: int,
                  parent_id: Optional[int], uid: Optional[int], t0: float,
@@ -279,6 +285,8 @@ class Span:
         self.t0 = t0
         self.t1: Optional[float] = None
         self.attrs = attrs
+        self.range_name: Optional[str] = None
+        self._range = NULL_SPAN
 
     @property
     def dur(self) -> float:
@@ -290,9 +298,12 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._tel._push(self)
+        self._range = profiler_range(self.range_name or self.name)
+        self._range.__enter__()
         return self
 
     def __exit__(self, *exc) -> bool:
+        self._range.__exit__(*exc)
         self._tel._pop(self)
         self._tel.end_span(self)
         return False
@@ -327,6 +338,43 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+_torch = None   # the torch module, imported at the first range
+
+
+def profiler_range(name: str):
+    """A ``torch.profiler.record_function(name)`` range while the profiler
+    records, else :data:`NULL_SPAN`.
+
+    The one range helper of the port: the engine's ``with``-spans and the
+    drivers' ranges all open theirs here, so a range lands in the
+    profiler's trace, on its clock, and a run that is not traced pays one
+    bool check (``torch.autograd._profiler_enabled()``) and no torch op.
+    torch is imported at the first call, so this module loads without it.
+    """
+    global _torch
+    if _torch is None:
+        import torch as _torch
+    if not _torch.autograd._profiler_enabled():
+        return NULL_SPAN
+    return _torch.profiler.record_function(name)
+
+
+class _RangeSpan(_NullSpan):
+    """A disabled handle's ``with``-span while the profiler records: the
+    span's profiler range, and no record."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, rng):
+        self._range = rng
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._range.__exit__(*exc)
 
 
 class EventLog:
@@ -407,15 +455,15 @@ class Telemetry:
         return stack[-1] if stack else None
 
     # -- recording ----------------------------------------------------------
-    def span(self, name: str, *, parent: Optional[Span] = None,
-             uid: Optional[int] = None, **attrs):
-        """Open a span.  With no explicit ``parent`` the current thread's
-        innermost ``with``-span is the parent; ``uid`` defaults to the
-        parent's.  Use as a context manager for synchronous work, or keep
-        the handle and :meth:`end_span` it later (async finalize)."""
+    def start_span(self, name: str, *, parent: Optional[Span] = None,
+                   uid: Optional[int] = None, **attrs):
+        """Open a span to keep and :meth:`end_span` later (async
+        finalize): a record, and no profiler range.  With no explicit
+        ``parent`` the current thread's innermost ``with``-span is the
+        parent; ``uid`` defaults to the parent's."""
         if not self.enabled:
             return NULL_SPAN
-        if parent is None or parent is NULL_SPAN:
+        if parent is None or isinstance(parent, _NullSpan):
             parent = self.current_span()
         return Span(self, name, next(self._ids),
                     parent.span_id if parent is not None else None,
@@ -423,13 +471,26 @@ class Telemetry:
                     else (parent.uid if parent is not None else None),
                     time.perf_counter(), attrs)
 
-    # ``start_span`` is the explicit-lifetime alias (no with-block).
-    start_span = span
+    def span(self, name: str, *, parent: Optional[Span] = None,
+             uid: Optional[int] = None, range_name: Optional[str] = None,
+             **attrs):
+        """Open a span for a ``with`` block: a record (as
+        :meth:`start_span`) and, while ``torch.profiler`` records, a range
+        named ``range_name`` or ``name`` (:func:`profiler_range`).  A
+        disabled handle records nothing: it gives the range alone, or,
+        with the profiler off, :data:`NULL_SPAN` (no clock, no torch
+        op)."""
+        if not self.enabled:
+            rng = profiler_range(range_name or name)
+            return rng if rng is NULL_SPAN else _RangeSpan(rng)
+        span = self.start_span(name, parent=parent, uid=uid, **attrs)
+        span.range_name = range_name
+        return span
 
     def end_span(self, span, **attrs) -> None:
         """Close an open span and commit it to the event log (idempotent;
         no-op for the disabled-mode NULL span)."""
-        if span is NULL_SPAN or not isinstance(span, Span):
+        if not isinstance(span, Span):
             return
         if span.t1 is not None:
             return

@@ -37,8 +37,12 @@ building anything, and the epilogue masks those rows.  The plain versions
 still write them empty (-1 / 0), as the reference does.  The
 sort/condense epilogue, the ESC fallback rung and the binning stay torch
 ops, as they were jnp outside any kernel.  The
-drivers mark the fallback rung and the epilogue with profiler ranges
-(``hash_fallback``, ``hash_epilogue``) so a trace splits their time.
+drivers split their device work into profiler ranges, so a trace names
+each part's time: ``hash_rungs`` (the table rungs, their row ids, masks
+and output fills), ``hash_fallback`` (the ESC rung), ``hash_alloc`` (the
+exclusive sum and C's storage) and ``hash_epilogue`` (the sort and
+condense into C); :func:`host_schedule` names its reads (``sync:bins``,
+``sync:fall``).
 
 Rows too large for the top rung go to the ESC accumulator (``core/esc``),
 as in the reference.  The reference's ``vmem_extended`` ladders add rungs
@@ -95,7 +99,6 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import esc
 from repro_torch.core.analysis import exclusive_sum_in_place, nprod_into_rpt
@@ -116,6 +119,14 @@ INT32_MAX = np.iinfo(np.int32).max
 # The value types of the CUDA kernels, by the suffix of their C entry points.
 VALUE_TYPES = {torch.float32: "", torch.bfloat16: "_bf16",
                torch.float16: "_f16"}
+
+
+def _range(name: str):
+    """``engine.telemetry.profiler_range``, bound at the first call (the
+    engine package imports this module, so this one cannot import it)."""
+    global _range
+    from repro_torch.engine.telemetry import profiler_range as _range
+    return _range(name)
 
 
 def _is_pow2(n: int) -> bool:
@@ -992,13 +1003,14 @@ def symbolic_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder,
     _check_schedule(row_buckets, ladder, fallback_prod_capacity)
     m = A.nrows
     dev = A.device
-    nnz_buf = torch.zeros(m + 2, dtype=torch.int32, device=dev)
-    accesses = torch.zeros((), dtype=torch.int64, device=dev)
-    sub_prod = torch.zeros((), dtype=torch.int64, device=dev)
+    with _range("hash_rungs"):
+        nnz_buf = torch.zeros(m + 2, dtype=torch.int32, device=dev)
+        accesses = torch.zeros((), dtype=torch.int64, device=dev)
+        sub_prod = torch.zeros((), dtype=torch.int64, device=dev)
 
     if row_buckets[-1]:
         # Global-memory-analog rung: ESC on the gathered sub-matrix.
-        with record_function("hash_fallback"):
+        with _range("hash_fallback"):
             rows, valid = _fallback_rows(binning, ladder, row_buckets[-1], m)
             sub = gather_rows(A, rows, valid)
             sub_prod = _fallback_sub_prod(A, B, rows, valid)
@@ -1007,20 +1019,22 @@ def symbolic_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder,
                                    workspace=workspace)
             _scatter_nnz(nnz_buf, rows, valid, sub_nnz[:rows.shape[0]], m)
 
-    for b in range(len(ladder.table_sizes) - 1, -1, -1):
-        rows_cap = row_buckets[b]
-        if not rows_cap:
-            continue
-        pack = min(ladder.rows_per_block[b] if row_packing else 1, rows_cap)
-        rows, count = binning.rows_of_bin(b, rows_cap)
-        nnz_bin, acc_bin = symbolic_bin_call(
-            rows, count.reshape(1), A.rpt, A.col, B.rpt, B.col,
-            t_size=ladder.table_sizes[b], rows_cap=rows_cap, pack=pack,
-            single_access=single_access)
-        valid = torch.arange(rows_cap, device=dev) < count
-        _scatter_nnz(nnz_buf, rows, valid, nnz_bin, m)
-        if collect_accesses:
-            accesses = accesses + acc_bin.masked_fill(~valid, 0).sum()
+    with _range("hash_rungs"):
+        for b in range(len(ladder.table_sizes) - 1, -1, -1):
+            rows_cap = row_buckets[b]
+            if not rows_cap:
+                continue
+            pack = min(ladder.rows_per_block[b] if row_packing else 1,
+                       rows_cap)
+            rows, count = binning.rows_of_bin(b, rows_cap)
+            nnz_bin, acc_bin = symbolic_bin_call(
+                rows, count.reshape(1), A.rpt, A.col, B.rpt, B.col,
+                t_size=ladder.table_sizes[b], rows_cap=rows_cap, pack=pack,
+                single_access=single_access)
+            valid = torch.arange(rows_cap, device=dev) < count
+            _scatter_nnz(nnz_buf, rows, valid, nnz_bin, m)
+            if collect_accesses:
+                accesses = accesses + acc_bin.masked_fill(~valid, 0).sum()
 
     return nnz_buf[:m + 1], sub_prod, accesses
 
@@ -1054,7 +1068,8 @@ def fallback_capacity_bucket(sub_prod: int, *, headroom: float) -> int:
 
 
 def host_schedule(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
-                  headroom: float = 1.0, packs: Optional[Tuple[int, ...]] = None):
+                  headroom: float = 1.0,
+                  packs: Optional[Tuple[int, ...]] = None, read=None):
     """Host-side schedule derivation (the cold path's metadata sync).
 
     Reads the bin sizes, buckets each rung's row count to a pow-2 capacity
@@ -1062,9 +1077,14 @@ def host_schedule(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
     reads its product total to size the ESC expansion.  ``headroom``
     over-provisions the buckets so steady-state bin-count jitter stays
     inside them; ``packs`` (per table rung) floors each populated rung's
-    bucket at its rows-per-block.
+    bucket at its rows-per-block.  Each read runs inside ``read(name)``
+    (``sync:bins``, ``sync:fall``): the engine's steps path passes its
+    ``StepTimer.read``, which counts it; alone, a read gets its profiler
+    range.
     """
-    sizes = binning.bin_size.tolist()           # host sync: launch schedule
+    read = read or _range
+    with read("sync:bins"):
+        sizes = binning.bin_size.tolist()       # host sync: launch schedule
     m_cap = next_bucket(binning.bins.shape[0], minimum=_ROW_BUCKET_MIN)
     row_buckets = tuple(
         schedule_bucket(
@@ -1073,9 +1093,10 @@ def host_schedule(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
         for b, s in enumerate(sizes))
     fallback_prod_capacity = 0
     if row_buckets[-1]:
-        rows, valid = _fallback_rows(binning, ladder, row_buckets[-1],
-                                     A.nrows)
-        sub_prod = int(_fallback_sub_prod(A, B, rows, valid))  # host sync
+        with read("sync:fall"):
+            rows, valid = _fallback_rows(binning, ladder, row_buckets[-1],
+                                         A.nrows)
+            sub_prod = int(_fallback_sub_prod(A, B, rows, valid))  # sync
         fallback_prod_capacity = fallback_capacity_bucket(
             sub_prod, headroom=headroom)
     return row_buckets, fallback_prod_capacity
@@ -1116,13 +1137,15 @@ def numeric_scheduled(A: CSR, B: CSR, rpt: torch.Tensor, binning: Binning,
     _check_schedule(row_buckets, ladder, fallback_prod_capacity)
     m, n = A.nrows, B.ncols
     dev = A.device
-    c_col = torch.zeros(nnz_capacity + 1, dtype=torch.int32, device=dev)
-    c_val = torch.zeros(nnz_capacity + 1, dtype=A.val.dtype, device=dev)
-    accesses = torch.zeros((), dtype=torch.int64, device=dev)
-    sub_prod = torch.zeros((), dtype=torch.int64, device=dev)
+    with _range("hash_alloc"):
+        c_col = torch.zeros(nnz_capacity + 1, dtype=torch.int32, device=dev)
+        c_val = torch.zeros(nnz_capacity + 1, dtype=A.val.dtype, device=dev)
+    with _range("hash_rungs"):
+        accesses = torch.zeros((), dtype=torch.int64, device=dev)
+        sub_prod = torch.zeros((), dtype=torch.int64, device=dev)
 
     if row_buckets[-1]:
-        with record_function("hash_fallback"):
+        with _range("hash_fallback"):
             rows, valid = _fallback_rows(binning, ladder, row_buckets[-1], m)
             sub = gather_rows(A, rows, valid)
             sub_prod = _fallback_sub_prod(A, B, rows, valid)
@@ -1137,17 +1160,19 @@ def numeric_scheduled(A: CSR, B: CSR, rpt: torch.Tensor, binning: Binning,
         rows_cap = row_buckets[b]
         if not rows_cap:
             continue
-        rows, count = binning.rows_of_bin(b, rows_cap)
-        col_tabs, val_tabs, acc_bin = numeric_bin_call(
-            rows, count.reshape(1), A.rpt, A.col, A.val, B.rpt, B.col, B.val,
-            t_size=ladder.table_sizes[b], rows_cap=rows_cap,
-            single_access=single_access)
-        with record_function("hash_epilogue"):
+        with _range("hash_rungs"):
+            rows, count = binning.rows_of_bin(b, rows_cap)
+            col_tabs, val_tabs, acc_bin = numeric_bin_call(
+                rows, count.reshape(1), A.rpt, A.col, A.val, B.rpt, B.col,
+                B.val, t_size=ladder.table_sizes[b], rows_cap=rows_cap,
+                single_access=single_access)
+        with _range("hash_epilogue"):
             numeric_epilogue(col_tabs, val_tabs, rows, count, rpt, c_col,
                              c_val, nnz_capacity=nnz_capacity)
         if collect_accesses:
-            valid = torch.arange(rows_cap, device=dev) < count
-            accesses = accesses + acc_bin.masked_fill(~valid, 0).sum()
+            with _range("hash_rungs"):
+                valid = torch.arange(rows_cap, device=dev) < count
+                accesses = accesses + acc_bin.masked_fill(~valid, 0).sum()
 
     C = CSR(rpt=rpt, col=c_col[:nnz_capacity], val=c_val[:nnz_capacity],
             shape=(m, n))
@@ -1264,16 +1289,17 @@ def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
     _check_schedule(row_buckets, ladder, fallback_prod_capacity)
     m, n = A.nrows, B.ncols
     dev = A.device
-    nnz_buf = torch.zeros(m + 2, dtype=torch.int32, device=dev)
-    accesses = torch.zeros((), dtype=torch.int64, device=dev)
-    sub_prod = torch.zeros((), dtype=torch.int64, device=dev)
+    with _range("hash_rungs"):
+        nnz_buf = torch.zeros(m + 2, dtype=torch.int32, device=dev)
+        accesses = torch.zeros((), dtype=torch.int64, device=dev)
+        sub_prod = torch.zeros((), dtype=torch.int64, device=dev)
     fallback = None
     kept = []
 
     if row_buckets[-1]:
         # Global-memory-analog rung, fused form: one ESC expansion yields
         # both the sub-result values AND (via its rpt) the per-row nnz.
-        with record_function("hash_fallback"):
+        with _range("hash_fallback"):
             rows, valid = _fallback_rows(binning, ladder, row_buckets[-1], m)
             sub = gather_rows(A, rows, valid)
             sub_prod = _fallback_sub_prod(A, B, rows, valid)
@@ -1284,28 +1310,30 @@ def fused_scheduled(A: CSR, B: CSR, binning: Binning, ladder: BinLadder, *,
             _scatter_nnz(nnz_buf, rows, valid, subC.nnz_per_row(), m)
         fallback = (subC, rows, valid)
 
-    rungs = fused_rungs(binning, ladder, row_buckets,
-                        row_packing=row_packing)
-    outs = launch_fused_rungs(A, B, rungs, single_access=single_access)
-    for rung, (nnz_bin, col_tabs, val_tabs, acc_bin) in zip(rungs, outs):
-        rows, count = rung.rows, rung.count
-        valid = torch.arange(rung.rows_cap, device=dev) < count
-        _scatter_nnz(nnz_buf, rows, valid, nnz_bin, m)
-        if collect_accesses:
-            accesses = accesses + acc_bin.masked_fill(~valid, 0).sum()
-        kept.append((rows, count, col_tabs, val_tabs))
+    with _range("hash_rungs"):
+        rungs = fused_rungs(binning, ladder, row_buckets,
+                            row_packing=row_packing)
+        outs = launch_fused_rungs(A, B, rungs, single_access=single_access)
+        for rung, (nnz_bin, col_tabs, val_tabs, acc_bin) in zip(rungs, outs):
+            rows, count = rung.rows, rung.count
+            valid = torch.arange(rung.rows_cap, device=dev) < count
+            _scatter_nnz(nnz_buf, rows, valid, nnz_bin, m)
+            if collect_accesses:
+                accesses = accesses + acc_bin.masked_fill(~valid, 0).sum()
+            kept.append((rows, count, col_tabs, val_tabs))
 
     nnz_buf = nnz_buf[:m + 1]
     nnz = nnz_buf[:m]
-    rpt = exclusive_sum_in_place(nnz_buf)
-    c_col = torch.zeros(nnz_capacity + 1, dtype=torch.int32, device=dev)
-    c_val = torch.zeros(nnz_capacity + 1, dtype=A.val.dtype, device=dev)
+    with _range("hash_alloc"):
+        rpt = exclusive_sum_in_place(nnz_buf)
+        c_col = torch.zeros(nnz_capacity + 1, dtype=torch.int32, device=dev)
+        c_val = torch.zeros(nnz_capacity + 1, dtype=A.val.dtype, device=dev)
     if fallback is not None:
         subC, rows, valid = fallback
-        with record_function("hash_fallback"):
+        with _range("hash_fallback"):
             scatter_sub_rows(subC, rows, valid, rpt, c_col, c_val,
                              nnz_capacity=nnz_capacity)
-    with record_function("hash_epilogue"):
+    with _range("hash_epilogue"):
         for rows, count, col_tabs, val_tabs in kept:
             numeric_epilogue(col_tabs, val_tabs, rows, count, rpt, c_col,
                              c_val, nnz_capacity=nnz_capacity)

@@ -735,7 +735,7 @@ MUTATIONS = [
     ("fused_branch", "engine/executor.py", "total_nnz = nnz.sum()", 2,
      "if nnz.sum() > 0:\n    pass", "TRC002"),
     ("nnz_buf_after_sum", "engine/executor.py",
-     'rpt = timer.measure("alloc", exclusive_sum_in_place(nnz_buf))', 0,
+     "rpt = exclusive_sum_in_place(nnz_buf)", 0,
      "_ = nnz_buf[:m]", "DON001"),
     ("caches_after_decode", "launch/steps.py",
      "logits, new_caches = model.decode_step(", 0, "_ = caches", "DON001",
